@@ -1,0 +1,564 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+    python3 chip_smoke.py
+
+Needs one CUDA card and the CUDA toolkit (nvcc).  Phases, in order; the
+first fault exits non-zero and prints no result:
+
+  1. the card: ``nvidia-smi`` name and power limit, torch's device name;
+  2. build both kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
+     each, in parallel) and print the build's seconds and ptxas summary;
+  3. imc_eval against its plain version on the card, rtol 1e-5 on the
+     energy and latency sums, exact demand and equal fits / valid, at the
+     main path's two shapes (joint: B=8, P=40, W=4, L=64; separate: B=4,
+     P=40, W=1, L=64, one CNN per search), at padding edges (P=129, L=65,
+     W=3, ragged masks, integer layer features) and at a large population
+     (B=16, P=4096);
+  4. ga_gen_step against the plain generation step on the card, fed the
+     same uniform blocks and tables: P in {15, 16, 40, 1024}, B=4 searches
+     over different workload subsets (W=4 tables) and over one CNN each
+     (W=1 tables, the separate search's shape), 4 chained generations,
+     every output bit-exact;
+  5. the main path through ``repro_torch.launch.search.main`` (8 seeds,
+     pop 40, 10 generations, with separate baselines), once with
+     ``--backend kernel`` and once with ``--backend table``: each kernel's
+     launch count is set to 0 just before its run and must be above 0
+     after it; the joint search's best (over its 8 seeds) must beat or tie
+     every separate winner re-scored on all four CNNs (5% slack; per seed
+     the claim can miss, on the JAX package too, and the count is only
+     logged), and each seed's joint best on all four CNNs and each separate
+     winner's own best on its CNN must re-score to themselves on the plain
+     dense path (rtol 1e-5);
+  6. the main path once more per backend under torch.profiler: device
+     busy time, idle share and the top device activities (not counted);
+  7. one JSON line ``{"kernels": [...]}``: launches on the main path,
+     max error, kernel and plain times per call (CUDA events, after a
+     warm-up, in turns plain/kernel/kernel/plain; at these sizes they
+     include the host's launch overhead), the same work's device time
+     from the profiler (``device_ms``, ``plain_device_ms``) and the bound
+     for this run's inputs;
+  8. the last line: ``{"ok": true, "device": {...}}``.
+
+Timings at every shape and the traces are printed as one
+``[smoke] timings {...}`` JSON line before the kernels line.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# NVIDIA H100 SXM, dense peaks at 700 W (data sheet): HBM3 bytes/s and
+# float32 operations/s outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_S = 67e12
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(msg: str) -> None:
+    print(f"[smoke] {msg}", flush=True)
+
+
+def bound(bytes_moved: float, ops: float):
+    t_bytes = bytes_moved / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_FP32_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def cuda_ms(fn, iters: int) -> float:
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def _profiled(torch, fn):
+    """Run ``fn`` under torch.profiler with CUDA activity; returns (the
+    profile, host seconds), or (None, seconds) when the profiler could not
+    trace the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    try:
+        prof.start()
+    except RuntimeError as e:  # the tracer, never fn: times read "not measured"
+        log(f"profiler could not start: {e}")
+        prof = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        wall = time.perf_counter() - t0
+        if prof is not None:
+            prof.stop()
+    return prof, wall
+
+
+def device_kernels(prof, iters: int = 1) -> dict:
+    """{device activity name: [ms per iteration, count]} from a profile."""
+    from torch.autograd import DeviceType
+
+    out: dict = {}
+    if prof is None:
+        return out
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            rec = out.setdefault(evt.name, [0.0, 0])
+            rec[0] += evt.time_range.elapsed_us() / 1e3 / iters
+            rec[1] += 1
+    return out
+
+
+def device_ms(torch, fn, iters: int, name: str = ""):
+    """Per-call device time (ms) of the device work ``fn`` enqueues (only
+    activities whose name contains ``name``), or None if not traced."""
+    fn()
+
+    def many():
+        for _ in range(iters):
+            fn()
+
+    prof, _ = _profiled(torch, many)
+    mine = [ms for n, (ms, _) in device_kernels(prof, iters).items() if name in n]
+    return sum(mine) if mine else None
+
+
+def timed_pair(plain, kernel, iters: int):
+    """(kernel ms, plain ms), warmed up, timed in turns plain, kernel,
+    kernel, plain; each the mean of its two turns."""
+    import torch
+
+    for _ in range(3):
+        plain()
+        kernel()
+    torch.cuda.synchronize()
+    p1 = cuda_ms(plain, iters)
+    k1 = cuda_ms(kernel, iters)
+    k2 = cuda_ms(kernel, iters)
+    p2 = cuda_ms(plain, iters)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+# ------------------------------------------------------------------ phases
+def phase_card(torch):
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    name = torch.cuda.get_device_name(0)
+    log(f"torch {torch.__version__} (CUDA {torch.version.cuda}) on {name}; "
+        f"{torch.cuda.device_count()} device(s)")
+    return card, name
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    secs = _build.build()
+    log(f"built {sorted(secs) or 'nothing (cached)'} in "
+        f"{time.perf_counter() - t0:.2f}s ({secs})")
+    for name in _build.KERNELS:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {name}: {line.strip()}")
+
+
+def _paper_ws():
+    from repro_torch.workloads.cnn import PAPER_WORKLOADS, cnn_workload
+    from repro_torch.workloads.pack import pack_workloads
+
+    return pack_workloads([(n, cnn_workload(n)) for n in PAPER_WORKLOADS])
+
+
+def _designs(torch, B, P, gen, dev):
+    from repro_torch.core import space
+
+    g = torch.rand((B, P, space.N_GENES), generator=gen, device=dev)
+    return torch.stack(list(space.decode(g)), dim=-1)
+
+
+def b1_inputs(torch, B, P, W, L, gen, dev, paper, kind):
+    """Designs (B, P, 9), feats (B, W, L, 6), mask (B, W, L).  ``kind``
+    "joint": every search over the 4 paper CNNs; "separate": search b over
+    CNN b alone (W=1), as ``core/search.py:separate_search`` packs them;
+    "random": integer-valued random layers with ragged masks."""
+    designs = _designs(torch, B, P, gen, dev)
+    if kind == "joint":
+        feats = paper.feats[None].expand(B, -1, -1, -1).to(dev).contiguous()
+        mask = paper.mask[None].expand(B, -1, -1).to(dev).contiguous()
+        return designs, feats, mask
+    if kind == "separate":
+        return designs, paper.feats[:, None].to(dev), paper.mask[:, None].to(dev)
+    feats = torch.round(torch.randn((B, W, L, 6), generator=gen, device=dev).abs()
+                        * 100 + 1)
+    n_layers = torch.randint(1, L + 1, (B, W), generator=gen, device=dev)
+    n_layers[..., 0] = L  # one full-length workload per search
+    mask = torch.arange(L, device=dev) < n_layers[..., None]
+    return designs, feats, mask
+
+
+def phase_b1(torch, dev, paper, timings):
+    from repro_torch.imc.cost import DesignArrays, evaluate_designs_arrays
+    from repro_torch.kernels.imc_eval import ref
+    from repro_torch.kernels.imc_eval.ops import (
+        evaluate_designs_kernel_arrays,
+        imc_eval_multi,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    cases = [("main", 8, 40, 4, 64, "joint"), ("separate", 4, 40, 1, 64, "separate"),
+             ("edges", 2, 129, 3, 65, "random"), ("large", 16, 4096, 4, 64, "joint")]
+    errs = {}
+    for label, B, P, W, L, kind in cases:
+        designs, feats, mask = b1_inputs(torch, B, P, W, L, gen, dev, paper, kind)
+        k = imc_eval_multi(designs, feats, mask)
+        p = ref.eval_workloads(designs, feats, mask)
+        torch.cuda.synchronize()
+        abs_err, rel_err = 0.0, 0.0
+        for what, a, b in zip(("energy", "latency", "demand"), k, p):
+            check(tuple(a.shape) == (B, W, P), f"B1 {label} {what} shape {tuple(a.shape)}")
+            check(bool(torch.isfinite(a).all()), f"B1 {label} {what} not finite")
+            try:
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=0.0)
+            except AssertionError as e:
+                raise SmokeFailure(f"B1 {label} {what} vs plain: {e}") from None
+            abs_err = max(abs_err, float((a - b).abs().max()))
+            rel_err = max(rel_err, float(((a - b).abs() / b.abs().clamp_min(1e-30)).max()))
+        # integer layer features: demand sums integers below 2^24
+        check(torch.equal(k[2], p[2]), f"B1 {label}: demand not exact")
+        d = DesignArrays(*designs.unbind(-1))
+        rk = evaluate_designs_kernel_arrays(d, feats, mask)
+        rp = evaluate_designs_arrays(d, feats, mask)
+        torch.cuda.synchronize()
+        check(torch.equal(rk.fits, rp.fits), f"B1 {label}: fits differ")
+        check(torch.equal(rk.valid, rp.valid), f"B1 {label}: valid differ")
+        for what in ("energy_pj", "latency_ns"):
+            try:
+                torch.testing.assert_close(getattr(rk, what), getattr(rp, what),
+                                           rtol=1e-5, atol=0.0)
+            except AssertionError as e:
+                raise SmokeFailure(f"B1 {label} {what} vs dense: {e}") from None
+        errs[label] = (abs_err, rel_err)
+        log(f"B1 {label} (B={B}, P={P}, W={W}, L={L}): ok, max abs err "
+            f"{abs_err:.6g}, max rel err {rel_err:.3g}")
+
+        def plain_fn(designs=designs, feats=feats, mask=mask):
+            ref.eval_workloads(designs, feats, mask)
+
+        def kernel_fn(designs=designs, feats=feats, mask=mask):
+            imc_eval_multi(designs, feats, mask)
+
+        k_ms, p_ms = timed_pair(plain_fn, kernel_fn, 50 if P < 1000 else 20)
+        n_bytes = (designs.numel() * 4 + feats.numel() * 4 + mask.numel()
+                   + 3 * B * W * P * 4)
+        ops = 40.0 * P * float(mask.sum())
+        b_ms, b_by = bound(n_bytes, ops)
+        k_dev = device_ms(torch, kernel_fn, 20, "imc_eval_kernel")
+        p_dev = device_ms(torch, plain_fn, 20)
+        timings[f"imc_eval/{label}"] = dict(
+            B=B, P=P, W=W, L=L, ms=k_ms, plain_ms=p_ms, device_ms=k_dev,
+            plain_device_ms=p_dev, bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
+            ops=ops)
+        log(f"B1 {label}: kernel {k_ms:.4f} ms per call ({_ms(k_dev)} on the "
+            f"device), plain {p_ms:.4f} ms ({_ms(p_dev)} on the device), "
+            f"bound {b_ms:.6f} ms ({b_by})")
+    return errs["main"]
+
+
+def _ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
+def b2_case(torch, dev, P, subsets, gen):
+    """One B2 case: tables (B, W, ...) over per-search workload subsets,
+    kinds and areas per search, a population, its scores, and 4 blocks."""
+    from repro_torch.core import space
+    from repro_torch.core.ga import block_layout
+    from repro_torch.imc.tables import WorkloadTables, build_tables_arrays
+    from repro_torch.kernels.ga_gen_step.ref import table_scores
+
+    ws = _paper_ws()
+    W = max(len(s) for s in subsets)
+    per = []
+    for s in subsets:
+        sub = ws.subset(s)
+        t = build_tables_arrays(sub.feats.to(dev), sub.mask.to(dev))
+        extra = W - len(s)
+        per.append(WorkloadTables(*(
+            torch.cat([x, x.new_zeros((extra, *x.shape[1:]))]) for x in t)))
+    tables = WorkloadTables(*(torch.stack(x) for x in zip(*per)))
+    B = len(subsets)
+    kind = torch.arange(B, device=dev) % 4
+    area = torch.tensor([(150.0, 1e9, 100.0, 150.0)[i % 4] for i in range(B)],
+                        device=dev)
+    pop = torch.rand((B, P, space.N_GENES), generator=gen, device=dev)
+    scores = table_scores(pop, tables, kind, area)
+    tot = block_layout(P, space.N_GENES).tot
+    u = torch.rand((4, B, tot), generator=gen, device=dev)
+    return tables, kind, area, pop, scores, u
+
+
+def b2_bound(B, P, W, tot, R, C, Bc, Gn):
+    """Bytes each input read once and each output written once, and
+    float operations counted from the kernel source per generation."""
+    n = 9
+    n_pairs = (P + 1) // 2
+    N = 1 << max(1, (2 * P - 1).bit_length())
+    stages = int(math.log2(N)) * (int(math.log2(N)) + 1) // 2
+    tab = W * (R * C * Bc + C * Bc + Gn + 4)
+    n_bytes = 4 * B * (P * n + P + tot + tab + 2) + 4 * B * (2 * P * n + 2 * P)
+    ops = B * (n_pairs * n * 16 + P * n * 20 + P * (n + 30 + 30 * W)
+               + (N // 2) * stages * 3)
+    return n_bytes, ops
+
+
+def phase_b2(torch, dev, timings):
+    from repro_torch.core import space
+    from repro_torch.kernels.ga_gen_step.ops import ga_gen_step
+    from repro_torch.kernels.ga_gen_step.ref import ga_gen_step_ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    # mixed subsets padded to W=4; one CNN per search (W=1), as the
+    # separate search runs
+    for subsets in ([[0], [1, 2], [0, 1, 2, 3], [3]], [[0], [1], [2], [3]]):
+        W = max(len(s) for s in subsets)
+        for P in (15, 16, 40, 1024):
+            tables, kind, area, pop, scores, u = b2_case(torch, dev, P, subsets, gen)
+            check(tables.demand.shape[1] == W, f"B2 tables W {tables.demand.shape}")
+            ck = cp = (pop, scores)
+            for g in range(4):
+                k = ga_gen_step(ck[0], ck[1], u[g], (tables, kind, area))
+                p = ga_gen_step_ref(cp[0], cp[1], u[g], tables, kind, area)
+                torch.cuda.synchronize()
+                for what, a, b in zip(("new_pop", "new_scores", "children",
+                                       "child_scores"), k, p):
+                    check(tuple(a.shape) == tuple(b.shape), f"B2 P={P} W={W} {what} shape")
+                    check(torch.equal(a, b),
+                          f"B2 P={P} W={W} gen {g}: {what} not bit-exact "
+                          f"(max |diff| {float((a - b).abs().nan_to_num().max())})")
+                ck, cp = (k[0], k[1]), (p[0], p[1])
+            log(f"B2 P={P} (B={len(subsets)}, W={W}, 4 generations): bit-exact")
+
+    # timings at the main path's shape (8 searches over the 4 CNNs) and at P=1024
+    for label, P, B in (("main", 40, 8), ("p1024", 1024, 8)):
+        tables, kind, area, pop, scores, u = b2_case(
+            torch, dev, P, [[0, 1, 2, 3]] * B, gen)
+        ctx = (tables, kind, area)
+
+        def plain_fn(pop=pop, scores=scores, u=u, tables=tables, kind=kind, area=area):
+            ga_gen_step_ref(pop, scores, u[0], tables, kind, area)
+
+        def kernel_fn(pop=pop, scores=scores, u=u, ctx=ctx):
+            ga_gen_step(pop, scores, u[0], ctx)
+
+        k_ms, p_ms = timed_pair(plain_fn, kernel_fn, 50)
+        gs = space.GRID_SIZES
+        n_bytes, ops = b2_bound(B, P, 4, u.shape[-1], int(gs[0]), int(gs[1]),
+                                int(gs[6]), int(gs[8]))
+        b_ms, b_by = bound(n_bytes, ops)
+        k_dev = device_ms(torch, kernel_fn, 20, "ga_gen_step_kernel")
+        p_dev = device_ms(torch, plain_fn, 20)
+        timings[f"ga_gen_step/{label}"] = dict(
+            B=B, P=P, W=4, ms=k_ms, plain_ms=p_ms, device_ms=k_dev,
+            plain_device_ms=p_dev, bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
+            ops=ops)
+        log(f"B2 {label} (B={B}, P={P}): kernel {k_ms:.4f} ms per call "
+            f"({_ms(k_dev)} on the device), plain {p_ms:.4f} ms ({_ms(p_dev)} "
+            f"on the device), bound {b_ms:.6f} ms ({b_by})")
+
+
+def phase_main_path(torch, dev, backend, counter):
+    """Drive the CLI once; return (launch count of ``counter``, entries)."""
+    from repro_torch.core.objectives import make_objective
+    from repro_torch.imc.cost import DesignArrays, evaluate_designs
+    from repro_torch.launch.search import main
+
+    ws = _paper_ws()
+    idx = {n: i for i, n in enumerate(ws.names)}
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        out = Path(tmp) / f"search_{backend}.json"
+        argv = ["--seeds", "8", "--pop", "40", "--gens", "10", "--separate",
+                "--backend", backend, "--device", str(dev), "--out", str(out)]
+        counter.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = main(argv)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = counter.launches
+        check(rc == 0, f"main path ({backend}) returned {rc}")
+        entries = json.loads(out.read_text())
+    check(launches > 0, f"main path ({backend}) launched its kernel 0 times")
+    check(len(entries) == 8, f"main path ({backend}): {len(entries)} seed entries")
+    obj = make_objective("ela", 150.0)
+
+    def rescore(design, on):
+        d = DesignArrays(*(torch.tensor([design[f]], device=dev)
+                           for f in DesignArrays._fields))
+        return float(obj(evaluate_designs(d, on))[0])
+
+    n_own = 0
+    for e in entries:
+        jb = e["joint_best"]
+        check(jb is not None and math.isfinite(jb),
+              f"{backend} seed {e['seed']}: joint search found no feasible design")
+        check(len(e["convergence"]) == 11, f"{backend}: convergence length")
+        # the joint best re-scores to itself on the plain dense path
+        s = rescore(e["best_design"], ws)
+        check(math.isclose(s, jb, rel_tol=1e-5),
+              f"{backend} seed {e['seed']}: best re-scores to {s}, reported {jb}")
+        # so does each separate winner, on its own CNN
+        check(set(e["separate"]) == set(ws.names), f"{backend}: separate names")
+        for name, sr in e["separate"].items():
+            own = sr["own_best"]
+            check(own is not None and math.isfinite(own),
+                  f"{backend} seed {e['seed']}: separate {name} found no feasible design")
+            s = rescore(sr["best_design"], ws.subset([idx[name]]))
+            check(math.isclose(s, own, rel_tol=1e-5),
+                  f"{backend} seed {e['seed']}: separate {name} best re-scores "
+                  f"to {s}, reported {own}")
+            n_own += 1
+    # the paper's claim: the joint search's best (over its 8 seeds) beats or
+    # ties every separate winner re-scored on all four CNNs
+    joint = min(e["joint_best"] for e in entries)
+    sep_all = [(e["seed"], name, s["best_on_all"]) for e in entries
+               for name, s in e["separate"].items() if s["best_on_all"] is not None]
+    for seed, name, s_all in sep_all:
+        check(joint <= s_all * 1.05,
+              f"{backend}: joint best {joint} worse than separate {name} "
+              f"(seed {seed}) re-scored on all CNNs ({s_all})")
+    per_seed = sum(e["joint_best"] <= s_all * 1.05 for e in entries
+                   for seed, _, s_all in sep_all if seed == e["seed"])
+    n_failed = sum(s["failed_frac_on_all"] for e in entries for s in e["separate"].values())
+    log(f"main path --backend {backend}: {launches} kernel launches, "
+        f"{dt:.3f}s host clock; {len(entries)} joint and {n_own} separate bests "
+        f"re-score to themselves; joint best {joint:.6g} beats or ties all "
+        f"{len(sep_all)} separate winners that fit all CNNs ({per_seed} of "
+        f"them beaten by their own seed's joint best); mean failed fraction "
+        f"of separate winners on all CNNs {n_failed / (8 * 4):.3f}")
+    return launches
+
+
+def phase_trace(torch, dev, backend, timings):
+    """The main path once more under torch.profiler (after the counted
+    run, which it does not touch): device busy time, idle share of the
+    host clock, and the device activities that take the most time."""
+    import contextlib
+    import io
+
+    from repro_torch.launch.search import main
+
+    argv = ["--seeds", "8", "--pop", "40", "--gens", "10", "--separate",
+            "--backend", backend, "--device", str(dev)]
+    with contextlib.redirect_stdout(io.StringIO()):
+        prof, wall = _profiled(torch, lambda: main(argv))
+    per = device_kernels(prof)
+    if not per:
+        timings[f"trace/{backend}"] = {"wall_s": wall, "device": "not measured"}
+        log(f"trace --backend {backend}: device time not measured")
+        return
+    busy = sum(ms for ms, _ in per.values()) / 1e3
+    top = sorted(per.items(), key=lambda kv: -kv[1][0])[:6]
+    timings[f"trace/{backend}"] = {
+        "wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
+        "device_activities": sum(c for _, c in per.values()),
+        "top": [{"name": n[:120], "ms": ms, "count": c} for n, (ms, c) in top]}
+    log(f"trace --backend {backend} (profiled): {wall:.3f}s host clock, "
+        f"device busy {busy * 1e3:.2f} ms (idle share {1.0 - busy / wall:.4f}), "
+        f"{sum(c for _, c in per.values())} device activities; top: "
+        + "; ".join(f"{n[:60]} {ms:.2f} ms x{c}" for n, (ms, c) in top[:3]))
+
+
+def run() -> dict:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is False: needs a CUDA card")
+    if not (SRC / "repro_torch").is_dir():
+        raise SmokeFailure(f"{SRC / 'repro_torch'} not found: run from a checkout")
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    card, name = phase_card(torch)
+    phase_build()
+    paper = _paper_ws()
+    timings = {"card": card}
+    b1_err = phase_b1(torch, dev, paper, timings)
+    phase_b2(torch, dev, timings)
+
+    from repro_torch.kernels.ga_gen_step.ops import ga_gen_step
+    from repro_torch.kernels.imc_eval.ops import imc_eval_multi
+
+    b1_launches = phase_main_path(torch, dev, "kernel", imc_eval_multi)
+    b2_launches = phase_main_path(torch, dev, "table", ga_gen_step)
+    for backend in ("kernel", "table"):
+        phase_trace(torch, dev, backend, timings)
+
+    log("timings " + json.dumps(timings))
+
+    t1, t2 = timings["imc_eval/main"], timings["ga_gen_step/main"]
+    kernels = [
+        {"name": "imc_eval", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/imc_eval.cu",
+         "replaces": "src/repro/kernels/imc_eval/kernel.py:47",
+         "launches": b1_launches, "max_abs_err": b1_err[0],
+         "max_rel_err": b1_err[1],
+         "ms": t1["ms"], "plain_ms": t1["plain_ms"], "bound_ms": t1["bound_ms"],
+         "bound_by": t1["bound_by"], "library_ms": None,
+         "device_ms": t1["device_ms"], "plain_device_ms": t1["plain_device_ms"]},
+        {"name": "ga_gen_step", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ga_gen_step.cu",
+         "replaces": "src/repro/kernels/ga_gen_step/kernel.py:115",
+         "launches": b2_launches, "max_abs_err": 0.0,
+         "ms": t2["ms"], "plain_ms": t2["plain_ms"], "bound_ms": t2["bound_ms"],
+         "bound_by": t2["bound_by"], "library_ms": None,
+         "device_ms": t2["device_ms"], "plain_device_ms": t2["plain_device_ms"]},
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    return {"ok": True, "device": {"platform": "gpu", "kind": name,
+                                   "count": torch.cuda.device_count()}}
+
+
+def main() -> int:
+    try:
+        result = run()
+    except SmokeFailure as e:
+        print(f"[smoke] FAIL: {e}", file=sys.stderr, flush=True)
+        return 1
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,202 @@
+"""Joint / separate hardware-workload search drivers (paper Sec. III-A, IV).
+
+Every driver is a thin wrapper: it builds ``core.engine.SearchRequest``s
+and hands them to a ``core.engine.SearchEngine`` on the requested device.
+
+``joint_search``/``run_search`` one GA over the full workload set (the
+                           paper's method): the objective reduces metrics
+                           with max over workloads.
+``separate_search``      the baseline: one GA per single workload, all W
+                           as one batched GA (``batched=False`` runs them
+                           one by one; both give identical results).
+``batched_search``       B independent GAs (any mix of workload sets and
+                           seeds) as one batched GA.
+``joint_search_batched`` multi-seed joint search on top of it.
+``rescore_designs``      re-evaluate any designs on any workload set or
+                           objective (the paper's "failed designs").
+
+Seeds are integers.  A search's randomness (its seeded population and
+its uniform blocks) comes from generators seeded by that integer, so a
+search gives the same result alone or in a batch.  ``init_genomes`` and
+``u_blocks`` replace the seeded population and the drawn blocks.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import space
+from repro_torch.core.engine import (  # noqa: F401 (re-exported API)
+    BACKENDS,
+    SearchEngine,
+    SearchRequest,
+    SearchResult,
+    _top_unique,
+    _workload_weights,
+    default_engine,
+    largest_workload_index,
+    seed_population,
+    seed_population_batched,
+)
+from repro_torch.core.objectives import make_objective
+from repro_torch.device import resolve_device
+from repro_torch.imc.cost import EvalResult, evaluate_designs
+from repro_torch.imc.tech import TECH, TechParams
+from repro_torch.workloads.pack import WorkloadSet
+
+
+def _engine(engine: Optional[SearchEngine], device) -> SearchEngine:
+    if engine is not None:
+        return engine
+    return default_engine(device)
+
+
+def split_seed(seed: int, n: int) -> List[int]:
+    """``n`` independent integer seeds derived from ``seed``: the port's
+    counterpart of ``jax.random.split(key, n)`` for per-workload searches."""
+    return [int(s) for s in np.random.SeedSequence(int(seed)).generate_state(n)]
+
+
+def run_search(
+    seed: int,
+    ws: WorkloadSet,
+    *,
+    objective: str = "ela",
+    area_constr: float = 150.0,
+    pop_size: int = 40,
+    generations: int = 10,
+    top_k: int = 10,
+    init_genomes=None,
+    u_blocks=None,
+    tech: TechParams = TECH,
+    backend: str = "dense",
+    device="cuda",
+    engine: Optional[SearchEngine] = None,
+) -> SearchResult:
+    """One joint search = a single-request engine run."""
+    req = SearchRequest(
+        ws=ws, objective=objective, area_constr=float(area_constr),
+        seed=int(seed), backend=backend, pop_size=int(pop_size),
+        generations=int(generations), top_k=int(top_k), tech=tech,
+        init_genomes=init_genomes, u_blocks=u_blocks,
+    )
+    return _engine(engine, device).run([req])[0]
+
+
+def joint_search(seed: int, ws: WorkloadSet, **kw) -> SearchResult:
+    return run_search(seed, ws, **kw)
+
+
+def batched_search(
+    seeds: Sequence[int],
+    feats,
+    mask,
+    *,
+    names: Optional[Sequence] = None,
+    objective: str = "ela",
+    area_constr: float = 150.0,
+    pop_size: int = 40,
+    generations: int = 10,
+    top_k: int = 10,
+    init_genomes=None,
+    u_blocks=None,
+    tech: TechParams = TECH,
+    backend: str = "dense",
+    device="cuda",
+    engine: Optional[SearchEngine] = None,
+) -> List[SearchResult]:
+    """B independent searches: ``seeds`` (B,), ``feats`` (B, W, L, 6),
+    ``mask`` (B, W, L), optional ``init_genomes`` (B, P, n) and
+    ``u_blocks`` (B, G, tot).  Element b gives the same result as
+    ``run_search(seeds[b], ...)`` on its own workload set."""
+    feats = torch.as_tensor(np.asarray(feats, np.float32))
+    mask = torch.as_tensor(np.asarray(mask, bool))
+    B = len(seeds)
+    if names is None:
+        names_b = [tuple(f"w{j}" for j in range(feats.shape[1]))] * B
+    elif isinstance(names[0], str):
+        names_b = [tuple(names)] * B
+    else:
+        names_b = [tuple(n) for n in names]
+    reqs = [
+        SearchRequest(
+            ws=WorkloadSet(names=names_b[b], feats=feats[b], mask=mask[b]),
+            objective=objective,
+            area_constr=float(area_constr),
+            seed=int(seeds[b]),
+            backend=backend,
+            pop_size=int(pop_size),
+            generations=int(generations),
+            top_k=int(top_k),
+            tech=tech,
+            init_genomes=None if init_genomes is None else init_genomes[b],
+            u_blocks=None if u_blocks is None else u_blocks[b],
+        )
+        for b in range(B)
+    ]
+    return _engine(engine, device).run(reqs)
+
+
+def joint_search_batched(seeds: Sequence[int], ws: WorkloadSet, **kw) -> List[SearchResult]:
+    """Multi-seed joint search: one GA per seed, all in one batched GA."""
+    B = len(seeds)
+    feats = ws.feats[None].expand(B, *ws.feats.shape)
+    mask = ws.mask[None].expand(B, *ws.mask.shape)
+    return batched_search(seeds, feats, mask, names=ws.names, **kw)
+
+
+def separate_search(
+    seed: int,
+    ws: WorkloadSet,
+    *,
+    share_init=None,
+    u_blocks=None,
+    batched: bool = True,
+    **kw,
+) -> Dict[str, SearchResult]:
+    """One single-workload GA per workload (the paper's baseline).
+    Per-workload seeds come from ``split_seed(seed, W)``; ``share_init``
+    (P, n) seeds every GA with the same population and ``u_blocks``
+    (W, G, tot) gives each its blocks.  ``batched=False`` runs the W
+    searches one by one; both paths return identical results."""
+    seeds = split_seed(seed, ws.n)
+    if batched:
+        init = None
+        if share_init is not None:
+            init = [share_init] * ws.n
+        res = batched_search(
+            seeds,
+            ws.feats[:, None],  # (W, 1, L, 6): one workload per element
+            ws.mask[:, None],
+            names=[(n,) for n in ws.names],
+            init_genomes=init,
+            u_blocks=u_blocks,
+            **kw,
+        )
+        return dict(zip(ws.names, res))
+    out = {}
+    for i, name in enumerate(ws.names):
+        out[name] = run_search(
+            seeds[i], ws.subset([i]), init_genomes=share_init,
+            u_blocks=None if u_blocks is None else u_blocks[i], **kw)
+    return out
+
+
+def rescore_designs(
+    genomes,
+    ws: WorkloadSet,
+    *,
+    objective: str = "ela",
+    area_constr: float = 150.0,
+    tech: TechParams = TECH,
+    device="cuda",
+) -> Tuple[np.ndarray, EvalResult]:
+    """Scores + full metrics of given designs on a (possibly different)
+    workload set, on the dense path: the paper's cross-evaluation."""
+    dev = resolve_device(device)
+    g = torch.as_tensor(np.asarray(genomes, np.float32), device=dev)
+    r = evaluate_designs(space.decode(g), ws, tech)
+    s = make_objective(objective, area_constr)(r)
+    return s.cpu().numpy(), r
