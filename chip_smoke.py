@@ -7,11 +7,12 @@ Needs one CUDA card and the CUDA toolkit (nvcc).  Phases, in order; the
 first fault exits non-zero and prints no result:
 
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
-  2. build both kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
-     each, in parallel) and print the build's seconds and ptxas summary;
+  2. build the four kernels from ``src/repro_torch/kernels/csrc`` (one
+     nvcc each, in parallel) and print the build's seconds and ptxas
+     summary;
   3. imc_eval against its plain version on the card, rtol 1e-5 on the
      energy and latency sums, exact demand and equal fits / valid, at the
-     main path's two shapes (joint: B=8, P=40, W=4, L=64; separate: B=4,
+     search path's two shapes (joint: B=8, P=40, W=4, L=64; separate: B=4,
      P=40, W=1, L=64, one CNN per search), at padding edges (P=129, L=65,
      W=3, ragged masks, integer layer features) and at a large population
      (B=16, P=4096);
@@ -20,25 +21,50 @@ first fault exits non-zero and prints no result:
      over different workload subsets (W=4 tables) and over one CNN each
      (W=1 tables, the separate search's shape), 4 chained generations,
      every output bit-exact;
-  5. the main path through ``repro_torch.launch.search.main`` (8 seeds,
+  5. flash_attention against ``attention_reference`` on the card: llama's
+     prefill (B=1, H=32, KV=8, D=64, bf16, S = 128, 1024, 2048) and edges
+     (ragged Sq and Skv, window 96, q_offset, D=80 and 16, non-causal,
+     rows with no valid key) within 3e-2 in bf16 (as
+     ``tests/test_kernels.py``), the JAX kernel sweep in float32 within
+     2e-5; timed at the three llama shapes beside the plain version and
+     ``scaled_dot_product_attention`` (timed only, never on the path);
+  6. ssd_scan against ``ref.ssd_chunked`` on the card: mamba2's prefill
+     (B=1, H=48, P=64, N=128, S = 96, 128, 1024, 2048) and the JAX kernel
+     sweep in float32, y and h within 1e-4 of the output's scale
+     (max(1, max|ref|): 1e-4 absolute for outputs of order one, as
+     ``tests/test_kernels.py``; y reaches ~200 at N=128), and in bf16 (the
+     model's dtype; y, rounded to bf16 by both, within 1e-2 of its scale);
+     timed in bf16 beside the plain version;
+  7. the search path through ``repro_torch.launch.search.main`` (8 seeds,
      pop 40, 10 generations, with separate baselines), once with
-     ``--backend kernel`` and once with ``--backend table``: each kernel's
-     launch count is set to 0 just before its run and must be above 0
-     after it; the joint search's best (over its 8 seeds) must beat or tie
+     ``--backend kernel`` and once with ``--backend table``: every launch
+     count is set to 0 just before a run; the run's kernel must launch and
+     no other; the joint search's best (over its 8 seeds) must beat or tie
      every separate winner re-scored on all four CNNs (5% slack; per seed
      the claim can miss, on the JAX package too, and the count is only
      logged), and each seed's joint best on all four CNNs and each separate
      winner's own best on its CNN must re-score to themselves on the plain
      dense path (rtol 1e-5);
-  6. the main path once more per backend under torch.profiler: device
+  8. the search path once more per backend under torch.profiler: device
      busy time, idle share and the top device activities (not counted);
-  7. one JSON line ``{"kernels": [...]}``: launches on the main path,
+  9. the LM serving path at full width, once per model (``llama3.2-1b``,
+     then ``mamba2-780m``, the first freed before the second loads): 8
+     requests from seed 0 (prompts of 128-1024 tokens, 16-32 new tokens)
+     through ``Engine`` with 4 slots and max_len 2048, random weights
+     from seed 0.  Every launch count is set to 0 just before the burst;
+     every request must get its max_new tokens, flash_attention must
+     launch 16 times per prefill (llama) or ssd_scan 48 times (mamba) and
+     no other kernel at all.  Then the kernel path's prefill logits
+     against the plain path's (same weights, plain attention / SSD called
+     directly) within 0.05, the greedy tokens of a plain-path burst
+     (logged), TTFT and decode tokens/s, and one burst under the profiler;
+ 10. one JSON line ``{"kernels": [...]}``: launches on the main paths,
      max error, kernel and plain times per call (CUDA events, after a
-     warm-up, in turns plain/kernel/kernel/plain; at these sizes they
+     warm-up, in turns plain/kernel/kernel/plain; at small sizes they
      include the host's launch overhead), the same work's device time
-     from the profiler (``device_ms``, ``plain_device_ms``) and the bound
-     for this run's inputs;
-  8. the last line: ``{"ok": true, "device": {...}}``.
+     from the profiler (``device_ms``, ``plain_device_ms``), the bound
+     for this run's inputs and, for flash_attention, the SDPA time;
+ 11. the last line: ``{"ok": true, "device": {...}}``.
 
 Timings at every shape and the traces are printed as one
 ``[smoke] timings {...}`` JSON line before the kernels line.
@@ -56,10 +82,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# NVIDIA H100 SXM, dense peaks at 700 W (data sheet): HBM3 bytes/s and
-# float32 operations/s outside the tensor cores
+# NVIDIA H100 SXM, dense peaks at 700 W (data sheet): HBM3 bytes/s,
+# float32 operations/s outside the tensor cores, bf16 tensor-core
+# operations/s
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
+PEAK_BF16_S = 989e12
 
 
 class SmokeFailure(RuntimeError):
@@ -75,9 +103,9 @@ def log(msg: str) -> None:
     print(f"[smoke] {msg}", flush=True)
 
 
-def bound(bytes_moved: float, ops: float):
+def bound(bytes_moved: float, ops: float, peak_ops_s: float = PEAK_FP32_S):
     t_bytes = bytes_moved / PEAK_BYTES_S * 1e3
-    t_ops = ops / PEAK_FP32_S * 1e3
+    t_ops = ops / peak_ops_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -408,16 +436,21 @@ def phase_main_path(torch, dev, backend, counter):
         out = Path(tmp) / f"search_{backend}.json"
         argv = ["--seeds", "8", "--pop", "40", "--gens", "10", "--separate",
                 "--backend", backend, "--device", str(dev), "--out", str(out)]
-        counter.launches = 0
+        counters = _counters()
+        for c in counters.values():
+            c.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rc = main(argv)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = counter.launches
+        others = {k: c.launches for k, c in counters.items()
+                  if c is not counter and c.launches}
         check(rc == 0, f"main path ({backend}) returned {rc}")
         entries = json.loads(out.read_text())
     check(launches > 0, f"main path ({backend}) launched its kernel 0 times")
+    check(not others, f"main path ({backend}): other kernels launched: {others}")
     check(len(entries) == 8, f"main path ({backend}): {len(entries)} seed entries")
     obj = make_objective("ela", 150.0)
 
@@ -498,6 +531,328 @@ def phase_trace(torch, dev, backend, timings):
         + "; ".join(f"{n[:60]} {ms:.2f} ms x{c}" for n, (ms, c) in top[:3]))
 
 
+# ----------------------------------------------------------- LM kernels
+def _gen(torch, dev, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return g
+
+
+def attn_pairs(Sq: int, Skv: int, causal: bool, window: int, q_offset: int) -> int:
+    """(query, key) pairs the masks leave, counted for this shape."""
+    import numpy as np
+
+    qp = q_offset + np.arange(Sq)[:, None]
+    kp = np.arange(Skv)[None, :]
+    m = np.ones((Sq, Skv), bool)
+    if causal:
+        m &= qp >= kp
+    if window > 0:
+        m &= (qp - kp) < window
+    return int(m.sum())
+
+
+# label, B, Sq, Skv, H, KV, D, causal, window, q_offset, dtype, timed
+B3_CASES = [
+    ("s128", 1, 128, 128, 32, 8, 64, True, 0, 0, "bf16", True),
+    ("s1024", 1, 1024, 1024, 32, 8, 64, True, 0, 0, "bf16", True),
+    ("s2048", 1, 2048, 2048, 32, 8, 64, True, 0, 0, "bf16", True),
+    ("ragged_sq100", 2, 100, 128, 4, 2, 64, True, 0, 0, "bf16", False),
+    ("ragged_s1000", 1, 1000, 1000, 32, 8, 64, True, 0, 0, "bf16", False),
+    ("window96", 1, 256, 256, 4, 2, 64, True, 96, 0, "bf16", False),
+    ("q_offset128", 1, 64, 192, 4, 2, 64, True, 0, 128, "bf16", False),
+    ("d80", 2, 128, 128, 4, 1, 80, True, 0, 0, "bf16", False),
+    # the JAX kernel sweep (tests/test_kernels.py:11-17) in float32
+    ("sweep0", 2, 128, 128, 4, 2, 64, True, 0, 0, "f32", False),
+    ("sweep1", 1, 256, 256, 8, 8, 64, True, 0, 0, "f32", False),
+    ("sweep2", 2, 128, 128, 4, 1, 80, True, 0, 0, "f32", False),
+    ("sweep3", 1, 256, 256, 4, 2, 64, True, 96, 0, "f32", False),
+    ("sweep4", 2, 100, 128, 4, 2, 64, True, 0, 0, "f32", False),
+    ("sweep5", 1, 64, 64, 2, 2, 128, True, 0, 0, "f32", False),
+    ("d16", 1, 128, 128, 4, 2, 16, True, 0, 0, "f32", False),
+    ("noncausal", 1, 128, 256, 4, 2, 64, False, 0, 0, "f32", False),
+    # rows with no valid key (window behind the keys): a uniform average
+    ("keyless_rows", 1, 64, 128, 4, 2, 64, True, 32, 400, "f32", False),
+]
+
+
+def phase_b3(torch, dev, timings):
+    """flash_attention against ``attention_reference`` on the card."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_reference
+
+    F = torch.nn.functional
+    gen = _gen(torch, dev, 3)
+    errs = {}
+    for (label, B, Sq, Skv, H, KV, D, causal, window, q_offset, dt, timed) in B3_CASES:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        q = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(dtype)
+        k = torch.randn((B, Skv, KV, D), generator=gen, device=dev).to(dtype)
+        v = torch.randn((B, Skv, KV, D), generator=gen, device=dev).to(dtype)
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        before = flash_attention.launches
+        o = flash_attention(q, k, v, **kw)
+        r = attention_reference(q, k, v, **kw)
+        torch.cuda.synchronize()
+        check(flash_attention.launches == before + 1, f"B3 {label}: launch not counted")
+        check(o.dtype == dtype and tuple(o.shape) == (B, Sq, H, D), f"B3 {label}: output")
+        check(bool(torch.isfinite(o).all()), f"B3 {label}: not finite")
+        err = float((o.float() - r.float()).abs().max())
+        tol = 3e-2 if dt == "bf16" else 2e-5
+        check(err <= tol, f"B3 {label}: max abs err {err} > {tol}")
+        errs[label] = err
+        log(f"B3 {label} (B={B}, Sq={Sq}, Skv={Skv}, H={H}, KV={KV}, D={D}, {dt}, "
+            f"causal={causal}, window={window}, q_offset={q_offset}): ok, max abs "
+            f"err {err:.3g} (tol {tol})")
+        if not timed:
+            continue
+
+        def plain_fn(q=q, k=k, v=v, kw=kw):
+            attention_reference(q, k, v, **kw)
+
+        def kernel_fn(q=q, k=k, v=v, kw=kw):
+            flash_attention(q, k, v, **kw)
+
+        qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+        def library_fn(qh=qh, kh=kh, vh=vh):
+            F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, enable_gqa=True)
+
+        iters = 50 if Sq <= 1024 else 20
+        k_ms, p_ms = timed_pair(plain_fn, kernel_fn, iters)
+        l_ms, _ = timed_pair(plain_fn, library_fn, iters)
+        elem = q.element_size()
+        n_bytes = elem * (2 * q.numel() + k.numel() + v.numel())
+        ops = 4.0 * D * attn_pairs(Sq, Skv, causal, window, q_offset) * H * B
+        b_ms, b_by = bound(n_bytes, ops, PEAK_BF16_S if dt == "bf16" else PEAK_FP32_S)
+        k_dev = device_ms(torch, kernel_fn, 10, "flash_attention_kernel")
+        p_dev = device_ms(torch, plain_fn, 10)
+        l_dev = device_ms(torch, library_fn, 10)
+        timings[f"flash_attention/{label}"] = dict(
+            B=B, S=Sq, H=H, KV=KV, D=D, dtype=dt, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+            device_ms=k_dev, plain_device_ms=p_dev, library_device_ms=l_dev,
+            bound_ms=b_ms, bound_by=b_by, bytes=n_bytes, ops=ops, max_abs_err=err)
+        log(f"B3 {label}: kernel {k_ms:.4f} ms per call ({_ms(k_dev)} on the device), "
+            f"plain {p_ms:.4f} ms ({_ms(p_dev)}), SDPA {l_ms:.4f} ms ({_ms(l_dev)}), "
+            f"bound {b_ms:.6f} ms ({b_by})")
+    return errs
+
+
+def ssd_inputs(torch, B, S, H, P, N, gen, dev, dtype):
+    """The JAX kernel tests' distributions: unit-normal x, B, C;
+    dt = softplus(normal); A = -exp(normal / 2)."""
+    F = torch.nn.functional
+    x = torch.randn((B, S, H, P), generator=gen, device=dev).to(dtype)
+    dt = F.softplus(torch.randn((B, S, H), generator=gen, device=dev))
+    A = -torch.exp(torch.randn((H,), generator=gen, device=dev) * 0.5)
+    Bm = torch.randn((B, S, 1, N), generator=gen, device=dev).to(dtype)
+    Cm = torch.randn((B, S, 1, N), generator=gen, device=dev).to(dtype)
+    return x, dt, A, Bm, Cm
+
+
+def ssd_ops(B, S, H, P, N, Q) -> float:
+    """FLOPs of the chunked algorithm: causal scores and intra-chunk
+    product, inter-chunk output and state update, per chunk and head."""
+    per = 2 * Q * (Q + 1) / 2 * (N + P) + 4 * N * P * Q
+    return float(per * B * H * (S // Q))
+
+
+# label, B, S, H, P, N, chunk, dtype, timed
+B4_CASES = [
+    ("s96", 1, 96, 48, 64, 128, 128, "f32", False),
+    ("s128", 1, 128, 48, 64, 128, 128, "f32", False),
+    ("s1024", 1, 1024, 48, 64, 128, 128, "f32", True),
+    ("s2048", 1, 2048, 48, 64, 128, 128, "f32", False),
+    # the JAX kernel sweep (tests/test_kernels.py:70-75)
+    ("sweep0", 2, 256, 4, 64, 128, 128, "f32", False),
+    ("sweep1", 1, 128, 8, 32, 64, 32, "f32", False),
+    ("sweep2", 2, 64, 2, 16, 32, 64, "f32", False),
+    ("sweep3", 1, 512, 4, 64, 128, 128, "f32", False),
+    # the model's dtype
+    ("bf16_s96", 1, 96, 48, 64, 128, 128, "bf16", False),
+    ("bf16_s128", 1, 128, 48, 64, 128, 128, "bf16", True),
+    ("bf16_s1024", 1, 1024, 48, 64, 128, 128, "bf16", True),
+    ("bf16_s2048", 1, 2048, 48, 64, 128, 128, "bf16", True),
+]
+
+
+def phase_b4(torch, dev, timings):
+    """ssd_scan against ``ref.ssd_chunked`` on the card.  float32: y and h
+    within 1e-4 of the output's scale (max(1, max|ref|)); bf16 inputs: y
+    (rounded to bf16 by both) within 1e-2 of its scale, h within 1e-4."""
+    from repro_torch.kernels.ssd_scan import ref
+    from repro_torch.kernels.ssd_scan.ops import ssd_chunked
+
+    gen = _gen(torch, dev, 4)
+    errs = {}
+    for (label, B, S, H, P, N, chunk, dt, timed) in B4_CASES:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        x, dtv, A, Bm, Cm = ssd_inputs(torch, B, S, H, P, N, gen, dev, dtype)
+        before = ssd_chunked.launches
+        y, h = ssd_chunked(x, dtv, A, Bm, Cm, chunk=chunk)
+        yr, hr = ref.ssd_chunked(x, dtv, A, Bm, Cm, chunk=chunk)
+        torch.cuda.synchronize()
+        check(ssd_chunked.launches == before + 1, f"B4 {label}: launch not counted")
+        check(y.dtype == dtype and tuple(y.shape) == (B, S, H, P), f"B4 {label}: y")
+        check(h.dtype == torch.float32 and tuple(h.shape) == (B, H, N, P), f"B4 {label}: h")
+        check(bool(torch.isfinite(y).all() and torch.isfinite(h).all()), f"B4 {label}: not finite")
+        ey = float((y.float() - yr.float()).abs().max())
+        eh = float((h - hr).abs().max())
+        sy = max(1.0, float(yr.float().abs().max()))
+        sh = max(1.0, float(hr.abs().max()))
+        tol_y = (1e-2 if dt == "bf16" else 1e-4) * sy
+        check(ey <= tol_y, f"B4 {label}: y max abs err {ey} > {tol_y}")
+        check(eh <= 1e-4 * sh, f"B4 {label}: h max abs err {eh} > {1e-4 * sh}")
+        errs[label] = (ey, eh)
+        log(f"B4 {label} (B={B}, S={S}, H={H}, P={P}, N={N}, chunk={min(chunk, S)}, {dt}): "
+            f"ok, max abs err y {ey:.3g} (max |y| {sy:.4g}), h {eh:.3g} (max |h| {sh:.4g})")
+        if not timed:
+            continue
+
+        def plain_fn(a=(x, dtv, A, Bm, Cm), chunk=chunk):
+            ref.ssd_chunked(*a, chunk=chunk)
+
+        def kernel_fn(a=(x, dtv, A, Bm, Cm), chunk=chunk):
+            ssd_chunked(*a, chunk=chunk)
+
+        k_ms, p_ms = timed_pair(plain_fn, kernel_fn, 20)
+        elem = x.element_size()
+        n_bytes = (elem * (2 * x.numel() + Bm.numel() + Cm.numel())
+                   + 4 * (dtv.numel() + A.numel() + B * H * N * P))
+        ops = ssd_ops(B, S, H, P, N, min(chunk, S))
+        b_ms, b_by = bound(n_bytes, ops, PEAK_BF16_S if dt == "bf16" else PEAK_FP32_S)
+        k_dev = device_ms(torch, kernel_fn, 10, "ssd_scan_kernel")
+        p_dev = device_ms(torch, plain_fn, 10)
+        timings[f"ssd_scan/{label}"] = dict(
+            B=B, S=S, H=H, P=P, N=N, dtype=dt, ms=k_ms, plain_ms=p_ms, device_ms=k_dev,
+            plain_device_ms=p_dev, bound_ms=b_ms, bound_by=b_by, bytes=n_bytes, ops=ops,
+            max_abs_err_y=ey, max_abs_err_h=eh)
+        log(f"B4 {label}: kernel {k_ms:.4f} ms per call ({_ms(k_dev)} on the device), "
+            f"plain {p_ms:.4f} ms ({_ms(p_dev)}), bound {b_ms:.6f} ms ({b_by})")
+    return errs
+
+
+# model -> (its prefill kernel, layers that run it)
+LM_PATHS = {"llama3.2-1b": ("flash_attention", 16), "mamba2-780m": ("ssd_scan", 48)}
+LM_LOGIT_TOL = 0.05
+
+
+def _counters():
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.ga_gen_step.ops import ga_gen_step
+    from repro_torch.kernels.imc_eval.ops import imc_eval_multi
+    from repro_torch.kernels.ssd_scan.ops import ssd_chunked
+
+    return {"imc_eval": imc_eval_multi, "ga_gen_step": ga_gen_step,
+            "flash_attention": flash_attention, "ssd_scan": ssd_chunked}
+
+
+def phase_lm(torch, dev, name, card, timings):
+    """The LM serving path at full width: a burst of 8 requests through
+    ``Engine`` (4 slots, max_len 2048), random weights from seed 0.  Every
+    request gets its max_new tokens; the model's prefill kernel launches
+    once per layer per prefill, the other kernels never.  Then the
+    kernel path's prefill logits against the plain path's (same weights,
+    plain attention / SSD called directly) within LM_LOGIT_TOL, the greedy
+    tokens of a plain-path burst (logged), and one traced burst."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import build_params, make_burst, serve_burst
+    from repro_torch.models import transformer
+
+    cfg = get_config(name)
+    kname, per_prefill = LM_PATHS[name]
+    t0 = time.perf_counter()
+    params = build_params(cfg, 0, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    done, st = serve_burst(cfg, params, make_burst(cfg, 8, 0), slots=4, max_len=2048)
+    launches = {k: c.launches for k, c in counters.items()}
+    check(len(done) == 8, f"{name}: {len(done)} of 8 requests answered")
+    for r in done:
+        check(len(r.out) == r.max_new, f"{name} request {r.rid}: {len(r.out)} of "
+              f"{r.max_new} tokens")
+        check(all(0 <= t < cfg.vocab_size for t in r.out), f"{name}: token out of range")
+    check(st["prefills"] == 8, f"{name}: {st['prefills']} prefills")
+    check(launches[kname] == per_prefill * st["prefills"],
+          f"{name}: {kname} launched {launches[kname]} times, want "
+          f"{per_prefill} x {st['prefills']}")
+    others = {k: n for k, n in launches.items() if k != kname and n}
+    check(not others, f"{name}: other kernels launched on its path: {others}")
+
+    # the kernel path against the plain path, prefill logits, one prompt of
+    # each length
+    firsts = {}
+    for r in done:
+        firsts.setdefault(len(r.prompt), r)
+    errs, top1 = {}, 0
+    with torch.inference_mode():
+        for n, r in sorted(firsts.items()):
+            toks = torch.as_tensor(r.prompt[None].astype("int64"), device=dev)
+            lk, _ = transformer.prefill(cfg, params, toks, impl="kernel")
+            lp, _ = transformer.prefill(cfg, params, toks, impl="plain")
+            check(bool(torch.isfinite(lk).all()), f"{name}: prefill logits not finite")
+            errs[n] = float((lk.float() - lp.float()).abs().max())
+            top1 += int(torch.equal(lk.argmax(-1), lp.argmax(-1)))
+            scale = float(lp.float().abs().max())
+            log(f"{name} prefill S={n}: kernel vs plain logits max abs diff "
+                f"{errs[n]:.4g} (max |logit| {scale:.4g})")
+    err = max(errs.values())
+    check(err <= LM_LOGIT_TOL, f"{name}: kernel vs plain prefill logits differ by "
+          f"{err} > {LM_LOGIT_TOL}")
+    done_p, st_p = serve_burst(cfg, params, make_burst(cfg, 8, 0), slots=4,
+                               max_len=2048, impl="plain")
+    same = sum(a == b for r, rp in zip(done, done_p) for a, b in zip(r.out, rp.out))
+    prefix = 0
+    for r, rp in zip(done, done_p):
+        for a, b in zip(r.out, rp.out):
+            if a != b:
+                break
+            prefix += 1
+    total = sum(len(r.out) for r in done)
+
+    # one burst more, traced
+    prof, wall = _profiled(torch, lambda: serve_burst(
+        cfg, params, make_burst(cfg, 8, 0), slots=4, max_len=2048))
+    per = device_kernels(prof)
+    trace = {"wall_s": wall, "device": "not measured"}
+    if per:
+        busy = sum(ms for ms, _ in per.values()) / 1e3
+        mine = sum(ms for n, (ms, _) in per.items() if f"{kname}_kernel" in n) / 1e3
+        top = sorted(per.items(), key=lambda kv: -kv[1][0])[:6]
+        trace = {"wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
+                 "kernel_s": mine, "kernel_share_of_busy": mine / busy,
+                 "device_activities": sum(c for _, c in per.values()),
+                 "top": [{"name": n[:120], "ms": ms, "count": c} for n, (ms, c) in top]}
+    timings[f"serve/{name}"] = dict(
+        card=card, params=cfg.param_count(), init_s=init_s, launches=launches[kname],
+        stats=st, plain_stats=st_p, logit_err=errs, top1_agree=f"{top1}/{len(errs)}",
+        greedy_same=same, greedy_prefix=prefix, tokens=total, trace=trace)
+    log(f"{name} ({cfg.param_count() / 1e9:.2f} B params, init {init_s:.2f}s) on {card}: "
+        f"{st['requests']} requests, {st['tokens']} tokens, {st['prefills']} prefills "
+        f"({launches[kname]} {kname} launches), {st['decode_steps']} decode steps; "
+        f"TTFT mean {st['ttft_mean_s'] * 1e3:.1f} ms (max {st['ttft_max_s'] * 1e3:.1f}), "
+        f"prefill {st['prefill_s'] / st['prefills'] * 1e3:.2f} ms each, decode "
+        f"{st['decode_tokens_per_s']:.1f} tokens/s, {st['wall_s']:.3f}s in all; plain "
+        f"path: TTFT mean {st_p['ttft_mean_s'] * 1e3:.1f} ms, prefill "
+        f"{st_p['prefill_s'] / st_p['prefills'] * 1e3:.2f} ms each; greedy tokens equal "
+        f"{same}/{total} ({prefix} before the first difference in each request); "
+        f"prefill top-1 equal {top1}/{len(errs)}")
+    if per:
+        log(f"{name} trace (profiled): {wall:.3f}s host clock, device busy "
+            f"{trace['device_busy_s'] * 1e3:.2f} ms (idle share {trace['idle_share']:.4f}), "
+            f"{kname} {trace['kernel_s'] * 1e3:.2f} ms ({trace['kernel_share_of_busy']:.3f} "
+            f"of busy); top: " + "; ".join(f"{t['name'][:60]} {t['ms']:.2f} ms x{t['count']}"
+                                            for t in trace["top"][:3]))
+    else:
+        log(f"{name} trace: device time not measured")
+    del params
+    torch.cuda.empty_cache()
+    return launches[kname]
+
+
 def run() -> dict:
     import torch
 
@@ -516,6 +871,8 @@ def run() -> dict:
     timings = {"card": card}
     b1_err = phase_b1(torch, dev, paper, timings)
     phase_b2(torch, dev, timings)
+    b3_err = phase_b3(torch, dev, timings)
+    b4_err = phase_b4(torch, dev, timings)
 
     from repro_torch.kernels.ga_gen_step.ops import ga_gen_step
     from repro_torch.kernels.imc_eval.ops import imc_eval_multi
@@ -524,10 +881,14 @@ def run() -> dict:
     b2_launches = phase_main_path(torch, dev, "table", ga_gen_step)
     for backend in ("kernel", "table"):
         phase_trace(torch, dev, backend, timings)
+    b3_launches = phase_lm(torch, dev, "llama3.2-1b", card, timings)
+    b4_launches = phase_lm(torch, dev, "mamba2-780m", card, timings)
 
     log("timings " + json.dumps(timings))
 
     t1, t2 = timings["imc_eval/main"], timings["ga_gen_step/main"]
+    # B3 and B4 at the longest prompt of the main path, in the model's dtype
+    t3, t4 = timings["flash_attention/s1024"], timings["ssd_scan/bf16_s1024"]
     kernels = [
         {"name": "imc_eval", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/imc_eval.cu",
@@ -544,6 +905,22 @@ def run() -> dict:
          "ms": t2["ms"], "plain_ms": t2["plain_ms"], "bound_ms": t2["bound_ms"],
          "bound_by": t2["bound_by"], "library_ms": None,
          "device_ms": t2["device_ms"], "plain_device_ms": t2["plain_device_ms"]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:33",
+         "launches": b3_launches, "max_abs_err": b3_err["s1024"],
+         "ms": t3["ms"], "plain_ms": t3["plain_ms"], "bound_ms": t3["bound_ms"],
+         "bound_by": t3["bound_by"], "library_ms": t3["library_ms"],
+         "device_ms": t3["device_ms"], "plain_device_ms": t3["plain_device_ms"],
+         "library_device_ms": t3["library_device_ms"]},
+        {"name": "ssd_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan/kernel.py:33",
+         "launches": b4_launches, "max_abs_err": b4_err["s1024"][0],
+         "max_abs_err_bf16": b4_err["bf16_s1024"][0],
+         "ms": t4["ms"], "plain_ms": t4["plain_ms"], "bound_ms": t4["bound_ms"],
+         "bound_by": t4["bound_by"], "library_ms": None,
+         "device_ms": t4["device_ms"], "plain_device_ms": t4["plain_device_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": name,

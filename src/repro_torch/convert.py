@@ -1,11 +1,12 @@
 """Carry the JAX package's state across to the port.
 
-The "weights" of this system are its technology constants, its workload
-sets, its factorized tables and a GA state (population and scores).
-Each function takes them as plain dicts or numpy arrays (anything
-``np.asarray`` accepts, the reference's arrays included), copies them,
-and returns the port's objects on the given device.  Nothing here
-imports the JAX package.
+The "weights" of the search are its technology constants, its workload
+sets, its factorized tables and a GA state (population and scores); those
+of the LMs are their parameter trees and decode caches.  Each function
+takes them as plain dicts, lists or numpy arrays (anything ``np.asarray``
+accepts, the reference's arrays included, bfloat16 ones too), copies them,
+and returns the port's objects on the given device.  Nothing here imports
+the JAX package.
 """
 from __future__ import annotations
 
@@ -14,9 +15,12 @@ from typing import Mapping, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.imc.tables import WorkloadTables
 from repro_torch.imc.tech import TechParams
+from repro_torch.models import transformer
+from repro_torch.models.common import tree_map
 from repro_torch.workloads.pack import WorkloadSet
 
 ArrayLike = Union[np.ndarray, Sequence]
@@ -67,3 +71,56 @@ def ga_state_from_arrays(genomes: ArrayLike, scores: ArrayLike, device="cuda"
     if g.shape[:-1] != s.shape:
         raise ValueError(f"genomes {tuple(g.shape)} / scores {tuple(s.shape)} disagree")
     return g, s
+
+
+def tensor_from_numpy(x, device="cuda") -> torch.Tensor:
+    """A copy of an array on ``device``; bfloat16 arrays (numpy has no
+    native bfloat16: the reference's come as an extension dtype of that
+    name) keep their bits."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(resolve_device(device))
+    return torch.from_numpy(np.array(a, copy=True)).to(resolve_device(device))
+
+
+def _tree_from_numpy(template, tree, device, where: str):
+    if isinstance(template, dict):
+        if not isinstance(tree, Mapping) or set(tree) != set(template):
+            got = sorted(tree) if isinstance(tree, Mapping) else type(tree).__name__
+            raise ValueError(f"{where}: keys {got}, want {sorted(template)}")
+        return {k: _tree_from_numpy(template[k], tree[k], device, f"{where}.{k}")
+                for k in template}
+    if isinstance(template, list):
+        if len(tree) != len(template):
+            raise ValueError(f"{where}: {len(tree)} entries, want {len(template)}")
+        return [_tree_from_numpy(t, x, device, f"{where}[{i}]")
+                for i, (t, x) in enumerate(zip(template, tree))]
+    shape, dtype = template
+    t = tensor_from_numpy(tree, device)
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{where}: shape {tuple(t.shape)}, want {tuple(shape)}")
+    return t.to(dtype)
+
+
+def lm_params_from_numpy(cfg: ModelConfig, tree, device="cuda"):
+    """The port's LM parameters from the JAX package's parameter tree as
+    numpy arrays (``embed``, ``final_norm``, ``blocks`` stacked over
+    ``n_blocks``, ``lm_head`` when untied), float32 on ``device``."""
+    template = tree_map(lambda d: (d.shape, torch.float32), transformer.param_template(cfg))
+    return _tree_from_numpy(template, tree, device, "params")
+
+
+def lm_cache_from_numpy(cfg: ModelConfig, tree, device="cuda"):
+    """The port's decode cache from the JAX package's (a list over the
+    period's slots of ``{"k", "v"}`` or ``{"conv", "ssm"}`` arrays stacked
+    over blocks), each leaf in its own dtype on ``device``.  The batch and
+    cache length are read from the arrays."""
+    if not isinstance(tree, (list, tuple)) or not tree:
+        raise ValueError("cache: want a list over the layer plan's slots")
+    batch = np.asarray(next(iter(tree[0].values()))).shape[1]
+    length = next((np.asarray(s["k"]).shape[2] for s in tree if "k" in s), 1)
+    template = transformer.cache_template(cfg, batch, length)
+    template = [{k: (shape, tensor_from_numpy(tree[i][k], "cpu").dtype)
+                 for k, (shape, _) in slot.items()} for i, slot in enumerate(template)]
+    return _tree_from_numpy(template, list(tree), device, "cache")

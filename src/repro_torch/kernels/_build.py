@@ -13,7 +13,8 @@ with ``REPRO_TORCH_BUILD_DIR``), under a name keyed by a hash of the
 source and the flags, so an edited source is rebuilt and an unchanged one
 is reused.  ``-fmad=false`` keeps ``a*b + c`` as two rounded operations,
 as PyTorch's separate elementwise kernels compute it; nothing is built
-with ``--use_fast_math``, so divisions and square roots stay IEEE.
+with ``--use_fast_math``, so divisions and square roots stay IEEE; a
+kernel that wants fused multiply-adds writes ``fmaf`` explicitly.
 ``build()`` starts one nvcc per missing source, all at once.
 """
 from __future__ import annotations
@@ -28,7 +29,7 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("imc_eval", "ga_gen_step")
+KERNELS = ("imc_eval", "ga_gen_step", "flash_attention", "ssd_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

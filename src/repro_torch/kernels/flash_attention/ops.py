@@ -1,0 +1,88 @@
+"""The flash_attention kernel's wrapper, in the model's (B, S, H, D) layout.
+
+* On CPU tensors it runs the plain version (``ref.attention_reference``).
+* On CUDA tensors it launches ``csrc/flash_attention.cu`` once for every
+  (query tile, head, batch), or raises.  There is no fallback.
+
+``flash_attention.launches`` counts kernel launches (never plain runs).
+Like the JAX package's wrapper, a non-causal call whose Skv is not a
+multiple of its 128-row KV block is refused; the kernel itself masks a
+ragged tail by position, but the limit is kept so both packages accept
+the same calls.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import ref
+
+_NAME = "flash_attention"
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 128
+
+
+def _launcher():
+    fn = _build.load(_NAME).flash_attention_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, i, i, i, i, p]
+        fn.restype = i
+    return fn
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Skv, KV, D)
+    v: torch.Tensor,  # (B, Skv, KV, D)
+    *,
+    causal: bool = True,
+    window: int = 0,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Attention output (B, Sq, H, D) in q's dtype."""
+    B, Sq, H, D = q.shape
+    _, Skv, KV, _ = k.shape
+    bk = min(128, max(Skv, 8))
+    if Skv % bk != 0 and not causal:
+        raise ValueError("non-causal flash_attention requires Skv to be a "
+                         "multiple of the 128-row KV block")
+    dev = q.device
+    if dev.type == "cpu":
+        return ref.attention_reference(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {dev}")
+    if k.dim() != 4 or k.shape[0] != B or k.shape[-1] != D or v.shape != k.shape:
+        raise ValueError(f"k, v must be (B, Skv, KV, D) = {(B, Skv, KV, D)}, got "
+                         f"{tuple(k.shape)} / {tuple(v.shape)}")
+    if KV == 0 or H % KV != 0:
+        raise ValueError(f"H={H} must be a multiple of KV={KV}")
+    if not 0 < D <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {D} outside 1..{MAX_HEAD_DIM}")
+    if Skv == 0:
+        raise ValueError("flash_attention needs at least one key")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v must share float32 or bfloat16, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, q on {dev}")
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(qc)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _launcher()(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(),
+                     B, Sq, Skv, H, KV, D, D ** -0.5, int(causal), int(window),
+                     int(q_offset), _DTYPES[q.dtype], dev.index, stream)
+    _build.check(_NAME, rc)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,0 +1,112 @@
+"""Attention in plain PyTorch (the port's ``src/repro/models/attention.py``).
+
+* ``flash_attention``: chunked online softmax over KV blocks; the
+  (Sq, Skv) score matrix never materializes beyond one (Sq, chunk) block.
+  It is the plain path of the model (``impl="plain"``); the CUDA kernel
+  ``kernels/flash_attention`` is the path on the card.
+* ``attention_reference``: the unchunked O(S^2) oracle, the plain version
+  the kernel is held against.
+* ``decode_attention``: one query token against a full cache.
+
+Shapes follow the (B, S, H, D) convention with grouped KV heads:
+q: (B, Sq, H, D);  k, v: (B, Skv, KV, D);  H % KV == 0.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool, window: int) -> torch.Tensor:
+    m = torch.ones((q_pos.shape[0], kv_pos.shape[0]), dtype=torch.bool, device=q_pos.device)
+    if causal:
+        m &= q_pos[:, None] >= kv_pos[None, :]
+    if window > 0:
+        m &= q_pos[:, None] - kv_pos[None, :] < window
+    return m
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, chunk: int = 1024,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Chunked attention with online softmax over KV blocks.
+
+    Queries sit at absolute positions ``q_offset + [0..Sq)``, keys at
+    ``[0..Skv)``.  ``Skv`` must be a multiple of ``min(chunk, Skv)``.
+    """
+    B, Sq, H, D = q.shape
+    _, Skv, KV, _ = k.shape
+    assert H % KV == 0, (H, KV)
+    G = H // KV
+    chunk = min(chunk, Skv)
+    assert Skv % chunk == 0, (Skv, chunk)
+    scale = D ** -0.5
+
+    qf = (q * scale).float().reshape(B, Sq, KV, G, D)
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    m = torch.full((B, KV, G, Sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KV, G, Sq, D), dtype=torch.float32, device=q.device)
+    for start in range(0, Skv, chunk):
+        kc = k[:, start:start + chunk].float()
+        vc = v[:, start:start + chunk].float()
+        kv_pos = start + torch.arange(chunk, device=q.device)
+        s = torch.einsum("bqkgd,bckd->bkgqc", qf, kc)
+        msk = _mask(q_pos, kv_pos, causal, window)
+        s = torch.where(msk, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bkgqc,bckd->bkgqd", p, vc)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]  # (B, KV, G, Sq, D)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
+def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        q_offset: int = 0) -> torch.Tensor:
+    """Unchunked O(S^2) oracle: the plain version of the attention kernel."""
+    B, Sq, H, D = q.shape
+    _, Skv, KV, _ = k.shape
+    G = H // KV
+    qf = (q * D ** -0.5).float().reshape(B, Sq, KV, G, D)
+    s = torch.einsum("bqkgd,bckd->bkgqc", qf, k.float())
+    msk = _mask(q_offset + torch.arange(Sq, device=q.device),
+                torch.arange(Skv, device=q.device), causal, window)
+    s = torch.where(msk, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqc,bckd->bkgqd", p, v.float())
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, *,
+                     window: int = 0, valid_len=None) -> torch.Tensor:
+    """Single-token decode: q (B, 1, H, D) against a full cache (B, S, KV, D).
+
+    ``valid_len`` (int or (B,)) masks cache rows ``>= valid_len``;
+    ``window`` masks a linear-layout cache to its trailing window.  As in
+    the JAX package the query is rounded to the cache's dtype and the
+    probabilities to v's dtype, and both products accumulate in float32:
+    the cache stays stored in its own dtype, and the rows each product
+    reads are widened on the fly (exact for bf16), which is what
+    ``preferred_element_type=float32`` computes.
+    """
+    B, Sq, H, D = q.shape
+    _, S, KV, _ = k_cache.shape
+    G = H // KV
+    qf = (q * D ** -0.5).to(k_cache.dtype).reshape(B, Sq, KV, G, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf.float(), k_cache.float())
+    pos = torch.arange(S, device=q.device)
+    if window > 0:
+        ok = pos >= (S - window)  # query sits at position S-1
+        s = torch.where(ok, s, NEG_INF)
+    if valid_len is not None:
+        vl = torch.as_tensor(valid_len, device=q.device).expand(B)
+        ok = pos[None, :] < vl[:, None]  # (B, S)
+        s = torch.where(ok[:, None, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bkgqd", p.to(v_cache.dtype).float(), v_cache.float())
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)

@@ -1,0 +1,89 @@
+"""Shared model building blocks (the port's ``src/repro/models/common.py``).
+
+Parameters are declared as a nested dict of :class:`ParamDecl` (shape and
+init scale); ``init_params`` materializes a template with an explicit
+``torch.Generator``.  The JAX package's logical sharding names and
+``param_specs`` have no meaning on one card and are left out.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+PyTree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDecl:
+    shape: Tuple[int, ...]
+    scale: float = 1.0  # stddev multiplier on fan-in init; 0 -> zeros; -1 -> ones
+
+
+def tree_map(f: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
+    """Map ``f`` over the leaves of nested dicts and lists (dict keys
+    sorted, as jax orders them)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(f, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(f, t, *(r[i] for r in rest)) for i, t in enumerate(tree)]
+    return f(tree, *rest)
+
+
+def init_params(template: PyTree, generator: torch.Generator,
+                dtype: torch.dtype = torch.float32,
+                device: Optional[torch.device] = None) -> PyTree:
+    """Real tensors for a template: N(0, scale / sqrt(fan_in)) with fan_in
+    the second-to-last dim (the last for vectors), zeros for scale 0 and
+    ones for scale -1.  Leaves are drawn in the template's sorted order
+    from ``generator``, which must live on ``device``."""
+    dev = generator.device if device is None else torch.device(device)
+
+    def one(d: ParamDecl) -> torch.Tensor:
+        if d.scale == 0.0:
+            return torch.zeros(d.shape, dtype=dtype, device=dev)
+        if d.scale == -1.0:
+            return torch.ones(d.shape, dtype=dtype, device=dev)
+        fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+        std = d.scale / (fan_in ** 0.5)
+        x = torch.randn(d.shape, generator=generator, dtype=torch.float32, device=dev)
+        return (x * std).to(dtype)
+
+    return tree_map(one, template)
+
+
+# --------------------------------------------------------------------- norms
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMS norm in float32, returned in x's dtype."""
+    dt = x.dtype
+    xf = x.float()
+    xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (xf * w.float()).to(dt)
+
+
+# ---------------------------------------------------------------------- RoPE
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)  # (D/2,)
+    ang = positions[..., :, None, None].float() * freqs  # (..., S, 1, D/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., : d // 2], x[..., d // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------------ MLP acts
+def glu_act(name: str, gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    if name == "silu":
+        return F.silu(gate) * up
+    if name == "gelu":
+        return F.gelu(gate, approximate="tanh") * up
+    raise ValueError(name)

@@ -1,0 +1,110 @@
+"""Mamba-2 (SSD) mixer block: in_proj -> causal depthwise conv -> SSD -> gate
+(the port's ``src/repro/models/mamba.py``).
+
+The full-sequence mixer calls ``kernels/ssd_scan/ops.ssd_chunked``: the
+CUDA kernel on the card, its plain version on the CPU; ``impl="plain"``
+calls the plain chunked scan directly on any device.  The decode step stays
+plain PyTorch (``ssd_decode_step``).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd
+from repro_torch.models.common import rms_norm
+
+
+class MambaCache(NamedTuple):
+    conv: torch.Tensor  # (B, K-1, conv_ch) trailing conv inputs
+    ssm: torch.Tensor  # (B, H, N, P) state
+
+
+def _dims(cfg):
+    d_inner = cfg.d_inner
+    G, N = cfg.ssm_groups, cfg.ssm_state
+    H, Pd = cfg.ssm_heads, cfg.ssm_head_dim
+    conv_ch = d_inner + 2 * G * N
+    d_in_proj = 2 * d_inner + 2 * G * N + H
+    return d_inner, G, N, H, Pd, conv_ch, d_in_proj
+
+
+def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv, kernel K (shift-sum form, K unrolled)."""
+    K = w.shape[0]
+    S = xBC.shape[1]
+    out = torch.zeros_like(xBC)
+    for k in range(K):
+        shift = K - 1 - k
+        seg = F.pad(xBC, (0, 0, shift, 0))[:, :S]
+        out = out + seg * w[k]
+    return out + b
+
+
+def mamba_mixer(cfg, p, x: torch.Tensor, *, return_cache: bool = False,
+                impl: str = "kernel") -> Tuple[torch.Tensor, Optional[MambaCache]]:
+    """x: (B, S, d_model).  Full-sequence form (prefill)."""
+    B, S, d = x.shape
+    d_inner, G, N, H, Pd, conv_ch, _ = _dims(cfg)
+
+    zxbcdt = x @ p["w_in"].to(x.dtype)
+    z, xBC, dt = torch.split(zxbcdt, [d_inner, conv_ch, H], dim=-1)
+    xBC_raw = xBC
+
+    xBC = _causal_conv(xBC, p["conv_w"].to(x.dtype), p["conv_b"].to(x.dtype))
+    xBC = F.silu(xBC)
+    xs, Bm, Cm = torch.split(xBC, [d_inner, G * N, G * N], dim=-1)
+    xs = xs.reshape(B, S, H, Pd)
+    Bm = Bm.reshape(B, S, G, N)
+    Cm = Cm.reshape(B, S, G, N)
+
+    dt = F.softplus(dt.float() + p["dt_bias"].float())
+    A = -torch.exp(p["A_log"].float())  # (H,)
+
+    scan = ssd.ssd_chunked if impl == "plain" else ssd_ops.ssd_chunked
+    y, h = scan(xs, dt, A, Bm, Cm, chunk=min(128, S))
+    y = y + xs * p["D"].to(y.dtype)[None, None, :, None]
+    y = y.reshape(B, S, d_inner)
+    y = y * F.silu(z)
+    y = rms_norm(y, p["norm_w"], cfg.norm_eps)
+    out = y @ p["w_out"].to(y.dtype)
+
+    new_cache = None
+    if return_cache:
+        K = cfg.ssm_conv
+        # trailing K-1 *pre-activation* conv inputs
+        new_cache = MambaCache(conv=xBC_raw[:, -(K - 1):, :], ssm=h)
+    return out, new_cache
+
+
+def mamba_decode(cfg, p, x: torch.Tensor, cache: MambaCache
+                 ) -> Tuple[torch.Tensor, MambaCache]:
+    """x: (B, 1, d_model); single-token step with carried conv + ssm state."""
+    B, _, d = x.shape
+    d_inner, G, N, H, Pd, conv_ch, _ = _dims(cfg)
+
+    zxbcdt = x[:, 0] @ p["w_in"].to(x.dtype)  # (B, d_in_proj)
+    z, xBC, dt = torch.split(zxbcdt, [d_inner, conv_ch, H], dim=-1)
+
+    w, b = p["conv_w"].to(x.dtype), p["conv_b"].to(x.dtype)
+    window = torch.cat([cache.conv.to(x.dtype), xBC[:, None, :]], dim=1)  # (B,K,ch)
+    conv_out = torch.einsum("bkc,kc->bc", window, w) + b
+    xBC_a = F.silu(conv_out)
+
+    xs, Bm, Cm = torch.split(xBC_a, [d_inner, G * N, G * N], dim=-1)
+    xs = xs.reshape(B, H, Pd)
+    Bm = Bm.reshape(B, G, N)
+    Cm = Cm.reshape(B, G, N)
+    dtf = F.softplus(dt.float() + p["dt_bias"].float())
+    A = -torch.exp(p["A_log"].float())
+
+    y, h = ssd.ssd_decode_step(xs, dtf, A, Bm, Cm, cache.ssm)
+    y = y + xs * p["D"].to(y.dtype)[None, :, None]
+    y = y.reshape(B, d_inner)
+    y = y * F.silu(z)
+    y = rms_norm(y, p["norm_w"], cfg.norm_eps)
+    out = (y @ p["w_out"].to(y.dtype))[:, None, :]
+    return out, MambaCache(conv=window[:, 1:].to(cache.conv.dtype), ssm=h)

@@ -1,0 +1,389 @@
+"""LM assembly for the families the port serves so far (the port's
+``src/repro/models/transformer.py``, its dense-attention and Mamba-2 subset).
+
+* ``ModelConfig.layer_plan()`` gives the repeating *period* of (mixer, ffn)
+  sub-layer kinds; the parameters of each in-period slot are stacked over
+  ``n_blocks``, as in the JAX package, and a Python loop walks the stack.
+* Entry points: ``forward`` (full sequence), ``prefill`` (full sequence
+  returning a decode cache), ``decode_step`` (one token per sequence with
+  the carried cache, updated in place: the JAX package donates it).
+* ``impl="kernel"`` (the default) runs attention and the SSD scan through
+  the kernel wrappers (``kernels/flash_attention``, ``kernels/ssd_scan``):
+  the CUDA kernels on the card, their plain versions on the CPU.
+  ``impl="plain"`` calls the plain chunked versions directly on any device
+  (the JAX package's ``attn_impl="jnp"``).
+
+Activations are bf16 (the embedding is cast to bf16), every weight is cast
+to the activation dtype where it is used, norms and the SSD run in float32.
+``compute_params`` makes those casts once, for serving.  MoE, cross-attention
+(enc-dec), mrope and vision inputs raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import mamba as mamba_lib
+from repro_torch.models.common import (
+    ParamDecl,
+    apply_rope,
+    glu_act,
+    init_params,
+    rms_norm,
+    tree_map,
+)
+
+PyTree = Any
+ACT_DTYPE = torch.bfloat16
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for the families whose layers are not ported yet."""
+    if cfg.n_experts:
+        raise NotImplementedError(f"{cfg.name}: MoE layers (family {cfg.family!r}) "
+                                  "are not ported yet")
+    if cfg.is_encdec:
+        raise NotImplementedError(f"{cfg.name}: encoder / cross-attention (family "
+                                  f"{cfg.family!r}) is not ported yet")
+    if cfg.rope_type == "mrope" or cfg.vision_tokens:
+        raise NotImplementedError(f"{cfg.name}: mrope / vision inputs (family "
+                                  f"{cfg.family!r}) are not ported yet")
+
+
+# ======================================================================
+# parameter templates
+# ======================================================================
+
+
+def _attn_decl(cfg: ModelConfig) -> Dict[str, ParamDecl]:
+    d, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    decl = {
+        "norm_w": ParamDecl((d,), -1.0),
+        "wq": ParamDecl((d, H * Dh)),
+        "wk": ParamDecl((d, KV * Dh)),
+        "wv": ParamDecl((d, KV * Dh)),
+        "wo": ParamDecl((H * Dh, d)),
+    }
+    if cfg.qkv_bias:
+        decl["bq"] = ParamDecl((H * Dh,), 0.0)
+        decl["bk"] = ParamDecl((KV * Dh,), 0.0)
+        decl["bv"] = ParamDecl((KV * Dh,), 0.0)
+    return decl
+
+
+def _mlp_decl(cfg: ModelConfig) -> Dict[str, ParamDecl]:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "norm_w": ParamDecl((d,), -1.0),
+        "w_gate": ParamDecl((d, f)),
+        "w_up": ParamDecl((d, f)),
+        "w_down": ParamDecl((f, d)),
+    }
+
+
+def _mamba_decl(cfg: ModelConfig) -> Dict[str, ParamDecl]:
+    d = cfg.d_model
+    d_inner, G, N, H, Pd, conv_ch, d_in_proj = mamba_lib._dims(cfg)
+    return {
+        "norm_w_in": ParamDecl((d,), -1.0),
+        "w_in": ParamDecl((d, d_in_proj)),
+        "conv_w": ParamDecl((cfg.ssm_conv, conv_ch)),
+        "conv_b": ParamDecl((conv_ch,), 0.0),
+        "A_log": ParamDecl((H,), -1.0),  # init A = -1
+        "D": ParamDecl((H,), -1.0),
+        "dt_bias": ParamDecl((H,), 0.0),
+        "norm_w": ParamDecl((d_inner,), -1.0),
+        "w_out": ParamDecl((d_inner, d)),
+    }
+
+
+_SLOT_DECL = {"attn": _attn_decl, "mamba": _mamba_decl, "mlp": _mlp_decl}
+
+
+def param_template(cfg: ModelConfig) -> PyTree:
+    check_supported(cfg)
+    d, V, nb = cfg.d_model, cfg.vocab_size, cfg.n_blocks
+    blocks = []
+    for mixer, ffn in cfg.layer_plan():
+        slot: Dict[str, Any] = {"mixer": _SLOT_DECL[mixer](cfg)}
+        if ffn != "none":
+            slot["ffn"] = _SLOT_DECL[ffn](cfg)
+        blocks.append(tree_map(lambda dl: ParamDecl((nb,) + dl.shape, dl.scale), slot))
+    t: Dict[str, Any] = {
+        "embed": ParamDecl((V, d)),
+        "blocks": blocks,
+        "final_norm": ParamDecl((d,), -1.0),
+    }
+    if not cfg.tie_embeddings:
+        t["lm_head"] = ParamDecl((d, V))
+    return t
+
+
+def init(cfg: ModelConfig, generator: torch.Generator, dtype=torch.float32,
+         device=None) -> PyTree:
+    """Random parameters from ``generator`` (on ``device``, default the
+    generator's), float32 masters as in the JAX package."""
+    return init_params(param_template(cfg), generator, dtype, device)
+
+
+# weights the model casts to the activation dtype wherever it uses them
+_CAST_AT_USE = frozenset({"embed", "lm_head", "wq", "wk", "wv", "wo", "bq", "bk",
+                          "bv", "w_gate", "w_up", "w_down", "w_in", "conv_w",
+                          "conv_b", "w_out", "D"})
+
+
+def compute_params(params: PyTree, dtype=ACT_DTYPE) -> PyTree:
+    """A copy for serving with every weight that is cast to the activation
+    dtype at each use cast once, here; norm weights, ``A_log`` and
+    ``dt_bias`` keep their float32 masters.  The model computes the same
+    numbers from either tree."""
+    def walk(tree, name=None):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, name) for v in tree]
+        return tree.to(dtype) if name in _CAST_AT_USE else tree
+    return walk(params)
+
+
+def layer(tree: PyTree, i: int) -> PyTree:
+    """Layer ``i`` of a tree stacked over blocks (views, no copies)."""
+    return tree_map(lambda t: t[i], tree)
+
+
+# ======================================================================
+# sub-layers
+# ======================================================================
+
+
+def _split_heads(x, n, d):
+    return x.reshape(x.shape[:-1] + (n, d))
+
+
+def _qkv(cfg, p, h):
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q = h @ p["wq"].to(h.dtype)
+    k = h @ p["wk"].to(h.dtype)
+    v = h @ p["wv"].to(h.dtype)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    return _split_heads(q, H, Dh), _split_heads(k, KV, Dh), _split_heads(v, KV, Dh)
+
+
+def _rope(cfg, q, k, positions):
+    if cfg.rope_type == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k
+
+
+def attn_full(cfg, p, x, *, positions, causal=True, impl="kernel"):
+    """Full-sequence self-attention sublayer.  Returns (out, (k, v))."""
+    B, S, d = x.shape
+    h = rms_norm(x, p["norm_w"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, p, h)
+    q, k = _rope(cfg, q, k, positions)
+    if impl == "plain":
+        o = attn_lib.flash_attention(q, k, v, causal=causal, window=cfg.sliding_window,
+                                     chunk=min(1024, S))
+    else:
+        o = fa_ops.flash_attention(q, k, v, causal=causal, window=cfg.sliding_window)
+    out = o.reshape(B, S, -1) @ p["wo"].to(o.dtype)
+    return x + out, (k, v)
+
+
+def attn_decode(cfg, p, x, cache, *, pos):
+    """Single-token self-attention against a ring/linear KV cache.
+
+    cache: {"k","v"}: (B, C, KV, Dh), written in place at row ``pos % C``
+    of each sequence.  ``pos``: (B,) absolute position of each sequence's
+    new token (every slot decodes at its own position); rows past each
+    sequence's length are masked by its valid length.
+    """
+    B, S1, d = x.shape
+    C = cache["k"].shape[1]
+    h = rms_norm(x, p["norm_w"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, p, h)
+    q, k = _rope(cfg, q, k, pos[:, None])
+    rows = torch.arange(B, device=x.device)
+    widx = torch.remainder(pos, C)
+    cache["k"][rows, widx] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, widx] = v[:, 0].to(cache["v"].dtype)
+    valid = torch.clamp_max(pos + 1, C)
+    o = attn_lib.decode_attention(q, cache["k"], cache["v"], valid_len=valid)
+    out = o.reshape(B, S1, -1) @ p["wo"].to(o.dtype)
+    return x + out, cache
+
+
+def mlp_sublayer(cfg, p, x):
+    h = rms_norm(x, p["norm_w"], cfg.norm_eps)
+    g = h @ p["w_gate"].to(h.dtype)
+    u = h @ p["w_up"].to(h.dtype)
+    return x + glu_act(cfg.mlp_act, g, u) @ p["w_down"].to(h.dtype)
+
+
+def mamba_full(cfg, p, x, *, return_cache=False, impl="kernel"):
+    h = rms_norm(x, p["norm_w_in"], cfg.norm_eps)
+    y, cache = mamba_lib.mamba_mixer(cfg, p, h, return_cache=return_cache, impl=impl)
+    return x + y, cache
+
+
+def mamba_decode_sub(cfg, p, x, cache):
+    h = rms_norm(x, p["norm_w_in"], cfg.norm_eps)
+    y, cache = mamba_lib.mamba_decode(cfg, p, h, cache)
+    return x + y, cache
+
+
+# ======================================================================
+# caches
+# ======================================================================
+
+
+def cache_template(cfg: ModelConfig, batch: int, cache_len: int, dtype=ACT_DTYPE
+                   ) -> List[Dict[str, Tuple[Tuple[int, ...], torch.dtype]]]:
+    """(shape, dtype) of every decode-cache leaf, stacked over blocks."""
+    check_supported(cfg)
+    KV, Dh, nb = cfg.n_kv_heads, cfg.head_dim_, cfg.n_blocks
+    C = cache_len if cfg.sliding_window == 0 else min(cache_len, cfg.sliding_window)
+    slots = []
+    for mixer, _ in cfg.layer_plan():
+        if mixer == "attn":
+            slots.append({"k": ((nb, batch, C, KV, Dh), dtype),
+                          "v": ((nb, batch, C, KV, Dh), dtype)})
+        else:
+            d_inner, G, N, H, Pd, conv_ch, _ = mamba_lib._dims(cfg)
+            slots.append({"conv": ((nb, batch, cfg.ssm_conv - 1, conv_ch), dtype),
+                          "ssm": ((nb, batch, H, N, Pd), torch.float32)})
+    return slots
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=ACT_DTYPE,
+               device=None) -> PyTree:
+    return [{k: torch.zeros(shape, dtype=dt, device=device) for k, (shape, dt) in s.items()}
+            for s in cache_template(cfg, batch, cache_len, dtype)]
+
+
+def pad_cache(cfg: ModelConfig, cache: PyTree, capacity: int) -> PyTree:
+    """Grow a prefill cache's KV capacity to ``capacity`` rows (serving).
+
+    Linear-layout caches zero-pad at the tail (position p stays at index
+    p; decode's valid length masks the unwritten rows).  Sliding-window
+    ring caches at full window size are returned unchanged.
+    """
+    target = min(capacity, cfg.sliding_window) if cfg.sliding_window else capacity
+
+    def grow(x):  # (layers, B, C, KV, Dh)
+        C = x.shape[2]
+        if C >= target:
+            return x
+        return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, target - C))
+
+    return [{k: grow(v) if k in ("k", "v") else v for k, v in s.items()} for s in cache]
+
+
+# ======================================================================
+# entry points
+# ======================================================================
+
+
+def _embed(cfg, params, tokens):
+    x = params["embed"].to(ACT_DTYPE)[tokens]
+    if cfg.scale_embeds:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    return x
+
+
+def _logits(cfg, params, x):
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        w = params["embed"].to(x.dtype).T
+    else:
+        w = params["lm_head"].to(x.dtype)
+    return x @ w
+
+
+def forward(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor, *,
+            impl: str = "kernel") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward.  Returns (logits (B, S, V), moe_aux_loss)."""
+    check_supported(cfg)
+    B, S = tokens.shape
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(S, device=tokens.device)
+    plan = cfg.layer_plan()
+    for blk in range(cfg.n_blocks):
+        for i, (mixer, ffn) in enumerate(plan):
+            sp = layer(params["blocks"][i], blk)
+            if mixer == "attn":
+                x, _ = attn_full(cfg, sp["mixer"], x, positions=positions, impl=impl)
+            else:
+                x, _ = mamba_full(cfg, sp["mixer"], x, impl=impl)
+            if ffn == "mlp":
+                x = mlp_sublayer(cfg, sp["ffn"], x)
+    return _logits(cfg, params, x), torch.zeros((), device=tokens.device)
+
+
+def prefill(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor, *,
+            impl: str = "kernel", cache_dtype=ACT_DTYPE) -> Tuple[torch.Tensor, PyTree]:
+    """Process the whole prompt; returns (last-token logits (B, 1, V), the
+    decode cache).  The cache length equals the prompt length
+    (ring-truncated to the sliding window when the arch uses one)."""
+    check_supported(cfg)
+    B, S = tokens.shape
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(S, device=tokens.device)
+    plan = cfg.layer_plan()
+    W = cfg.sliding_window
+    per_layer: List[List[Dict[str, torch.Tensor]]] = [[] for _ in plan]
+    for blk in range(cfg.n_blocks):
+        for i, (mixer, ffn) in enumerate(plan):
+            sp = layer(params["blocks"][i], blk)
+            if mixer == "attn":
+                x, (k, v) = attn_full(cfg, sp["mixer"], x, positions=positions, impl=impl)
+                if W and S > W:
+                    # keep the trailing window, rolled so that absolute
+                    # position p lives at index p % W (ring layout)
+                    shift = (S - W) % W
+                    k = torch.roll(k[:, -W:], shift, dims=1)
+                    v = torch.roll(v[:, -W:], shift, dims=1)
+                slot_cache = {"k": k.to(cache_dtype), "v": v.to(cache_dtype)}
+            else:
+                x, mc = mamba_full(cfg, sp["mixer"], x, return_cache=True, impl=impl)
+                slot_cache = {"conv": mc.conv.to(cache_dtype), "ssm": mc.ssm}
+            if ffn == "mlp":
+                x = mlp_sublayer(cfg, sp["ffn"], x)
+            per_layer[i].append(slot_cache)
+    cache = [{k: torch.stack([c[k] for c in cs]) for k in cs[0]} for cs in per_layer]
+    return _logits(cfg, params, x[:, -1:]), cache
+
+
+def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree, token: torch.Tensor,
+                pos) -> Tuple[torch.Tensor, PyTree]:
+    """One decode step.  token: (B, 1) integer; pos: int or (B,) absolute
+    positions.  Returns (logits (B, 1, V), the cache), the cache updated
+    in place."""
+    check_supported(cfg)
+    B = token.shape[0]
+    pos = torch.as_tensor(pos, device=token.device).to(torch.int64).expand(B)
+    x = _embed(cfg, params, token)
+    plan = cfg.layer_plan()
+    for blk in range(cfg.n_blocks):
+        for i, (mixer, ffn) in enumerate(plan):
+            sp = layer(params["blocks"][i], blk)
+            ci = layer(cache[i], blk)
+            if mixer == "attn":
+                x, _ = attn_decode(cfg, sp["mixer"], x, ci, pos=pos)
+            else:
+                mc = mamba_lib.MambaCache(conv=ci["conv"], ssm=ci["ssm"])
+                x, mc = mamba_decode_sub(cfg, sp["mixer"], x, mc)
+                ci["conv"].copy_(mc.conv)
+                ci["ssm"].copy_(mc.ssm)
+            if ffn == "mlp":
+                x = mlp_sublayer(cfg, sp["ffn"], x)
+    return _logits(cfg, params, x), cache

@@ -1,0 +1,33 @@
+"""Serving steps: prefill (prompt -> cache) and decode (one token), the
+port's ``src/repro/serve/steps.py``.  The engine (``serve/engine.py``)
+drives them with continuous batching."""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+
+PyTree = Any
+
+
+def make_prefill_step(cfg: ModelConfig, *, impl: str = "kernel") -> Callable:
+    def prefill_step(params, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, PyTree]:
+        return transformer.prefill(cfg, params, batch["tokens"], impl=impl)
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig) -> Callable:
+    def decode_step(params, cache, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, PyTree]:
+        return transformer.decode_step(cfg, params, cache, batch["token"], batch["pos"])
+
+    return decode_step
+
+
+def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
+    """(B, S, V) logits -> (B, 1) int32 argmax of the last position (the
+    first index among ties, as jnp.argmax)."""
+    return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]

@@ -1,0 +1,136 @@
+"""The port's attention against the JAX package's, on the CPU.
+
+Same inputs (numpy, seeded) through both packages:
+* ``attention_reference`` and the chunked ``flash_attention`` against the
+  JAX package's, and the kernel wrapper (its plain version on the CPU)
+  against the JAX Pallas wrapper in interpret mode, on the sweep shapes of
+  ``tests/test_kernels.py``.  Tolerance: 2e-5 in float32 (the JAX kernel
+  tests' own), 3e-2 in bf16 (their bf16 tolerance: one bf16 rounding of
+  outputs of magnitude ~1 is ~4e-3, the rest is the order of sums).
+* ``decode_attention`` with per-sequence valid lengths and a window,
+  caches in bf16, at 3e-2.
+"""
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import ops as jfa
+from repro.models import attention as jattn
+from repro_torch.kernels.flash_attention import ops as tfa
+from repro_torch.kernels.flash_attention import ref as tref
+from repro_torch.models import attention as tattn
+
+SWEEP = [  # tests/test_kernels.py:11-17
+    (2, 128, 128, 4, 2, 64, True, 0),
+    (1, 256, 256, 8, 8, 64, True, 0),
+    (2, 128, 128, 4, 1, 80, True, 0),
+    (1, 256, 256, 4, 2, 64, True, 96),
+    (2, 100, 128, 4, 2, 64, True, 0),
+    (1, 64, 64, 2, 2, 128, True, 0),
+]
+
+
+def _qkv(seed, B, Sq, Skv, H, KV, D):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Sq, H, D)).astype(np.float32),
+            rng.standard_normal((B, Skv, KV, D)).astype(np.float32),
+            rng.standard_normal((B, Skv, KV, D)).astype(np.float32))
+
+
+def _j(x, dtype=jnp.float32):
+    return jnp.asarray(x).astype(dtype)
+
+
+def _t(x, dtype=torch.float32):
+    return torch.from_numpy(x).to(dtype)
+
+
+def _np(x):
+    return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D,causal,window", SWEEP)
+def test_attention_matches_reference_package(B, Sq, Skv, H, KV, D, causal, window):
+    q, k, v = _qkv(Sq * 7 + D, B, Sq, Skv, H, KV, D)
+    kw = dict(causal=causal, window=window)
+    ref_j = jattn.attention_reference(_j(q), _j(k), _j(v), **kw)
+    np.testing.assert_allclose(
+        _np(tref.attention_reference(_t(q), _t(k), _t(v), **kw)), _np(ref_j), atol=2e-5)
+    # the model's chunked path, in one chunk and in several
+    for chunk in (1024, 64):
+        np.testing.assert_allclose(
+            _np(tattn.flash_attention(_t(q), _t(k), _t(v), chunk=chunk, **kw)),
+            _np(jattn.flash_attention(_j(q), _j(k), _j(v), chunk=chunk, **kw)),
+            atol=2e-5)
+    # the kernel wrapper (plain version on the CPU) against the Pallas
+    # kernel in interpret mode
+    np.testing.assert_allclose(
+        _np(tfa.flash_attention(_t(q), _t(k), _t(v), **kw)),
+        _np(jfa.flash_attention(_j(q), _j(k), _j(v), **kw)), atol=2e-5)
+
+
+@pytest.mark.parametrize("shape", [SWEEP[0], SWEEP[3]])
+def test_attention_bf16_matches_reference_package(shape):
+    B, Sq, Skv, H, KV, D, causal, window = shape
+    q, k, v = _qkv(11, B, Sq, Skv, H, KV, D)
+    kw = dict(causal=causal, window=window)
+    bf = torch.bfloat16
+    jq, jk, jv = (_j(x, jnp.bfloat16) for x in (q, k, v))
+    tq, tk, tv = (_t(x, bf) for x in (q, k, v))
+    out = tfa.flash_attention(tq, tk, tv, **kw)
+    assert out.dtype == bf
+    np.testing.assert_allclose(_np(out), _np(jfa.flash_attention(jq, jk, jv, **kw)),
+                               atol=3e-2)
+    np.testing.assert_allclose(
+        _np(tattn.flash_attention(tq, tk, tv, **kw)),
+        _np(jattn.flash_attention(jq, jk, jv, **kw)), atol=3e-2)
+
+
+@pytest.mark.parametrize("q_offset,window", [(64, 0), (64, 48), (0, 32)])
+def test_attention_q_offset_matches_reference_package(q_offset, window):
+    q, k, v = _qkv(5, 1, 64, 128, 4, 2, 32)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    ref_j = jattn.attention_reference(_j(q), _j(k), _j(v), **kw)
+    np.testing.assert_allclose(
+        _np(tfa.flash_attention(_t(q), _t(k), _t(v), **kw)), _np(ref_j), atol=2e-5)
+    np.testing.assert_allclose(
+        _np(tattn.flash_attention(_t(q), _t(k), _t(v), chunk=32, **kw)),
+        _np(jattn.flash_attention(_j(q), _j(k), _j(v), chunk=32, **kw)), atol=2e-5)
+
+
+def test_non_causal_ragged_kv_is_refused_as_in_reference_package():
+    q, k, v = _qkv(3, 1, 64, 200, 2, 2, 16)
+    with pytest.raises(ValueError, match="non-causal"):
+        jfa.flash_attention(_j(q), _j(k), _j(v), causal=False)
+    with pytest.raises(ValueError, match="non-causal"):
+        tfa.flash_attention(_t(q), _t(k), _t(v), causal=False)
+    # a whole number of KV blocks is accepted by both
+    q, k, v = _qkv(4, 1, 64, 256, 2, 2, 16)
+    np.testing.assert_allclose(
+        _np(tfa.flash_attention(_t(q), _t(k), _t(v), causal=False)),
+        _np(jfa.flash_attention(_j(q), _j(k), _j(v), causal=False)), atol=2e-5)
+
+
+@pytest.mark.parametrize("window", [0, 24])
+def test_decode_attention_matches_reference_package(window):
+    B, S, H, KV, D = 3, 64, 4, 2, 16
+    rng = np.random.default_rng(9)
+    q = rng.standard_normal((B, 1, H, D)).astype(np.float32)
+    kc = rng.standard_normal((B, S, KV, D)).astype(np.float32)
+    vc = rng.standard_normal((B, S, KV, D)).astype(np.float32)
+    valid = np.array([64, 17, 1], np.int32)
+    out_j = jattn.decode_attention(_j(q, jnp.bfloat16), _j(kc, jnp.bfloat16),
+                                   _j(vc, jnp.bfloat16), window=window,
+                                   valid_len=jnp.asarray(valid))
+    out_t = tattn.decode_attention(_t(q, torch.bfloat16), _t(kc, torch.bfloat16),
+                                   _t(vc, torch.bfloat16), window=window,
+                                   valid_len=torch.from_numpy(valid))
+    assert out_t.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(out_t), _np(out_j), atol=3e-2)
+    # float32 caches and a scalar valid length: 2e-5
+    out_j = jattn.decode_attention(_j(q), _j(kc), _j(vc), window=window, valid_len=40)
+    out_t = tattn.decode_attention(_t(q), _t(kc), _t(vc), window=window, valid_len=40)
+    np.testing.assert_allclose(_np(out_t), _np(out_j), atol=2e-5)

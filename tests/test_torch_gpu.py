@@ -1,9 +1,13 @@
 """The port's CUDA kernels on the card: each against its plain version on
-the same CUDA tensors, and the main path's launch counts.
+the same CUDA tensors, and the main paths' launch counts (the DSE search
+and the LM serving engine).
 
 Marked ``gpu``; run on a host with a CUDA card and nvcc:
 
-    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
+    PYTHONPATH=src python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
+
+(``--noconftest``: the suite's conftest imports JAX, which these tests do
+not need and a card's host may not have.)
 
 Whether a card is present is decided inside the ``cuda`` fixture, never
 while the module is imported, so every test collects on every host and
@@ -14,13 +18,20 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.base import get_config
 from repro_torch.core import ga, search, space
 from repro_torch.imc.cost import DesignArrays, evaluate_designs_arrays
 from repro_torch.imc.tables import WorkloadTables, build_tables_arrays
 from repro_torch.kernels.ga_gen_step import ref as gref
 from repro_torch.kernels.ga_gen_step.ops import ga_gen_step
 from repro_torch.kernels.imc_eval import ref as iref
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_reference
 from repro_torch.kernels.imc_eval.ops import evaluate_designs_kernel_arrays, imc_eval_multi
+from repro_torch.kernels.ssd_scan import ref as sref
+from repro_torch.kernels.ssd_scan.ops import ssd_chunked
+from repro_torch.launch.serve import build_params, make_burst, serve_burst
+from repro_torch.models import transformer
 from repro_torch.workloads.cnn import PAPER_WORKLOADS, cnn_workload
 from repro_torch.workloads.pack import pack_workloads
 
@@ -132,3 +143,95 @@ def test_table_and_kernel_backends_agree_on_card(cuda, ws):
     sa, sb = a.ga.scores[0], b.ga.scores[0]
     assert np.array_equal(np.isfinite(sa), np.isfinite(sb))
     np.testing.assert_allclose(sa[np.isfinite(sa)], sb[np.isfinite(sb)], rtol=1e-5)
+
+
+# ------------------------------------------------------------- LM kernels
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D,window,q_offset,dtype", [
+    (1, 128, 128, 32, 8, 64, 0, 0, torch.bfloat16),
+    (1, 1000, 1000, 32, 8, 64, 0, 0, torch.bfloat16),  # ragged KV tail
+    (2, 100, 128, 4, 2, 64, 0, 0, torch.float32),       # ragged Sq
+    (1, 256, 256, 4, 2, 64, 96, 0, torch.float32),      # sliding window
+    (1, 64, 192, 4, 2, 64, 0, 128, torch.float32),      # q_offset
+    (2, 128, 128, 4, 1, 80, 0, 0, torch.float32),       # D=80
+    (1, 64, 64, 2, 2, 128, 0, 0, torch.bfloat16),
+    (1, 64, 128, 4, 2, 32, 32, 400, torch.float32),     # rows with no valid key
+])
+def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Skv, H, KV, D, window,
+                                              q_offset, dtype):
+    gen = _gen(cuda, Sq + D)
+    q = torch.randn((B, Sq, H, D), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((B, Skv, KV, D), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((B, Skv, KV, D), generator=gen, device=cuda).to(dtype)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    before = flash_attention.launches
+    o = flash_attention(q, k, v, **kw)
+    assert flash_attention.launches == before + 1
+    r = attention_reference(q, k, v, **kw)
+    assert o.dtype == dtype
+    tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
+    assert float((o.float() - r.float()).abs().max()) <= tol
+
+
+def test_flash_attention_kernel_refuses(cuda):
+    q = torch.zeros((1, 64, 4, 16), device=cuda)
+    k = torch.zeros((1, 200, 2, 16), device=cuda)
+    with pytest.raises(ValueError, match="non-causal"):
+        flash_attention(q, k, k, causal=False)
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros((1, 8, 2, 160), device=cuda)
+        flash_attention(big, big, big)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk,dtype", [
+    (1, 96, 48, 64, 128, 128, torch.float32),
+    (2, 256, 4, 64, 128, 128, torch.float32),
+    (1, 128, 8, 32, 64, 32, torch.float32),
+    (2, 64, 2, 16, 32, 64, torch.float32),
+    (1, 1024, 48, 64, 128, 128, torch.bfloat16),
+])
+def test_ssd_scan_kernel_matches_plain(cuda, B, S, H, P, N, chunk, dtype):
+    gen = _gen(cuda, S + N)
+    x = torch.randn((B, S, H, P), generator=gen, device=cuda).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=gen, device=cuda))
+    A = -torch.exp(torch.randn((H,), generator=gen, device=cuda) * 0.5)
+    Bm = torch.randn((B, S, 1, N), generator=gen, device=cuda).to(dtype)
+    Cm = torch.randn((B, S, 1, N), generator=gen, device=cuda).to(dtype)
+    h0 = torch.randn((B, H, N, P), generator=gen, device=cuda)
+    for init in (None, h0):
+        before = ssd_chunked.launches
+        y, h = ssd_chunked(x, dt, A, Bm, Cm, init, chunk=chunk)
+        assert ssd_chunked.launches == before + 1
+        yr, hr = sref.ssd_chunked(x, dt, A, Bm, Cm, init, chunk=chunk)
+        # 1e-4 of the output's scale; bf16 y is rounded by both (1e-2)
+        ty = (1e-2 if dtype == torch.bfloat16 else 1e-4) * max(1.0, float(yr.float().abs().max()))
+        assert float((y.float() - yr.float()).abs().max()) <= ty
+        assert float((h - hr).abs().max()) <= 1e-4 * max(1.0, float(hr.abs().max()))
+
+
+def test_ssd_scan_kernel_refuses(cuda):
+    x = torch.zeros((1, 64, 2, 8), device=cuda)
+    dt = torch.zeros((1, 64, 2), device=cuda)
+    A = torch.zeros((2,), device=cuda)
+    with pytest.raises(ValueError, match="G=1"):
+        ssd_chunked(x, dt, A, torch.zeros((1, 64, 2, 16), device=cuda),
+                    torch.zeros((1, 64, 2, 16), device=cuda))
+    with pytest.raises(ValueError, match="chunk"):
+        b = torch.zeros((1, 64, 1, 16), device=cuda)
+        ssd_chunked(x, dt, A, b, b, chunk=48)
+
+
+@pytest.mark.parametrize("name,counter", [("llama3.2-1b", flash_attention),
+                                          ("mamba2-780m", ssd_chunked)])
+def test_engine_runs_through_kernels_on_card(cuda, name, counter):
+    cfg = get_config(name).reduced()
+    params = build_params(cfg, 0, cuda)
+    counter.launches = 0
+    done, st = serve_burst(cfg, params, make_burst(cfg, 4, 0), slots=2, max_len=1100)
+    assert counter.launches == cfg.n_layers * st["prefills"] == cfg.n_layers * 4
+    assert all(len(r.out) == r.max_new for r in done)
+    # the kernel path against the plain path, same weights
+    toks = torch.as_tensor(done[0].prompt[None].astype(np.int64), device=cuda)
+    with torch.inference_mode():
+        lk, _ = transformer.prefill(cfg, params, toks, impl="kernel")
+        lp, _ = transformer.prefill(cfg, params, toks, impl="plain")
+    assert float((lk.float() - lp.float()).abs().max()) <= 0.1

@@ -1,0 +1,136 @@
+"""The port's SSD scan against the JAX package's, on the CPU.
+
+Same inputs (numpy, seeded) through both packages: ``ssd_chunked``,
+``ssd_sequential`` and ``ssd_decode_step`` against the JAX references, and
+the kernel wrapper (its plain version on the CPU) against the JAX Pallas
+wrapper in interpret mode, on the sweep shapes of ``tests/test_kernels.py``
+plus S=96 (one chunk of 96, which the model's ``chunk=min(128, S)`` gives).
+Tolerances: 1e-4 absolute in float32 as the JAX kernel tests hold theirs,
+plus 1e-5 of the output's largest magnitude (y reaches ~200 at N=128).
+The extra term is the cumsum: XLA on the CPU does not add the chunk's
+log-decays in sequence as torch does, so cum (tens to hundreds in size)
+differs by a few float32 ulps in many entries, and every decay factor
+exp(cum_i - cum_j) by that relative amount.  bf16 inputs: 2e-2 (one bf16
+rounding of y).
+"""
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ssd_scan import ops as jops
+from repro.kernels.ssd_scan import ref as jref
+from repro_torch.kernels.ssd_scan import ops as tops
+from repro_torch.kernels.ssd_scan import ref as tref
+
+SWEEP = [  # tests/test_kernels.py:70-75, plus one chunk of 96 rows
+    (2, 256, 4, 64, 128, 128),
+    (1, 128, 8, 32, 64, 32),
+    (2, 64, 2, 16, 32, 64),
+    (1, 512, 4, 64, 128, 128),
+    (1, 96, 4, 16, 32, 128),
+]
+
+
+def _inputs(seed, B, S, H, P, N, G=1):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H)))).astype(np.float32)
+    A = (-np.exp(rng.standard_normal(H) * 0.5)).astype(np.float32)
+    Bm = rng.standard_normal((B, S, G, N)).astype(np.float32)
+    Cm = rng.standard_normal((B, S, G, N)).astype(np.float32)
+    return x, dt, A, Bm, Cm
+
+
+def _j(xs, dtype=jnp.float32):
+    return [jnp.asarray(x).astype(dtype) if x.ndim > 1 else jnp.asarray(x) for x in xs]
+
+
+def _t(xs, dtype=torch.float32):
+    return [torch.from_numpy(x).to(dtype) if x.ndim > 1 else torch.from_numpy(x)
+            for x in xs]
+
+
+def _np(x):
+    return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
+
+
+def _close(actual, desired):
+    a, d = _np(actual), _np(desired)
+    np.testing.assert_allclose(a, d, rtol=0, atol=1e-4 + 1e-5 * np.abs(d).max())
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SWEEP)
+def test_ssd_chunked_matches_reference_package(B, S, H, P, N, chunk):
+    ins = _inputs(S + P + N, B, S, H, P, N)
+    x, dt, A, Bm, Cm = ins
+    jx, jdt, jA, jB, jC = _j([x, dt]) + [jnp.asarray(A)] + _j([Bm, Cm])
+    tx, tdt, tA, tB, tC = _t([x, dt]) + [torch.from_numpy(A)] + _t([Bm, Cm])
+    y_r, h_r = jref.ssd_chunked(jx, jdt, jA, jB, jC, chunk=chunk)
+    y_t, h_t = tref.ssd_chunked(tx, tdt, tA, tB, tC, chunk=chunk)
+    _close(y_t, y_r)
+    _close(h_t, h_r)
+    # the kernel wrapper (plain version on the CPU) against the Pallas
+    # kernel in interpret mode
+    y_p, h_p = jops.ssd_chunked(jx, jdt, jA, jB, jC, chunk=chunk)
+    y_w, h_w = tops.ssd_chunked(tx, tdt, tA, tB, tC, chunk=chunk)
+    _close(y_w, y_p)
+    _close(h_w, h_p)
+
+
+def test_ssd_bf16_inputs_match_reference_package():
+    x, dt, A, Bm, Cm = _inputs(7, 1, 256, 4, 16, 32)
+    jy, jh = jref.ssd_chunked(*_j([x], jnp.bfloat16), jnp.asarray(dt), jnp.asarray(A),
+                              *_j([Bm, Cm], jnp.bfloat16))
+    ty, th = tops.ssd_chunked(*_t([x], torch.bfloat16), torch.from_numpy(dt),
+                              torch.from_numpy(A), *_t([Bm, Cm], torch.bfloat16))
+    assert ty.dtype == torch.bfloat16 and th.dtype == torch.float32
+    _close(th, jh)
+    np.testing.assert_allclose(_np(ty), _np(jy), rtol=2e-2, atol=2e-2)
+
+
+def test_ssd_sequential_and_h0_match_reference_package():
+    B, S, H, P, N, G = 2, 64, 4, 8, 16, 2
+    x, dt, A, Bm, Cm = _inputs(3, B, S, H, P, N, G)
+    h0 = np.random.default_rng(4).standard_normal((B, H, N, P)).astype(np.float32)
+    ys, hs = jref.ssd_sequential(*_j([x, dt]), jnp.asarray(A), *_j([Bm, Cm]),
+                                 h0=jnp.asarray(h0))
+    yt, ht = tref.ssd_sequential(*_t([x, dt]), torch.from_numpy(A), *_t([Bm, Cm]),
+                                 h0=torch.from_numpy(h0))
+    _close(yt, ys)
+    _close(ht, hs)
+    yc, hc = tref.ssd_chunked(*_t([x, dt]), torch.from_numpy(A), *_t([Bm, Cm]),
+                              h0=torch.from_numpy(h0), chunk=16)
+    np.testing.assert_allclose(_np(yc), _np(ys), atol=2e-3)  # chunked vs sequential
+    np.testing.assert_allclose(_np(hc), _np(hs), atol=2e-3)
+
+
+def test_ssd_decode_steps_match_reference_package_and_scan():
+    B, S, H, P, N = 1, 16, 2, 8, 16
+    x, dt, A, Bm, Cm = _inputs(5, B, S, H, P, N)
+    hj = jnp.zeros((B, H, N, P), jnp.float32)
+    ht = torch.zeros((B, H, N, P))
+    ys = []
+    for t in range(S):
+        yj, hj = jref.ssd_decode_step(jnp.asarray(x[:, t]), jnp.asarray(dt[:, t]),
+                                      jnp.asarray(A), jnp.asarray(Bm[:, t]),
+                                      jnp.asarray(Cm[:, t]), hj)
+        yt, ht = tref.ssd_decode_step(torch.from_numpy(x[:, t]), torch.from_numpy(dt[:, t]),
+                                      torch.from_numpy(A), torch.from_numpy(Bm[:, t]),
+                                      torch.from_numpy(Cm[:, t]), ht)
+        _close(yt, yj)
+        ys.append(yt)
+    _close(ht, hj)
+    yc, hc = tref.ssd_chunked(*_t([x, dt]), torch.from_numpy(A), *_t([Bm, Cm]), chunk=8)
+    np.testing.assert_allclose(_np(torch.stack(ys, 1)), _np(yc), atol=2e-3)
+    np.testing.assert_allclose(_np(ht), _np(hc), atol=2e-3)
+
+
+def test_ssd_wrapper_refuses_what_the_reference_package_refuses():
+    x, dt, A, Bm, Cm = _inputs(6, 1, 200, 2, 8, 16)
+    with pytest.raises(AssertionError):
+        jref.ssd_chunked(*_j([x, dt]), jnp.asarray(A), *_j([Bm, Cm]), chunk=128)
+    with pytest.raises(AssertionError):
+        tops.ssd_chunked(*_t([x, dt]), torch.from_numpy(A), *_t([Bm, Cm]), chunk=128)
