@@ -23,18 +23,21 @@ first fault exits non-zero and prints no result:
      every output bit-exact;
   5. flash_attention against ``attention_reference`` on the card: llama's
      prefill (B=1, H=32, KV=8, D=64, bf16, S = 128, 1024, 2048) and edges
-     (ragged Sq and Skv, window 96, q_offset, D=80 and 16, non-causal,
-     rows with no valid key) within 3e-2 in bf16 (as
-     ``tests/test_kernels.py``), the JAX kernel sweep in float32 within
+     (ragged Sq and Skv, window 96, q_offset, D=80, 128 and 16,
+     non-causal, rows with no valid key) within 3e-2 in bf16 (the
+     tensor-core kernel; as ``tests/test_kernels.py``), the JAX kernel
+     sweep and the same edges in float32 (the CUDA-core kernel) within
      2e-5; timed at the three llama shapes beside the plain version and
      ``scaled_dot_product_attention`` (timed only, never on the path);
   6. ssd_scan against ``ref.ssd_chunked`` on the card: mamba2's prefill
      (B=1, H=48, P=64, N=128, S = 96, 128, 1024, 2048) and the JAX kernel
-     sweep in float32, y and h within 1e-4 of the output's scale
-     (max(1, max|ref|): 1e-4 absolute for outputs of order one, as
+     sweep in float32, y and h within 1e-4 of the output's scale (max(1,
+     max|ref|): 1e-4 absolute for outputs of order one, as
      ``tests/test_kernels.py``; y reaches ~200 at N=128), and in bf16 (the
-     model's dtype; y, rounded to bf16 by both, within 1e-2 of its scale);
-     timed in bf16 beside the plain version;
+     model's dtype; the same shapes, an initial state and B=2; y, rounded
+     to bf16 by both, within 1e-2 of its scale, h within 1e-4); timed
+     beside the plain version (device time summed over the four kernels of
+     a call, and each kernel's share logged);
   7. the search path through ``repro_torch.launch.search.main`` (8 seeds,
      pop 40, 10 generations, with separate baselines), once with
      ``--backend kernel`` and once with ``--backend table``: every launch
@@ -56,8 +59,10 @@ first fault exits non-zero and prints no result:
      launch 16 times per prefill (llama) or ssd_scan 48 times (mamba) and
      no other kernel at all.  Then the kernel path's prefill logits
      against the plain path's (same weights, plain attention / SSD called
-     directly) within 0.05, the greedy tokens of a plain-path burst
-     (logged), TTFT and decode tokens/s, and one burst under the profiler;
+     directly) within 0.05; for mamba, both paths' logits against the
+     plain path with its SSD scan in float64 (logged, not a check), the
+     greedy tokens of a plain-path burst (logged), TTFT and decode
+     tokens/s, and one burst under the profiler;
  10. one JSON line ``{"kernels": [...]}``: launches on the main paths,
      max error, kernel and plain times per call (CUDA events, after a
      warm-up, in turns plain/kernel/kernel/plain; at small sizes they
@@ -73,6 +78,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -88,6 +94,12 @@ SRC = ROOT / "src"
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
 PEAK_BF16_S = 989e12
+# wrapper -> the prefix of its kernels' device-activity names, which sums
+# all of a wrapper's kernels (the profiler shows e.g. "void (anonymous
+# namespace)::ssd_scan_out_kernel<__nv_bfloat16>(...)"; one ssd_scan call
+# runs four kernels)
+KERNEL_PREFIX = {"imc_eval": "imc_eval_kernel", "ga_gen_step": "ga_gen_step_kernel",
+                 "flash_attention": "flash_attention_", "ssd_scan": "ssd_scan_"}
 
 
 class SmokeFailure(RuntimeError):
@@ -161,9 +173,10 @@ def device_kernels(prof, iters: int = 1) -> dict:
     return out
 
 
-def device_ms(torch, fn, iters: int, name: str = ""):
-    """Per-call device time (ms) of the device work ``fn`` enqueues (only
-    activities whose name contains ``name``), or None if not traced."""
+def device_parts(torch, fn, iters: int, name: str = "") -> dict:
+    """Per-call device time (ms) of each device activity ``fn`` enqueues
+    whose name contains ``name``, keyed by its kernel's name where it has
+    one (``ssd_scan_out_kernel``); empty if not traced."""
     fn()
 
     def many():
@@ -171,8 +184,20 @@ def device_ms(torch, fn, iters: int, name: str = ""):
             fn()
 
     prof, _ = _profiled(torch, many)
-    mine = [ms for n, (ms, _) in device_kernels(prof, iters).items() if name in n]
-    return sum(mine) if mine else None
+    out: dict = {}
+    for n, (ms, _) in device_kernels(prof, iters).items():
+        if name in n:
+            short = re.search(r"(\w+_kernel)\b", n)
+            key = short.group(1) if short else n[:80]
+            out[key] = out.get(key, 0.0) + ms
+    return out
+
+
+def device_ms(torch, fn, iters: int, name: str = ""):
+    """Per-call device time (ms) of the device work ``fn`` enqueues (only
+    activities whose name contains ``name``), or None if not traced."""
+    parts = device_parts(torch, fn, iters, name)
+    return sum(parts.values()) if parts else None
 
 
 def timed_pair(plain, kernel, iters: int):
@@ -200,9 +225,24 @@ def phase_card(torch):
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
     name = torch.cuda.get_device_name(0)
-    log(f"torch {torch.__version__} (CUDA {torch.version.cuda}) on {name}; "
-        f"{torch.cuda.device_count()} device(s)")
+    log(f"torch {torch.__version__} (CUDA {torch.version.cuda}, cuBLASLt "
+        f"{_cublaslt_version(torch)}) on {name}; {torch.cuda.device_count()} device(s)")
     return card, name
+
+
+def _cublaslt_version(torch) -> str:
+    """The version of the cuBLASLt that torch loaded (its float32 GEMMs set
+    the summation order that ssd_scan repeats), or "unknown"."""
+    import ctypes
+
+    a = torch.ones((8, 8), device="cuda")
+    (a @ a).sum().item()  # loads cuBLAS / cuBLASLt
+    try:
+        lib = ctypes.CDLL(f"libcublasLt.so.{torch.version.cuda.split('.')[0]}")
+        lib.cublasLtGetVersion.restype = ctypes.c_size_t
+        return str(lib.cublasLtGetVersion())
+    except (OSError, AttributeError):
+        return "unknown"
 
 
 def phase_build():
@@ -309,7 +349,7 @@ def phase_b1(torch, dev, paper, timings):
                    + 3 * B * W * P * 4)
         ops = 40.0 * P * float(mask.sum())
         b_ms, b_by = bound(n_bytes, ops)
-        k_dev = device_ms(torch, kernel_fn, 20, "imc_eval_kernel")
+        k_dev = device_ms(torch, kernel_fn, 20, KERNEL_PREFIX["imc_eval"])
         p_dev = device_ms(torch, plain_fn, 20)
         timings[f"imc_eval/{label}"] = dict(
             B=B, P=P, W=W, L=L, ms=k_ms, plain_ms=p_ms, device_ms=k_dev,
@@ -413,7 +453,7 @@ def phase_b2(torch, dev, timings):
         n_bytes, ops = b2_bound(B, P, 4, u.shape[-1], int(gs[0]), int(gs[1]),
                                 int(gs[6]), int(gs[8]))
         b_ms, b_by = bound(n_bytes, ops)
-        k_dev = device_ms(torch, kernel_fn, 20, "ga_gen_step_kernel")
+        k_dev = device_ms(torch, kernel_fn, 20, KERNEL_PREFIX["ga_gen_step"])
         p_dev = device_ms(torch, plain_fn, 20)
         timings[f"ga_gen_step/{label}"] = dict(
             B=B, P=P, W=4, ms=k_ms, plain_ms=p_ms, device_ms=k_dev,
@@ -573,6 +613,12 @@ B3_CASES = [
     ("noncausal", 1, 128, 256, 4, 2, 64, False, 0, 0, "f32", False),
     # rows with no valid key (window behind the keys): a uniform average
     ("keyless_rows", 1, 64, 128, 4, 2, 64, True, 32, 400, "f32", False),
+    # the same edges through the tensor-core (bf16) kernel
+    ("bf16_sweep4", 2, 100, 128, 4, 2, 64, True, 0, 0, "bf16", False),
+    ("bf16_sweep5", 1, 64, 64, 2, 2, 128, True, 0, 0, "bf16", False),
+    ("bf16_d16", 1, 128, 128, 4, 2, 16, True, 0, 0, "bf16", False),
+    ("bf16_noncausal", 1, 128, 256, 4, 2, 64, False, 0, 0, "bf16", False),
+    ("bf16_keyless_rows", 1, 64, 128, 4, 2, 64, True, 32, 400, "bf16", False),
 ]
 
 
@@ -625,7 +671,7 @@ def phase_b3(torch, dev, timings):
         n_bytes = elem * (2 * q.numel() + k.numel() + v.numel())
         ops = 4.0 * D * attn_pairs(Sq, Skv, causal, window, q_offset) * H * B
         b_ms, b_by = bound(n_bytes, ops, PEAK_BF16_S if dt == "bf16" else PEAK_FP32_S)
-        k_dev = device_ms(torch, kernel_fn, 10, "flash_attention_kernel")
+        k_dev = device_ms(torch, kernel_fn, 10, KERNEL_PREFIX["flash_attention"])
         p_dev = device_ms(torch, plain_fn, 10)
         l_dev = device_ms(torch, library_fn, 10)
         timings[f"flash_attention/{label}"] = dict(
@@ -657,22 +703,28 @@ def ssd_ops(B, S, H, P, N, Q) -> float:
     return float(per * B * H * (S // Q))
 
 
-# label, B, S, H, P, N, chunk, dtype, timed
+# label, B, S, H, P, N, chunk, dtype, h0, timed
 B4_CASES = [
-    ("s96", 1, 96, 48, 64, 128, 128, "f32", False),
-    ("s128", 1, 128, 48, 64, 128, 128, "f32", False),
-    ("s1024", 1, 1024, 48, 64, 128, 128, "f32", True),
-    ("s2048", 1, 2048, 48, 64, 128, 128, "f32", False),
+    ("s96", 1, 96, 48, 64, 128, 128, "f32", False, False),
+    ("s128", 1, 128, 48, 64, 128, 128, "f32", False, False),
+    ("s1024", 1, 1024, 48, 64, 128, 128, "f32", False, True),
+    ("s2048", 1, 2048, 48, 64, 128, 128, "f32", False, False),
     # the JAX kernel sweep (tests/test_kernels.py:70-75)
-    ("sweep0", 2, 256, 4, 64, 128, 128, "f32", False),
-    ("sweep1", 1, 128, 8, 32, 64, 32, "f32", False),
-    ("sweep2", 2, 64, 2, 16, 32, 64, "f32", False),
-    ("sweep3", 1, 512, 4, 64, 128, 128, "f32", False),
+    ("sweep0", 2, 256, 4, 64, 128, 128, "f32", False, False),
+    ("sweep1", 1, 128, 8, 32, 64, 32, "f32", False, False),
+    ("sweep2", 2, 64, 2, 16, 32, 64, "f32", False, False),
+    ("sweep3", 1, 512, 4, 64, 128, 128, "f32", False, False),
     # the model's dtype
-    ("bf16_s96", 1, 96, 48, 64, 128, 128, "bf16", False),
-    ("bf16_s128", 1, 128, 48, 64, 128, 128, "bf16", True),
-    ("bf16_s1024", 1, 1024, 48, 64, 128, 128, "bf16", True),
-    ("bf16_s2048", 1, 2048, 48, 64, 128, 128, "bf16", True),
+    ("bf16_s96", 1, 96, 48, 64, 128, 128, "bf16", False, False),
+    ("bf16_s128", 1, 128, 48, 64, 128, 128, "bf16", False, True),
+    ("bf16_s1024", 1, 1024, 48, 64, 128, 128, "bf16", False, True),
+    ("bf16_s2048", 1, 2048, 48, 64, 128, 128, "bf16", False, True),
+    ("bf16_sweep0", 2, 256, 4, 64, 128, 128, "bf16", False, False),
+    ("bf16_sweep1", 1, 128, 8, 32, 64, 32, "bf16", False, False),
+    ("bf16_sweep2", 2, 64, 2, 16, 32, 64, "bf16", False, False),
+    ("bf16_sweep3", 1, 512, 4, 64, 128, 128, "bf16", False, False),
+    ("bf16_h0", 1, 1024, 48, 64, 128, 128, "bf16", True, False),
+    ("bf16_b2", 2, 1024, 48, 64, 128, 128, "bf16", False, False),
 ]
 
 
@@ -685,12 +737,13 @@ def phase_b4(torch, dev, timings):
 
     gen = _gen(torch, dev, 4)
     errs = {}
-    for (label, B, S, H, P, N, chunk, dt, timed) in B4_CASES:
+    for (label, B, S, H, P, N, chunk, dt, with_h0, timed) in B4_CASES:
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
         x, dtv, A, Bm, Cm = ssd_inputs(torch, B, S, H, P, N, gen, dev, dtype)
+        h0 = torch.randn((B, H, N, P), generator=gen, device=dev) if with_h0 else None
         before = ssd_chunked.launches
-        y, h = ssd_chunked(x, dtv, A, Bm, Cm, chunk=chunk)
-        yr, hr = ref.ssd_chunked(x, dtv, A, Bm, Cm, chunk=chunk)
+        y, h = ssd_chunked(x, dtv, A, Bm, Cm, h0, chunk=chunk)
+        yr, hr = ref.ssd_chunked(x, dtv, A, Bm, Cm, h0, chunk=chunk)
         torch.cuda.synchronize()
         check(ssd_chunked.launches == before + 1, f"B4 {label}: launch not counted")
         check(y.dtype == dtype and tuple(y.shape) == (B, S, H, P), f"B4 {label}: y")
@@ -704,7 +757,8 @@ def phase_b4(torch, dev, timings):
         check(ey <= tol_y, f"B4 {label}: y max abs err {ey} > {tol_y}")
         check(eh <= 1e-4 * sh, f"B4 {label}: h max abs err {eh} > {1e-4 * sh}")
         errs[label] = (ey, eh)
-        log(f"B4 {label} (B={B}, S={S}, H={H}, P={P}, N={N}, chunk={min(chunk, S)}, {dt}): "
+        log(f"B4 {label} (B={B}, S={S}, H={H}, P={P}, N={N}, chunk={min(chunk, S)}, {dt}, "
+            f"h0={with_h0}): "
             f"ok, max abs err y {ey:.3g} (max |y| {sy:.4g}), h {eh:.3g} (max |h| {sh:.4g})")
         if not timed:
             continue
@@ -721,14 +775,16 @@ def phase_b4(torch, dev, timings):
                    + 4 * (dtv.numel() + A.numel() + B * H * N * P))
         ops = ssd_ops(B, S, H, P, N, min(chunk, S))
         b_ms, b_by = bound(n_bytes, ops, PEAK_BF16_S if dt == "bf16" else PEAK_FP32_S)
-        k_dev = device_ms(torch, kernel_fn, 10, "ssd_scan_kernel")
+        parts = device_parts(torch, kernel_fn, 10, KERNEL_PREFIX["ssd_scan"])
+        k_dev = sum(parts.values()) if parts else None
         p_dev = device_ms(torch, plain_fn, 10)
         timings[f"ssd_scan/{label}"] = dict(
             B=B, S=S, H=H, P=P, N=N, dtype=dt, ms=k_ms, plain_ms=p_ms, device_ms=k_dev,
             plain_device_ms=p_dev, bound_ms=b_ms, bound_by=b_by, bytes=n_bytes, ops=ops,
-            max_abs_err_y=ey, max_abs_err_h=eh)
-        log(f"B4 {label}: kernel {k_ms:.4f} ms per call ({_ms(k_dev)} on the device), "
-            f"plain {p_ms:.4f} ms ({_ms(p_dev)}), bound {b_ms:.6f} ms ({b_by})")
+            max_abs_err_y=ey, max_abs_err_h=eh, device_parts=parts)
+        log(f"B4 {label}: kernel {k_ms:.4f} ms per call ({_ms(k_dev)} on the device: "
+            + ", ".join(f"{n} {ms:.4f}" for n, ms in parts.items())
+            + f"), plain {p_ms:.4f} ms ({_ms(p_dev)}), bound {b_ms:.6f} ms ({b_by})")
     return errs
 
 
@@ -747,13 +803,34 @@ def _counters():
             "flash_attention": flash_attention, "ssd_scan": ssd_chunked}
 
 
+def _prefill_ssd_float64(torch, cfg, params, toks):
+    """Last-token logits of the plain path with every SSD scan computed in
+    float64 (y rounded to the model's dtype, as the plain scan rounds it):
+    the reading that says how far the plain path's own float32 rounding
+    moves the logits, against which the 0.05 check is read."""
+    import functools
+    import types
+
+    from repro_torch.kernels.ssd_scan import ref
+    from repro_torch.models import mamba, transformer
+
+    saved = mamba.ssd
+    mamba.ssd = types.SimpleNamespace(ssd_chunked=functools.partial(
+        ref.ssd_chunked, compute_dtype=torch.float64))
+    try:
+        return transformer.prefill(cfg, params, toks, impl="plain")[0]
+    finally:
+        mamba.ssd = saved
+
+
 def phase_lm(torch, dev, name, card, timings):
     """The LM serving path at full width: a burst of 8 requests through
     ``Engine`` (4 slots, max_len 2048), random weights from seed 0.  Every
     request gets its max_new tokens; the model's prefill kernel launches
     once per layer per prefill, the other kernels never.  Then the
     kernel path's prefill logits against the plain path's (same weights,
-    plain attention / SSD called directly) within LM_LOGIT_TOL, the greedy
+    plain attention / SSD called directly) within LM_LOGIT_TOL; for mamba
+    both against the plain path with its SSD in float64 (logged), the greedy
     tokens of a plain-path burst (logged), and one traced burst."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch.serve import build_params, make_burst, serve_burst
@@ -787,7 +864,7 @@ def phase_lm(torch, dev, name, card, timings):
     firsts = {}
     for r in done:
         firsts.setdefault(len(r.prompt), r)
-    errs, top1 = {}, 0
+    errs, top1, f64_gap = {}, 0, {}
     with torch.inference_mode():
         for n, r in sorted(firsts.items()):
             toks = torch.as_tensor(r.prompt[None].astype("int64"), device=dev)
@@ -799,6 +876,13 @@ def phase_lm(torch, dev, name, card, timings):
             scale = float(lp.float().abs().max())
             log(f"{name} prefill S={n}: kernel vs plain logits max abs diff "
                 f"{errs[n]:.4g} (max |logit| {scale:.4g})")
+            if kname == "ssd_scan":
+                l64 = _prefill_ssd_float64(torch, cfg, params, toks).float()
+                f64_gap[n] = {"plain": float((lp.float() - l64).abs().max()),
+                              "kernel": float((lk.float() - l64).abs().max())}
+                log(f"{name} prefill S={n}: against the plain path with its SSD in "
+                    f"float64, logits max abs diff: plain path {f64_gap[n]['plain']:.4g}, "
+                    f"kernel path {f64_gap[n]['kernel']:.4g}")
     err = max(errs.values())
     check(err <= LM_LOGIT_TOL, f"{name}: kernel vs plain prefill logits differ by "
           f"{err} > {LM_LOGIT_TOL}")
@@ -820,7 +904,7 @@ def phase_lm(torch, dev, name, card, timings):
     trace = {"wall_s": wall, "device": "not measured"}
     if per:
         busy = sum(ms for ms, _ in per.values()) / 1e3
-        mine = sum(ms for n, (ms, _) in per.items() if f"{kname}_kernel" in n) / 1e3
+        mine = sum(ms for n, (ms, _) in per.items() if KERNEL_PREFIX[kname] in n) / 1e3
         top = sorted(per.items(), key=lambda kv: -kv[1][0])[:6]
         trace = {"wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
                  "kernel_s": mine, "kernel_share_of_busy": mine / busy,
@@ -828,7 +912,8 @@ def phase_lm(torch, dev, name, card, timings):
                  "top": [{"name": n[:120], "ms": ms, "count": c} for n, (ms, c) in top]}
     timings[f"serve/{name}"] = dict(
         card=card, params=cfg.param_count(), init_s=init_s, launches=launches[kname],
-        stats=st, plain_stats=st_p, logit_err=errs, top1_agree=f"{top1}/{len(errs)}",
+        stats=st, plain_stats=st_p, logit_err=errs, logit_gap_ssd_float64=f64_gap,
+        top1_agree=f"{top1}/{len(errs)}",
         greedy_same=same, greedy_prefix=prefix, tokens=total, trace=trace)
     log(f"{name} ({cfg.param_count() / 1e9:.2f} B params, init {init_s:.2f}s) on {card}: "
         f"{st['requests']} requests, {st['tokens']} tokens, {st['prefills']} prefills "
@@ -916,8 +1001,8 @@ def run() -> dict:
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/kernel.py:33",
-         "launches": b4_launches, "max_abs_err": b4_err["s1024"][0],
-         "max_abs_err_bf16": b4_err["bf16_s1024"][0],
+         "launches": b4_launches, "max_abs_err": b4_err["bf16_s1024"][0],
+         "max_abs_err_f32": b4_err["s1024"][0], "device_kernels_per_call": len(t4["device_parts"]),
          "ms": t4["ms"], "plain_ms": t4["plain_ms"], "bound_ms": t4["bound_ms"],
          "bound_by": t4["bound_by"], "library_ms": None,
          "device_ms": t4["device_ms"], "plain_device_ms": t4["plain_device_ms"]},

@@ -1,8 +1,11 @@
 """The flash_attention kernel's wrapper, in the model's (B, S, H, D) layout.
 
 * On CPU tensors it runs the plain version (``ref.attention_reference``).
-* On CUDA tensors it launches ``csrc/flash_attention.cu`` once for every
-  (query tile, head, batch), or raises.  There is no fallback.
+* On CUDA tensors it launches ``csrc/flash_attention.cu`` (one block for
+  every 64-query tile, head and batch), or raises.  There is no fallback.
+  The input dtype picks the kernel: bf16 (the serving path) runs
+  ``flash_attention_mma_kernel`` on the tensor cores, float32 runs
+  ``flash_attention_f32_kernel`` on the CUDA cores.
 
 ``flash_attention.launches`` counts kernel launches (never plain runs).
 Like the JAX package's wrapper, a non-causal call whose Skv is not a

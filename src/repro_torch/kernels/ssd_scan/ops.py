@@ -1,10 +1,18 @@
 """The ssd_scan kernel's wrapper: drop-in for ``ref.ssd_chunked`` (G=1).
 
 * On CPU tensors it runs the plain version (``ref.ssd_chunked``).
-* On CUDA tensors it launches ``csrc/ssd_scan.cu`` once for every (batch,
-  head), or raises.  There is no fallback.
+* On CUDA tensors it launches ``csrc/ssd_scan.cu``, or raises.  There is
+  no fallback.  One call runs four kernels back to back on the current
+  stream, three of them on a grid of chunks x heads x batch:
+  ``ssd_scan_state_kernel`` (chunk states), ``ssd_scan_pass_kernel`` (the
+  state pass), ``ssd_scan_intra_kernel`` (the intra-chunk term) and
+  ``ssd_scan_out_kernel`` (y), with float32 scratch this wrapper allocates.
+  They sum every product in the plain version's order, in float32 for
+  bf16 and float32 inputs alike.
 
-``ssd_chunked.launches`` counts kernel launches (never plain runs).
+``ssd_chunked.launches`` counts wrapper calls that launched the kernel
+(never plain runs): one call counts one launch, also when it runs the
+four kernels.
 """
 from __future__ import annotations
 
@@ -27,7 +35,7 @@ def _lib():
     fn = lib.ssd_scan_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
         fn.restype = i
         lib.ssd_scan_smem_bytes.argtypes = [i, i, i, i]
         lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
@@ -89,10 +97,16 @@ def ssd_chunked(
     h0c = None if h0 is None else h0.to(torch.float32).contiguous()
     y = torch.empty_like(xc)
     h = torch.empty((B, H, N, P), dtype=torch.float32, device=dev)
+    # scratch: the chunk states (entering states after the state pass), the
+    # cumsums and the intra-chunk term
+    states = torch.empty((B, H, S // Q, N, P), dtype=torch.float32, device=dev)
+    cum = torch.empty((B, H, S // Q, Q), dtype=torch.float32, device=dev)
+    y_intra = torch.empty((B, S, H, P), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.ssd_scan_launch(
         xc.data_ptr(), dtc.data_ptr(), Ac.data_ptr(), bc.data_ptr(), cc.data_ptr(),
         None if h0c is None else h0c.data_ptr(), y.data_ptr(), h.data_ptr(),
+        states.data_ptr(), cum.data_ptr(), y_intra.data_ptr(),
         B, S, H, P, N, Q, dtype, dev.index, stream)
     _build.check(_NAME, rc)
     ssd_chunked.launches += 1

@@ -45,18 +45,21 @@ def ssd_sequential(x, dt, A, Bm, Cm, h0: Optional[torch.Tensor] = None
 
 
 def ssd_chunked(x, dt, A, Bm, Cm, h0: Optional[torch.Tensor] = None, *,
-                chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+                chunk: int = 128, compute_dtype: torch.dtype = torch.float32
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """y in x's dtype; every intermediate and the final state in
+    ``compute_dtype`` (float64 gives an oracle for the float32 rounding)."""
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     chunk = min(chunk, S)
     assert S % chunk == 0, (S, chunk)
     nc, Q = S // chunk, chunk
 
-    xf = x.float().reshape(B, nc, Q, H, P)
-    dtf = dt.float().reshape(B, nc, Q, H)
-    Af = A.float()
-    Bh = _expand_groups(Bm.float(), H).reshape(B, nc, Q, H, N)
-    Ch = _expand_groups(Cm.float(), H).reshape(B, nc, Q, H, N)
+    xf = x.to(compute_dtype).reshape(B, nc, Q, H, P)
+    dtf = dt.to(compute_dtype).reshape(B, nc, Q, H)
+    Af = A.to(compute_dtype)
+    Bh = _expand_groups(Bm.to(compute_dtype), H).reshape(B, nc, Q, H, N)
+    Ch = _expand_groups(Cm.to(compute_dtype), H).reshape(B, nc, Q, H, N)
 
     a = dtf * Af  # (B,nc,Q,H) log-decay per step (<= 0)
     cum = torch.cumsum(a, dim=2)  # alpha_i within chunk (inclusive)
@@ -76,8 +79,8 @@ def ssd_chunked(x, dt, A, Bm, Cm, h0: Optional[torch.Tensor] = None, *,
     w = torch.exp(total[:, :, None] - cum)  # (B,nc,Q,H)
     S_c = torch.einsum("bcjhn,bcjhp->bchnp", Bh * (w * dtf)[..., None], xf)
 
-    h = (torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
-         if h0 is None else h0.float())
+    h = (torch.zeros((B, H, N, P), dtype=compute_dtype, device=x.device)
+         if h0 is None else h0.to(compute_dtype))
     h_in = []
     for c in range(nc):
         h_in.append(h)  # state entering chunk c

@@ -134,3 +134,49 @@ def test_decode_attention_matches_reference_package(window):
     out_j = jattn.decode_attention(_j(q), _j(kc), _j(vc), window=window, valid_len=40)
     out_t = tattn.decode_attention(_t(q), _t(kc), _t(vc), window=window, valid_len=40)
     np.testing.assert_allclose(_np(out_t), _np(out_j), atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 kernel's numerics, emulated in plain torch before the card: the
+# loop of csrc/flash_attention.cu over 64-key tiles.  q * D**-0.5 rounded to
+# bf16 (as the plain version computes it in q's dtype), bf16 q K^T summed in
+# float32, the online softmax in float32 with the -1e30 sentinel, p rounded
+# to bf16 per tile for P V while the running sum adds the unrounded p.
+def _emulate_tensor_core_attention(q, k, v, *, causal=True, window=0, q_offset=0,
+                                   tile=64):
+    B, Sq, H, D = q.shape
+    _, Skv, KV, _ = k.shape
+    G = H // KV
+    qs = (q * D ** -0.5).float().reshape(B, Sq, KV, G, D)
+    q_pos = q_offset + torch.arange(Sq)
+    m = torch.full((B, KV, G, Sq), -1e30)
+    l = torch.zeros((B, KV, G, Sq))
+    acc = torch.zeros((B, KV, G, Sq, D))
+    for t0 in range(0, Skv, tile):
+        kt, vt = k[:, t0:t0 + tile].float(), v[:, t0:t0 + tile].float()
+        s = torch.einsum("bqkgd,bckd->bkgqc", qs, kt)
+        kv_pos = t0 + torch.arange(kt.shape[1])
+        s = torch.where(tattn._mask(q_pos, kv_pos, causal, window), s, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgqc,bckd->bkgqd", p.to(torch.bfloat16).float(), vt)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("D,window,q_offset", [(64, 0, 0), (80, 0, 0), (64, 96, 0),
+                                               (64, 32, 400)])
+def test_tensor_core_attention_numerics_match_reference_package(D, window, q_offset):
+    """bf16 inputs, llama's GQA ratio (4 query heads per KV head), ragged
+    tail (Skv=200): the emulated kernel against the JAX package's
+    attention_reference at the card's bf16 tolerance (3e-2)."""
+    B, Sq, Skv, H, KV = 1, 200, 200, 8, 2
+    q, k, v = _qkv(31 + D, B, Sq, Skv, H, KV, D)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    ref = _np(jattn.attention_reference(*(_j(a, jnp.bfloat16) for a in (q, k, v)), **kw))
+    out = _emulate_tensor_core_attention(*(_t(a, torch.bfloat16) for a in (q, k, v)), **kw)
+    assert np.abs(_np(out) - ref).max() <= 3e-2

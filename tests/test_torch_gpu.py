@@ -155,6 +155,15 @@ def test_table_and_kernel_backends_agree_on_card(cuda, ws):
     (2, 128, 128, 4, 1, 80, 0, 0, torch.float32),       # D=80
     (1, 64, 64, 2, 2, 128, 0, 0, torch.bfloat16),
     (1, 64, 128, 4, 2, 32, 32, 400, torch.float32),     # rows with no valid key
+    # the tensor-core (bf16) kernel at the shapes above
+    (2, 100, 128, 4, 2, 64, 0, 0, torch.bfloat16),
+    (1, 256, 256, 4, 2, 64, 96, 0, torch.bfloat16),
+    (1, 64, 192, 4, 2, 64, 0, 128, torch.bfloat16),
+    (2, 128, 128, 4, 1, 80, 0, 0, torch.bfloat16),
+    (1, 128, 128, 4, 2, 16, 0, 0, torch.bfloat16),
+    (1, 100, 200, 4, 2, 128, 0, 100, torch.bfloat16),
+    (1, 64, 128, 4, 2, 32, 32, 400, torch.bfloat16),
+    (1, 96, 96, 2, 1, 36, 0, 0, torch.bfloat16),        # D not a multiple of 8
 ])
 def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Skv, H, KV, D, window,
                                               q_offset, dtype):
@@ -188,8 +197,27 @@ def test_flash_attention_kernel_refuses(cuda):
     (1, 128, 8, 32, 64, 32, torch.float32),
     (2, 64, 2, 16, 32, 64, torch.float32),
     (1, 1024, 48, 64, 128, 128, torch.bfloat16),
+    # the chunk-parallel (bf16) kernels: chunks < 128, B=2, ragged chunks
+    # and widths that are not multiples of 4 or 8
+    (1, 96, 48, 64, 128, 128, torch.bfloat16),
+    (2, 256, 4, 64, 128, 128, torch.bfloat16),
+    (1, 128, 8, 32, 64, 32, torch.bfloat16),
+    (2, 64, 2, 16, 32, 64, torch.bfloat16),
+    (1, 512, 4, 64, 128, 128, torch.bfloat16),
+    (2, 100, 3, 24, 40, 128, torch.bfloat16),
+    (1, 60, 2, 12, 20, 128, torch.bfloat16),
+    (1, 256, 2, 80, 160, 128, torch.bfloat16),
 ])
 def test_ssd_scan_kernel_matches_plain(cuda, B, S, H, P, N, chunk, dtype):
+    _check_ssd(cuda, B, S, H, P, N, chunk, dtype)
+
+
+def test_ssd_scan_bf16_sixteen_chunks(cuda):
+    """mamba2's widths at S=2048: 16 chunks through the state pass."""
+    _check_ssd(cuda, 1, 2048, 48, 64, 128, 128, torch.bfloat16)
+
+
+def _check_ssd(cuda, B, S, H, P, N, chunk, dtype):
     gen = _gen(cuda, S + N)
     x = torch.randn((B, S, H, P), generator=gen, device=cuda).to(dtype)
     dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=gen, device=cuda))

@@ -134,3 +134,37 @@ def test_ssd_wrapper_refuses_what_the_reference_package_refuses():
         jref.ssd_chunked(*_j([x, dt]), jnp.asarray(A), *_j([Bm, Cm]), chunk=128)
     with pytest.raises(AssertionError):
         tops.ssd_chunked(*_t([x, dt]), torch.from_numpy(A), *_t([Bm, Cm]), chunk=128)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk,dtype", [
+    (1, 128, 8, 32, 64, 32, torch.float32),
+    (1, 96, 4, 16, 32, 128, torch.float32),
+    (1, 256, 4, 16, 32, 128, torch.bfloat16),
+])
+def test_ssd_float64_scan_matches_reference_package(B, S, H, P, N, chunk, dtype):
+    """The plain scan with ``compute_dtype=float64`` (chip_smoke.py's
+    oracle for the float32 rounding of mamba2's prefill): y in x's dtype,
+    the state in float64, both within the float32 tolerance of the JAX
+    package's float32 scan, and the state closer to the recurrence run in
+    float64 than the float32 scan's."""
+    x, dt, A, Bm, Cm = _inputs(31, B, S, H, P, N)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jy, jh = jref.ssd_chunked(*_j([x], jdt), jnp.asarray(dt), jnp.asarray(A),
+                              *_j([Bm, Cm], jdt), chunk=chunk)
+    args = (*_t([x], dtype), torch.from_numpy(dt), torch.from_numpy(A),
+            *_t([Bm, Cm], dtype))
+    y64, h64 = tref.ssd_chunked(*args, chunk=chunk, compute_dtype=torch.float64)
+    y32, h32 = tref.ssd_chunked(*args, chunk=chunk)
+    assert y64.dtype == dtype and h64.dtype == torch.float64
+    _close(h64, jh)
+    if dtype == torch.bfloat16:
+        np.testing.assert_allclose(_np(y64), _np(jy), rtol=2e-2, atol=2e-2)
+    else:
+        _close(y64, jy)
+    # the recurrence itself, in float64
+    x_, dt_, A_, B_, C_ = (t.double() for t in args)
+    h = torch.zeros((B, H, N, P), dtype=torch.float64)
+    for t in range(S):
+        h = (h * torch.exp(dt_[:, t] * A_)[..., None, None]
+             + torch.einsum("bn,bh,bhp->bhnp", B_[:, t, 0], dt_[:, t], x_[:, t]))
+    assert (h64 - h).abs().max() < (h32.double() - h).abs().max()
