@@ -14,13 +14,20 @@ first fault exits non-zero and prints no result:
      energy and latency sums, exact demand and equal fits / valid, at the
      search path's two shapes (joint: B=8, P=40, W=4, L=64; separate: B=4,
      P=40, W=1, L=64, one CNN per search), at padding edges (P=129, L=65,
-     W=3, ragged masks, integer layer features) and at a large population
-     (B=16, P=4096);
+     W=3, ragged masks, integer layer features), around the kernel's tiles
+     (W=1, L in {1, 31, 32, 33, 64, 65} x P in {1, 7, 8, 9}) and at a
+     large population (B=16, P=4096), where the kernel gives each design
+     fewer lanes: 40 of its designs must keep their bits at B=1;
   4. ga_gen_step against the plain generation step on the card, fed the
-     same uniform blocks and tables: P in {15, 16, 40, 1024}, B=4 searches
-     over different workload subsets (W=4 tables) and over one CNN each
-     (W=1 tables, the separate search's shape), 4 chained generations,
-     every output bit-exact;
+     same uniform blocks and tables: P in ``B2_POPS`` (1 to 1024, both
+     sides of the rank-by-counting / bitonic survival threshold; the path
+     each P takes is logged), B=4 searches over different workload subsets
+     (W=4 tables) and over one CNN each (W=1 tables, the separate search's
+     shape), 4 chained generations, every output bit-exact; timed at the
+     joint (B=8, W=4) and separate (B=4, W=1) shapes and at P=1024; then
+     the host's share of one B1 and one B2 wrapper call, step by step
+     beside the steps the PR 13 wrappers took instead, at both shapes
+     (logged; ``host_split_us`` in the timings line);
   5. flash_attention against ``attention_reference`` on the card: llama's
      prefill (B=1, H=32, KV=8, D=64, bf16, S = 128, 1024, 2048) and edges
      (ragged Sq and Skv, window 96, q_offset, D=80, 128 and 16,
@@ -68,7 +75,9 @@ first fault exits non-zero and prints no result:
      warm-up, in turns plain/kernel/kernel/plain; at small sizes they
      include the host's launch overhead), the same work's device time
      from the profiler (``device_ms``, ``plain_device_ms``), the bound
-     for this run's inputs and, for flash_attention, the SDPA time;
+     for this run's inputs and, for flash_attention, the SDPA time; B1 and
+     B2 also at the separate search's shape (``separate_ms``,
+     ``separate_device_ms``);
  11. the last line: ``{"ok": true, "device": {...}}``.
 
 Timings at every shape and the traces are printed as one
@@ -298,12 +307,16 @@ def phase_b1(torch, dev, paper, timings):
     from repro_torch.kernels.imc_eval.ops import (
         evaluate_designs_kernel_arrays,
         imc_eval_multi,
+        lanes_per_design,
     )
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     cases = [("main", 8, 40, 4, 64, "joint"), ("separate", 4, 40, 1, 64, "separate"),
              ("edges", 2, 129, 3, 65, "random"), ("large", 16, 4096, 4, 64, "joint")]
+    # around the kernel's tiles (32 lanes, 8 designs a block), W=1
+    cases += [(f"tile_L{L}_P{P}", 2, P, 1, L, "random")
+              for L in (1, 31, 32, 33, 64, 65) for P in (1, 7, 8, 9)]
     errs = {}
     for label, B, P, W, L, kind in cases:
         designs, feats, mask = b1_inputs(torch, B, P, W, L, gen, dev, paper, kind)
@@ -335,8 +348,10 @@ def phase_b1(torch, dev, paper, timings):
             except AssertionError as e:
                 raise SmokeFailure(f"B1 {label} {what} vs dense: {e}") from None
         errs[label] = (abs_err, rel_err)
-        log(f"B1 {label} (B={B}, P={P}, W={W}, L={L}): ok, max abs err "
-            f"{abs_err:.6g}, max rel err {rel_err:.3g}")
+        log(f"B1 {label} (B={B}, P={P}, W={W}, L={L}, {lanes_per_design(B, P, W)} "
+            f"lanes a design): ok, max abs err {abs_err:.6g}, max rel err {rel_err:.3g}")
+        if label.startswith("tile_"):
+            continue
 
         def plain_fn(designs=designs, feats=feats, mask=mask):
             ref.eval_workloads(designs, feats, mask)
@@ -352,12 +367,22 @@ def phase_b1(torch, dev, paper, timings):
         k_dev = device_ms(torch, kernel_fn, 20, KERNEL_PREFIX["imc_eval"])
         p_dev = device_ms(torch, plain_fn, 20)
         timings[f"imc_eval/{label}"] = dict(
-            B=B, P=P, W=W, L=L, ms=k_ms, plain_ms=p_ms, device_ms=k_dev,
-            plain_device_ms=p_dev, bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
-            ops=ops)
+            B=B, P=P, W=W, L=L, lanes=lanes_per_design(B, P, W), ms=k_ms,
+            plain_ms=p_ms, device_ms=k_dev, plain_device_ms=p_dev, bound_ms=b_ms,
+            bound_by=b_by, bytes=n_bytes, ops=ops)
         log(f"B1 {label}: kernel {k_ms:.4f} ms per call ({_ms(k_dev)} on the "
             f"device), plain {p_ms:.4f} ms ({_ms(p_dev)} on the device), "
             f"bound {b_ms:.6f} ms ({b_by})")
+    # a design's sums keep their bits in a batch that gets fewer lanes
+    designs, feats, mask = b1_inputs(torch, 16, 4096, 4, 64, gen, dev, paper, "joint")
+    big = imc_eval_multi(designs, feats, mask)
+    small = imc_eval_multi(designs[:1, :40].contiguous(), feats[:1], mask[:1])
+    lanes = (lanes_per_design(16, 4096, 4), lanes_per_design(1, 40, 4))
+    check(lanes[0] != lanes[1], f"B1: one lane count {lanes} for both batches")
+    for what, a, b in zip(("energy", "latency", "demand"), big, small):
+        check(torch.equal(a[:1, :, :40], b), f"B1: {what} of a design depends on its batch")
+    log(f"B1 batch invariance: 40 designs at {lanes[1]} lanes (B=1) and at {lanes[0]} "
+        f"lanes (B=16, P=4096): bit for bit")
     return errs["main"]
 
 
@@ -396,21 +421,27 @@ def b2_case(torch, dev, P, subsets, gen):
 
 def b2_bound(B, P, W, tot, R, C, Bc, Gn):
     """Bytes each input read once and each output written once, and
-    float operations counted from the kernel source per generation."""
+    operations counted from the kernel source per generation; survival as
+    the function needs it, a comparison sort of the 2P candidates
+    (2P log2(2P) comparisons of 3 operations), whatever method the kernel
+    uses."""
     n = 9
     n_pairs = (P + 1) // 2
-    N = 1 << max(1, (2 * P - 1).bit_length())
-    stages = int(math.log2(N)) * (int(math.log2(N)) + 1) // 2
+    sort_ops = 2 * P * max(1, math.ceil(math.log2(2 * P))) * 3
     tab = W * (R * C * Bc + C * Bc + Gn + 4)
     n_bytes = 4 * B * (P * n + P + tot + tab + 2) + 4 * B * (2 * P * n + 2 * P)
-    ops = B * (n_pairs * n * 16 + P * n * 20 + P * (n + 30 + 30 * W)
-               + (N // 2) * stages * 3)
+    ops = B * (n_pairs * n * 16 + P * n * 20 + P * (n + 30 + 30 * W) + sort_ops)
     return n_bytes, ops
+
+
+# B2 populations checked bit for bit: the main path's 40, odd and even P,
+# both sides of the rank-by-counting / bitonic threshold, and 1024
+B2_POPS = (1, 2, 3, 15, 16, 40, 63, 64, 65, 127, 128, 129, 1024)
 
 
 def phase_b2(torch, dev, timings):
     from repro_torch.core import space
-    from repro_torch.kernels.ga_gen_step.ops import ga_gen_step
+    from repro_torch.kernels.ga_gen_step.ops import ga_gen_step, survival_path
     from repro_torch.kernels.ga_gen_step.ref import ga_gen_step_ref
 
     gen = torch.Generator(device=dev)
@@ -419,7 +450,7 @@ def phase_b2(torch, dev, timings):
     # separate search runs
     for subsets in ([[0], [1, 2], [0, 1, 2, 3], [3]], [[0], [1], [2], [3]]):
         W = max(len(s) for s in subsets)
-        for P in (15, 16, 40, 1024):
+        for P in B2_POPS:
             tables, kind, area, pop, scores, u = b2_case(torch, dev, P, subsets, gen)
             check(tables.demand.shape[1] == W, f"B2 tables W {tables.demand.shape}")
             ck = cp = (pop, scores)
@@ -434,12 +465,17 @@ def phase_b2(torch, dev, timings):
                           f"B2 P={P} W={W} gen {g}: {what} not bit-exact "
                           f"(max |diff| {float((a - b).abs().nan_to_num().max())})")
                 ck, cp = (k[0], k[1]), (p[0], p[1])
-            log(f"B2 P={P} (B={len(subsets)}, W={W}, 4 generations): bit-exact")
+            log(f"B2 P={P} (B={len(subsets)}, W={W}, 4 generations, "
+                f"{survival_path(P)} survival): bit-exact")
 
-    # timings at the main path's shape (8 searches over the 4 CNNs) and at P=1024
-    for label, P, B in (("main", 40, 8), ("p1024", 1024, 8)):
-        tables, kind, area, pop, scores, u = b2_case(
-            torch, dev, P, [[0, 1, 2, 3]] * B, gen)
+    # timings at the main path's two shapes (the joint search: 8 searches
+    # over the 4 CNNs; the separate search: 4 searches over one CNN each)
+    # and at P=1024
+    for label, P, subsets in (("main", 40, [[0, 1, 2, 3]] * 8),
+                              ("separate", 40, [[0], [1], [2], [3]]),
+                              ("p1024", 1024, [[0, 1, 2, 3]] * 8)):
+        B, W = len(subsets), len(subsets[0])
+        tables, kind, area, pop, scores, u = b2_case(torch, dev, P, subsets, gen)
         ctx = (tables, kind, area)
 
         def plain_fn(pop=pop, scores=scores, u=u, tables=tables, kind=kind, area=area):
@@ -450,18 +486,139 @@ def phase_b2(torch, dev, timings):
 
         k_ms, p_ms = timed_pair(plain_fn, kernel_fn, 50)
         gs = space.GRID_SIZES
-        n_bytes, ops = b2_bound(B, P, 4, u.shape[-1], int(gs[0]), int(gs[1]),
+        n_bytes, ops = b2_bound(B, P, W, u.shape[-1], int(gs[0]), int(gs[1]),
                                 int(gs[6]), int(gs[8]))
         b_ms, b_by = bound(n_bytes, ops)
         k_dev = device_ms(torch, kernel_fn, 20, KERNEL_PREFIX["ga_gen_step"])
         p_dev = device_ms(torch, plain_fn, 20)
         timings[f"ga_gen_step/{label}"] = dict(
-            B=B, P=P, W=4, ms=k_ms, plain_ms=p_ms, device_ms=k_dev,
+            B=B, P=P, W=W, ms=k_ms, plain_ms=p_ms, device_ms=k_dev,
             plain_device_ms=p_dev, bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
-            ops=ops)
-        log(f"B2 {label} (B={B}, P={P}): kernel {k_ms:.4f} ms per call "
+            ops=ops, survival=survival_path(P))
+        log(f"B2 {label} (B={B}, P={P}, W={W}): kernel {k_ms:.4f} ms per call "
             f"({_ms(k_dev)} on the device), plain {p_ms:.4f} ms ({_ms(p_dev)} "
             f"on the device), bound {b_ms:.6f} ms ({b_by})")
+
+
+def per_call_us(torch, fn, n: int = 2000, sync_every: int = 200) -> float:
+    """Host microseconds per call of ``fn`` (time.perf_counter over ``n``
+    calls, the queue drained every ``sync_every``)."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(n // sync_every):
+        t0 = time.perf_counter()
+        for _ in range(sync_every):
+            fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return total / n * 1e6
+
+
+def phase_host_split(torch, dev, paper, timings):
+    """Where the host's share of one B1 / B2 wrapper call goes, step by
+    step, at the search path's two shapes: each step the wrapper takes now,
+    the step it replaced (``PR 13:``, what the PR 13 wrapper did instead),
+    the ctypes launch alone and the whole call.  Host clock only (the
+    device work of a step is not waited for)."""
+    from repro_torch.imc.tech import TECH
+    from repro_torch.kernels import _launch
+    from repro_torch.kernels.ga_gen_step import ops as gops
+    from repro_torch.kernels.imc_eval import ops as iops
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    idx = dev.index
+    split = {}
+    for label, B, W, subsets in (("joint", 8, 4, [[0, 1, 2, 3]] * 8),
+                                 ("separate", 4, 1, [[0], [1], [2], [3]])):
+        P, L = 40, 64
+        designs, feats, mask = b1_inputs(torch, B, P, W, L, gen, dev, paper, label)
+        res = torch.empty((3, B, W, P), device=dev)
+        c1 = iops.consts(TECH)
+        o = res.data_ptr()
+        args1 = (designs.data_ptr(), feats.data_ptr(), mask.data_ptr(), o,
+                 o + 4 * B * W * P, o + 8 * B * W * P, B, P, W, L, c1, len(c1), idx,
+                 _launch.stream(idx))
+
+        def device_ctx():
+            with torch.cuda.device(dev):
+                pass
+
+        b1 = {
+            "PR 13: to().contiguous() x3": lambda: [
+                x.to(t).contiguous() for x, t in ((designs, torch.float32),
+                                                  (feats, torch.float32),
+                                                  (mask, torch.bool))],
+            "contiguous checks x3": lambda: [
+                _launch.contiguous(x, t) for x, t in ((designs, torch.float32),
+                                                      (feats, torch.float32),
+                                                      (mask, torch.bool))],
+            "PR 13: constants rebuilt": lambda: iops.build_consts(TECH),
+            "constants cached": lambda: iops.consts(TECH),
+            "PR 13: torch.cuda.current_stream().cuda_stream":
+                lambda: torch.cuda.current_stream(dev).cuda_stream,
+            "raw stream handle": lambda: _launch.stream(idx),
+            "PR 13: torch.cuda.device entered": device_ctx,
+            "output buffer": lambda: torch.empty((3, B, W, P), device=dev),
+            "ctypes launch (kernel enqueue)": lambda: iops._lib().imc_eval_launch(*args1),
+            "unbind into 3 sums": lambda: res.unbind(0),
+            "whole wrapper call": lambda: iops.imc_eval_multi(designs, feats, mask),
+        }
+
+        tables, kind, area, pop, scores, u = b2_case(torch, dev, P, subsets, gen)
+        ctx = (tables, kind, area)
+        grids, sizes, vt = gops._grid_args(TECH, idx)
+        dims = (grids.shape[1], *tables.demand.shape[2:], tables.spill.shape[-1],
+                *vt.shape)
+        n_pop, n_sc = B * P * 9, B * P
+        buf = torch.empty(2 * (n_pop + n_sc), device=dev)
+        o = buf.data_ptr()
+        c2 = gops.consts(TECH, gops.SBX_PROB, 9)
+        ins = (pop, scores, u[0], *tables, grids, sizes, vt, kind, area)
+        args2 = (*[t.data_ptr() for t in ins], o, o + 8 * n_pop, o + 4 * n_pop,
+                 o + 4 * (2 * n_pop + n_sc), B, P, W, *dims, c2, len(c2), idx,
+                 _launch.stream(idx))
+        lib = gops._lib()
+
+        def four_outputs():
+            for shape in ((B, P, 9), (B, P, 9), (B, P), (B, P)):
+                torch.empty(shape, device=dev)
+
+        def one_buffer():
+            a, b, c, d = torch.empty(2 * (n_pop + n_sc), device=dev).split(
+                (n_pop, n_pop, n_sc, n_sc))
+            return a.view(B, P, 9), b.view(B, P, 9), c.view(B, P), d.view(B, P)
+
+        b2 = {
+            "PR 13: to().contiguous() x11": lambda: [
+                x.to(torch.float32).contiguous() for x in (pop, scores, u[0], *tables, area)],
+            "PR 13: kind to int32 (a copy kernel)":
+                lambda: kind.to(device=dev, dtype=torch.int32).contiguous(),
+            "contiguous checks x12": lambda: (
+                [_launch.contiguous(x, torch.float32)
+                 for x in (pop, scores, u[0], *tables, area)],
+                _launch.contiguous(kind, torch.int64)),
+            "PR 13: 4 output buffers": four_outputs,
+            "1 buffer, 4 views": one_buffer,
+            "PR 13: constants rebuilt": lambda: gops.build_consts(TECH, gops.SBX_PROB, 9),
+            "constants cached": lambda: gops.consts(TECH, gops.SBX_PROB, 9),
+            "PR 13: 2 shared-memory queries (ctypes)": lambda: (
+                lib.ga_gen_step_smem_bytes(P, W, *dims), lib.ga_gen_step_max_smem_bytes(idx)),
+            "shared-memory check cached": lambda: gops._check_smem(P, W, idx, dims),
+            "shape and device checks of 7 table leaves": lambda: [
+                leaf.shape[:2] != (B, W) or leaf.device != dev for leaf in tables],
+            "grid lookups cached": lambda: gops._grid_args(TECH, idx),
+            "ctypes launch, 33 arguments (kernel enqueue)":
+                lambda: lib.ga_gen_step_launch(*args2),
+            "whole wrapper call": lambda: gops.ga_gen_step(pop, scores, u[0], ctx),
+        }
+        for name, steps in (("imc_eval", b1), ("ga_gen_step", b2)):
+            rec = {k: per_call_us(torch, f) for k, f in steps.items()}
+            split[f"{name}/{label}"] = rec
+            log(f"host split {name} {label} (us a call): " + ", ".join(
+                f"{k} {v:.2f}" for k, v in rec.items()))
+    timings["host_split_us"] = split
 
 
 def phase_main_path(torch, dev, backend, counter):
@@ -956,6 +1113,7 @@ def run() -> dict:
     timings = {"card": card}
     b1_err = phase_b1(torch, dev, paper, timings)
     phase_b2(torch, dev, timings)
+    phase_host_split(torch, dev, paper, timings)
     b3_err = phase_b3(torch, dev, timings)
     b4_err = phase_b4(torch, dev, timings)
 
@@ -972,6 +1130,7 @@ def run() -> dict:
     log("timings " + json.dumps(timings))
 
     t1, t2 = timings["imc_eval/main"], timings["ga_gen_step/main"]
+    s1, s2 = timings["imc_eval/separate"], timings["ga_gen_step/separate"]
     # B3 and B4 at the longest prompt of the main path, in the model's dtype
     t3, t4 = timings["flash_attention/s1024"], timings["ssd_scan/bf16_s1024"]
     kernels = [
@@ -982,14 +1141,16 @@ def run() -> dict:
          "max_rel_err": b1_err[1],
          "ms": t1["ms"], "plain_ms": t1["plain_ms"], "bound_ms": t1["bound_ms"],
          "bound_by": t1["bound_by"], "library_ms": None,
-         "device_ms": t1["device_ms"], "plain_device_ms": t1["plain_device_ms"]},
+         "device_ms": t1["device_ms"], "plain_device_ms": t1["plain_device_ms"],
+         "separate_ms": s1["ms"], "separate_device_ms": s1["device_ms"]},
         {"name": "ga_gen_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ga_gen_step.cu",
          "replaces": "src/repro/kernels/ga_gen_step/kernel.py:115",
          "launches": b2_launches, "max_abs_err": 0.0,
          "ms": t2["ms"], "plain_ms": t2["plain_ms"], "bound_ms": t2["bound_ms"],
          "bound_by": t2["bound_by"], "library_ms": None,
-         "device_ms": t2["device_ms"], "plain_device_ms": t2["plain_device_ms"]},
+         "device_ms": t2["device_ms"], "plain_device_ms": t2["plain_device_ms"],
+         "separate_ms": s2["ms"], "separate_device_ms": s2["device_ms"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:33",

@@ -15,6 +15,7 @@ card every generation of ``backend="table"`` runs through the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -24,14 +25,19 @@ from repro_torch.core.ga import GENE_MAX, MUT_ETA, SBX_ETA, SBX_PROB, block_layo
 from repro_torch.imc.cost import valid_vt_mask
 from repro_torch.imc.tables import WorkloadTables
 from repro_torch.imc.tech import TECH, TechParams
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _launch
 from repro_torch.kernels.ga_gen_step.ref import ga_gen_step_ref
 
 _NAME = "ga_gen_step"
+# (tech, sbx_prob, n_genes) -> constants; keyed by the whole TechParams value
+_CONSTS: Dict[tuple, ctypes.Array] = {}
 _GRID_ARGS: Dict[tuple, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
+# (P, W, device index, grid dims) whose shared memory fits the card
+_SMEM_OK: set = set()
+_LIB = None
 
 
-def _consts(tech: TechParams, sbx_prob: float, n_genes: int):
+def build_consts(tech: TechParams, sbx_prob: float, n_genes: int) -> ctypes.Array:
     """float32 constants in the kernel's ``Const`` order, each the value
     PyTorch uses for the same Python scalar in the plain version."""
     return _build.float_array([
@@ -49,11 +55,27 @@ def _consts(tech: TechParams, sbx_prob: float, n_genes: int):
     ])
 
 
-def _grid_args(tech: TechParams, dev: torch.device):
-    """(grids (9, Gmax) f32, sizes (9,) i32, V/f mask (V, Tc) u8) on dev."""
-    key = (tech, space.grid_token(), str(dev))
+def consts(tech: TechParams, sbx_prob: float, n_genes: int) -> ctypes.Array:
+    """``build_consts(...)``, built once per distinct argument triple."""
+    key = (tech, sbx_prob, n_genes)
+    hit = _CONSTS.get(key)
+    if hit is None:
+        hit = _CONSTS[key] = build_consts(tech, sbx_prob, n_genes)
+    return hit
+
+
+@functools.lru_cache(maxsize=None)
+def _tot(P: int, n: int) -> int:
+    return block_layout(P, n).tot
+
+
+def _grid_args(tech: TechParams, index: int):
+    """(grids (9, Gmax) f32, sizes (9,) i32, V/f mask (V, Tc) u8) on CUDA
+    device ``index``."""
+    key = (tech, space.grid_token(), index)
     hit = _GRID_ARGS.get(key)
     if hit is None:
+        dev = torch.device("cuda", index)
         grids, sizes = space.padded_grids(dev)
         hit = (grids.contiguous(), sizes.to(torch.int32).contiguous(),
                valid_vt_mask(tech).to(torch.uint8).to(dev).contiguous())
@@ -62,17 +84,41 @@ def _grid_args(tech: TechParams, dev: torch.device):
 
 
 def _lib():
-    lib = _build.load(_NAME)
-    if lib.ga_gen_step_launch.argtypes is None:
+    global _LIB
+    if _LIB is None:
+        lib = _build.load(_NAME)
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.ga_gen_step_launch.argtypes = (
-            [p] * 19 + [i] * 9 + [ctypes.POINTER(ctypes.c_float), i, i, p])
+            [p] * 19 + [i] * 10 + [ctypes.POINTER(ctypes.c_float), i, i, p])
         lib.ga_gen_step_launch.restype = i
-        lib.ga_gen_step_smem_bytes.argtypes = [i] * 6
+        lib.ga_gen_step_smem_bytes.argtypes = [i] * 9
         lib.ga_gen_step_smem_bytes.restype = ctypes.c_longlong
         lib.ga_gen_step_max_smem_bytes.argtypes = [i]
         lib.ga_gen_step_max_smem_bytes.restype = i
-    return lib
+        lib.ga_gen_step_rank_max.argtypes = []
+        lib.ga_gen_step_rank_max.restype = i
+        _LIB = lib
+    return _LIB
+
+
+def _check_smem(P: int, W: int, index: int, dims: tuple) -> None:
+    """Raise if one block of (P, W) does not fit this card's shared memory."""
+    key = (P, W, index, dims)
+    if key in _SMEM_OK:
+        return
+    lib = _lib()
+    smem = lib.ga_gen_step_smem_bytes(P, W, *dims)
+    limit = lib.ga_gen_step_max_smem_bytes(index)
+    if smem > limit:
+        raise ValueError(f"ga_gen_step: P={P}, W={W} needs {smem} bytes of "
+                         f"shared memory per block; this card allows {limit}")
+    _SMEM_OK.add(key)
+
+
+def survival_path(P: int) -> str:
+    """Which survival the kernel runs at population P: "rank" (by counting)
+    or "bitonic" (the sorting network)."""
+    return "rank" if 2 * P <= _lib().ga_gen_step_rank_max() else "bitonic"
 
 
 def ga_gen_step(pop: torch.Tensor, scores: torch.Tensor, u: torch.Tensor,
@@ -94,7 +140,7 @@ def ga_gen_step(pop: torch.Tensor, scores: torch.Tensor, u: torch.Tensor,
     B, P, n = pop.shape
     if n != space.N_GENES:
         raise ValueError(f"pop must be (B, P, {space.N_GENES}), got {tuple(pop.shape)}")
-    tot = block_layout(P, n).tot
+    tot = _tot(P, n)
     if tuple(scores.shape) != (B, P) or tuple(u.shape) != (B, tot):
         raise ValueError(f"scores {tuple(scores.shape)} / u {tuple(u.shape)} do "
                          f"not match (B, P) = {(B, P)}, tot = {tot}")
@@ -108,35 +154,29 @@ def ga_gen_step(pop: torch.Tensor, scores: torch.Tensor, u: torch.Tensor,
         if leaf.shape[:2] != (B, W) or leaf.device != dev:
             raise ValueError(f"table {name}: {tuple(leaf.shape)} on {leaf.device}, "
                              f"expected leading {(B, W)} on {dev}")
-    if dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    lib = _lib()
-    with torch.cuda.device(dev):
-        smem = lib.ga_gen_step_smem_bytes(P, W, R, C, Bc, Gn)
-        limit = lib.ga_gen_step_max_smem_bytes(dev.index)
-        if smem > limit:
-            raise ValueError(f"ga_gen_step: P={P}, W={W} needs {smem} bytes of "
-                             f"shared memory per block; this card allows {limit}")
-        f32 = [x.to(torch.float32).contiguous() for x in (pop, scores, u)]
-        tabs = [leaf.to(torch.float32).contiguous() for leaf in tables]
-        kind32 = kind.to(device=dev, dtype=torch.int32).contiguous()
-        area32 = area.to(device=dev, dtype=torch.float32).contiguous()
-        grids, sizes, vt = _grid_args(tech, dev)
-        new_pop = torch.empty((B, P, n), dtype=torch.float32, device=dev)
-        children = torch.empty_like(new_pop)
-        new_scores = torch.empty((B, P), dtype=torch.float32, device=dev)
-        child_scores = torch.empty_like(new_scores)
-        consts = _consts(tech, sbx_prob, n)
-        ptrs = [t.data_ptr() for t in (
-            *f32, *tabs, grids, sizes, vt, kind32, area32,
-            new_pop, new_scores, children, child_scores)]
-        rc = lib.ga_gen_step_launch(
-            *ptrs, B, P, W, grids.shape[1], R, C, Bc, Gn, int(gs[7]),
-            consts, len(consts), dev.index,
-            torch.cuda.current_stream(dev).cuda_stream)
+    index = _launch.cuda_index(dev)
+    grids, sizes, vt = _grid_args(tech, index)
+    dims = (grids.shape[1], R, C, Bc, Gn, vt.shape[0], vt.shape[1])
+    _check_smem(P, W, index, dims)
+    f32 = [_launch.contiguous(x, torch.float32) for x in (pop, scores, u)]
+    tabs = [_launch.contiguous(leaf, torch.float32) for leaf in tables]
+    kind64 = _launch.contiguous(kind.to(dev), torch.int64)
+    area32 = _launch.contiguous(area.to(dev), torch.float32)
+    # the four outputs in one buffer: new_pop, children, new_scores, child_scores
+    n_pop, n_sc = B * P * n, B * P
+    out = torch.empty(2 * (n_pop + n_sc), dtype=torch.float32, device=dev)
+    o = out.data_ptr()
+    c = consts(tech, sbx_prob, n)
+    # the launcher selects the device itself, in its own runtime
+    rc = _lib().ga_gen_step_launch(
+        *[t.data_ptr() for t in (*f32, *tabs, grids, sizes, vt, kind64, area32)],
+        o, o + 4 * 2 * n_pop, o + 4 * n_pop, o + 4 * (2 * n_pop + n_sc),
+        B, P, W, *dims, c, len(c), index, _launch.stream(index))
     _build.check(_NAME, rc)
     ga_gen_step.launches += 1
-    return new_pop, new_scores, children, child_scores
+    new_pop, children, new_scores, child_scores = out.split((n_pop, n_pop, n_sc, n_sc))
+    return (new_pop.view(B, P, n), new_scores.view(B, P),
+            children.view(B, P, n), child_scores.view(B, P))
 
 
 ga_gen_step.launches = 0

@@ -16,19 +16,22 @@ PyTorch, as in the JAX package's ``kernels/imc_eval/ops.py``.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.imc.cost import DesignArrays, EvalResult, area_mm2, design_valid
 from repro_torch.imc.tech import TECH, TechParams
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _launch
 from repro_torch.kernels.imc_eval import ref
 
 _NAME = "imc_eval"
+# TechParams -> its constants; keyed by the whole value, every field
+_CONSTS: Dict[TechParams, ctypes.Array] = {}
+_LIB = None
 
 
-def _consts(tech: TechParams):
+def build_consts(tech: TechParams) -> ctypes.Array:
     """Technology constants in the kernel's ``Const`` order."""
     return _build.float_array([
         tech.input_bits, tech.weight_bits, tech.adc_share,
@@ -39,16 +42,31 @@ def _consts(tech: TechParams):
     ])
 
 
-def _launcher():
-    lib = _build.load(_NAME)
-    fn = lib.imc_eval_launch
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, p, p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_float),
-                       ctypes.c_int, ctypes.c_int, p]
-        fn.restype = ctypes.c_int
-    return fn
+def consts(tech: TechParams) -> ctypes.Array:
+    """``build_consts(tech)``, built once per distinct ``tech``."""
+    hit = _CONSTS.get(tech)
+    if hit is None:
+        hit = _CONSTS[tech] = build_consts(tech)
+    return hit
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = _build.load(_NAME)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.imc_eval_launch.argtypes = [p, p, p, p, p, p, i, i, i, i,
+                                        ctypes.POINTER(ctypes.c_float), i, i, p]
+        lib.imc_eval_launch.restype = i
+        lib.imc_eval_lanes.argtypes = [i, i, i]
+        lib.imc_eval_lanes.restype = i
+        _LIB = lib
+    return _LIB
+
+
+def lanes_per_design(B: int, P: int, W: int) -> int:
+    """Lanes the kernel gives each (design, workload, search) at this size."""
+    return _lib().imc_eval_lanes(B, P, W)
 
 
 def imc_eval_multi(
@@ -75,21 +93,21 @@ def imc_eval_multi(
     for name, t in (("feats", feats), ("mask", mask)):
         if t.device != dev:
             raise ValueError(f"{name} on {t.device}, designs on {dev}")
-    if dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    d = designs.to(torch.float32).contiguous()
-    f = feats.to(torch.float32).contiguous()
-    m = mask.to(torch.bool).contiguous()
+    index = _launch.cuda_index(dev)
+    d = _launch.contiguous(designs, torch.float32)
+    f = _launch.contiguous(feats, torch.float32)
+    m = _launch.contiguous(mask, torch.bool)
     out = torch.empty((3, B, W, P), dtype=torch.float32, device=dev)
-    consts = _consts(tech)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = _launcher()(d.data_ptr(), f.data_ptr(), m.data_ptr(),
-                         out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-                         B, P, W, L, consts, len(consts), dev.index, stream)
+    c = consts(tech)
+    o = out.data_ptr()
+    n = B * W * P * 4  # bytes of one sum
+    # the launcher selects the device itself, in its own runtime
+    rc = _lib().imc_eval_launch(d.data_ptr(), f.data_ptr(), m.data_ptr(), o, o + n,
+                                o + 2 * n, B, P, W, L, c, len(c), index,
+                                _launch.stream(index))
     _build.check(_NAME, rc)
     imc_eval_multi.launches += 1
-    return out[0], out[1], out[2]
+    return out.unbind(0)
 
 
 imc_eval_multi.launches = 0

@@ -27,7 +27,11 @@ from repro_torch.kernels.ga_gen_step.ops import ga_gen_step
 from repro_torch.kernels.imc_eval import ref as iref
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_reference
-from repro_torch.kernels.imc_eval.ops import evaluate_designs_kernel_arrays, imc_eval_multi
+from repro_torch.kernels.imc_eval.ops import (
+    evaluate_designs_kernel_arrays,
+    imc_eval_multi,
+    lanes_per_design,
+)
 from repro_torch.kernels.ssd_scan import ref as sref
 from repro_torch.kernels.ssd_scan.ops import ssd_chunked
 from repro_torch.launch.serve import build_params, make_burst, serve_burst
@@ -56,12 +60,32 @@ def _gen(dev, seed):
     return g
 
 
-@pytest.mark.parametrize("B,P", [(8, 40), (3, 129), (2, 1)])
-def test_imc_eval_kernel_matches_plain(cuda, ws, B, P):
+def _b1_layers(dev, ws, B, kind, L, seed):
+    """feats (B, W, L, 6) and mask (B, W, L): "joint", every search over
+    the 4 CNNs; "separate", search b over CNN b alone (W=1); "random", one
+    workload (W=1) of L integer-valued random layers."""
+    if kind == "joint":
+        return (ws.feats[None].expand(B, -1, -1, -1).to(dev).contiguous(),
+                ws.mask[None].expand(B, -1, -1).to(dev).contiguous())
+    if kind == "separate":
+        return ws.feats[:B, None].to(dev), ws.mask[:B, None].to(dev)
+    gen = _gen(dev, seed)
+    feats = torch.round(torch.randn((B, 1, L, 6), generator=gen, device=dev).abs()
+                        * 100 + 1)
+    return feats, torch.ones((B, 1, L), dtype=torch.bool, device=dev)
+
+
+# joint and separate search shapes, then W=1 around the kernel's tiles
+# (32 lanes over the layers, 8 designs a block)
+@pytest.mark.parametrize("B,P,kind,L", [
+    (8, 40, "joint", 64), (3, 129, "joint", 64), (2, 1, "joint", 64),
+    (4, 40, "separate", 64),
+    *[(2, P, "random", L) for L in (1, 31, 32, 33, 64, 65) for P in (1, 7, 8, 9)],
+])
+def test_imc_eval_kernel_matches_plain(cuda, ws, B, P, kind, L):
     g = torch.rand((B, P, space.N_GENES), generator=_gen(cuda, P), device=cuda)
     designs = torch.stack(list(space.decode(g)), dim=-1)
-    feats = ws.feats[None].expand(B, -1, -1, -1).to(cuda).contiguous()
-    mask = ws.mask[None].expand(B, -1, -1).to(cuda).contiguous()
+    feats, mask = _b1_layers(cuda, ws, B, kind, L, P + L)
     before = imc_eval_multi.launches
     k = imc_eval_multi(designs, feats, mask)
     assert imc_eval_multi.launches == before + 1
@@ -73,6 +97,19 @@ def test_imc_eval_kernel_matches_plain(cuda, ws, B, P):
     rk = evaluate_designs_kernel_arrays(d, feats, mask)
     rp = evaluate_designs_arrays(d, feats, mask)
     assert torch.equal(rk.fits, rp.fits) and torch.equal(rk.valid, rp.valid)
+
+
+def test_imc_eval_kernel_bits_do_not_depend_on_the_batch(cuda, ws):
+    """A large batch gives each design fewer lanes; the sums keep their bits."""
+    B, P = 16, 4096
+    g = torch.rand((B, P, space.N_GENES), generator=_gen(cuda, 5), device=cuda)
+    designs = torch.stack(list(space.decode(g)), dim=-1)
+    feats, mask = _b1_layers(cuda, ws, B, "joint", 0, 0)
+    assert lanes_per_design(B, P, 4) < lanes_per_design(1, 40, 4)
+    big = imc_eval_multi(designs, feats, mask)
+    small = imc_eval_multi(designs[:1, :40].contiguous(), feats[:1], mask[:1])
+    for a, b in zip(big, small):
+        assert torch.equal(a[:1, :, :40], b)
 
 
 def _b2_case(dev, ws, P, subsets, seed):
@@ -109,6 +146,28 @@ def test_ga_gen_step_kernel_bit_exact(cuda, ws, P):
         ck, cp = k[:2], p[:2]
 
 
+# both sides of the kernel's rank-by-counting / bitonic survival threshold
+@pytest.mark.parametrize("P", [40, 128, 129, 300])
+def test_ga_gen_step_kernel_adversarial_survival(cuda, ws, P):
+    """Parent scores with duplicates, both zero signs, tied +inf, NaN of both
+    signs, and the children's own scores (ties across generations): every
+    output equal to the plain step's bit for bit (compared as int32, as
+    torch.equal is false on NaN)."""
+    ctx, pop, scores, u = _b2_case(cuda, ws, P, [[0, 1, 2, 3], [1], [0, 2], [3]], P + 7)
+    child_scores = gref.ga_gen_step_ref(pop, scores, u[0], *ctx)[3]
+    nan = float("nan")
+    special = torch.tensor([0.0, -0.0, float("inf"), float("inf"), nan, -nan, 2.5, 2.5],
+                           device=cuda)
+    i = torch.arange(P, device=cuda)
+    ck = cp = (pop, torch.where(i % 2 == 0, child_scores, special[i % len(special)]))
+    for g in range(2):
+        k = ga_gen_step(ck[0], ck[1], u[g], ctx)
+        p = gref.ga_gen_step_ref(cp[0], cp[1], u[g], *ctx)
+        for a, b in zip(k, p):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        ck, cp = k[:2], p[:2]
+
+
 def test_ga_gen_step_kernel_rejects_what_it_does_not_implement(cuda, ws):
     ctx, pop, scores, u = _b2_case(cuda, ws, 8, [[0, 1]], 0)
     with pytest.raises(ValueError, match="eta"):
@@ -117,6 +176,28 @@ def test_ga_gen_step_kernel_rejects_what_it_does_not_implement(cuda, ws):
     ctx2, pop2, scores2, u2 = _b2_case(cuda, ws, big, [[0]], 1)
     with pytest.raises(ValueError, match="shared memory"):
         ga_gen_step(pop2, scores2, u2[0], ctx2)
+
+
+def test_search_kernels_on_another_card_keep_the_current_device(cuda, ws):
+    """The launchers select the tensors' card in their own runtime and give
+    the thread's device back: PyTorch's current device stays where it was,
+    and the other card's results equal its plain version's."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    other = torch.device("cuda", 1)
+    current = torch.cuda.current_device()
+    g = torch.rand((2, 40, space.N_GENES), generator=_gen(other, 3), device=other)
+    designs = torch.stack(list(space.decode(g)), dim=-1)
+    feats, mask = _b1_layers(other, ws, 2, "joint", 0, 0)
+    k = imc_eval_multi(designs, feats, mask)
+    assert torch.cuda.current_device() == current
+    for a, b in zip(k, iref.eval_workloads(designs, feats, mask)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=0.0)
+    ctx, pop, scores, u = _b2_case(other, ws, 40, [[0, 1, 2, 3], [1]], 2)
+    k = ga_gen_step(pop, scores, u[0], ctx)
+    assert torch.cuda.current_device() == current
+    for a, b in zip(k, gref.ga_gen_step_ref(pop, scores, u[0], *ctx)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("backend,counter", [("kernel", imc_eval_multi),
