@@ -13,7 +13,8 @@ first fault exits non-zero and prints no result:
   3. imc_eval against its plain version on the card, rtol 1e-5 on the
      energy and latency sums, exact demand and equal fits / valid, at the
      search path's two shapes (joint: B=8, P=40, W=4, L=64; separate: B=4,
-     P=40, W=1, L=64, one CNN per search), at padding edges (P=129, L=65,
+     P=40, W=1, L=64, one CNN per search), at the service's largest
+     ``--backend kernel`` group (B=28, P=40, W=2), at padding edges (P=129, L=65,
      W=3, ragged masks, integer layer features), around the kernel's tiles
      (W=1, L in {1, 31, 32, 33, 64, 65} x P in {1, 7, 8, 9}) and at a
      large population (B=16, P=4096), where the kernel gives each design
@@ -23,8 +24,12 @@ first fault exits non-zero and prints no result:
      sides of the rank-by-counting / bitonic survival threshold; the path
      each P takes is logged), B=4 searches over different workload subsets
      (W=4 tables) and over one CNN each (W=1 tables, the separate search's
-     shape), 4 chained generations, every output bit-exact; timed at the
-     joint (B=8, W=4) and separate (B=4, W=1) shapes and at P=1024; then
+     shape), and at P=40 the service's plan (B=64 searches over W=1, 2 and
+     4 sets, tables padded to W=4), 4 chained generations, every output
+     bit-exact; timed at the
+     joint (B=8, W=4) and separate (B=4, W=1) shapes, at the service's
+     (B=64 searches over the 9 subsets of its request mix, W=4 tables) and
+     at P=1024; then
      the host's share of one B1 and one B2 wrapper call, step by step
      beside the steps the PR 13 wrappers took instead, at both shapes
      (logged; ``host_split_us`` in the timings line);
@@ -57,7 +62,24 @@ first fault exits non-zero and prints no result:
      dense path (rtol 1e-5);
   8. the search path once more per backend under torch.profiler: device
      busy time, idle share and the top device activities (not counted);
-  9. the LM serving path at full width, once per model (``llama3.2-1b``,
+  9. the DSE service (``serve/dse.py``): ``launch.search.main(["--serve",
+     "256", "--backend", "table", ...])`` (pop 40, 10 generations; 4 plans
+     of 64 searches) and ``--serve 64 --backend kernel`` (3 plans grouped by
+     W), each with every launch count set to 0 just before: every rid
+     answered, the backend's kernel launched plans x generations times
+     (B1: plans x (generations + 1)) and no other, every feasible best
+     re-scores to itself on the plain dense path (rtol 1e-5), and 8
+     sampled requests run alone give the same bits; then sequential and
+     pipelined drains of the 256 table requests (equal bits, fewer bytes
+     to the host when pipelined; requests/s, wait and latency p50/p99 and
+     launches logged), ``SearchEngine.run`` over the same requests in
+     both modes (equal bits; timed), the seeder alone (timed), segmented
+     drains, a drain
+     killed after its first checkpoint and resumed (the same bits, 8
+     generations after the resume), a second ``--result-cache`` drain (0
+     launches, equal results), the async front end under the priority
+     policy, and one traced drain per engine mode (device idle share);
+ 10. the LM serving path at full width, once per model (``llama3.2-1b``,
      then ``mamba2-780m``, the first freed before the second loads): 8
      requests from seed 0 (prompts of 128-1024 tokens, 16-32 new tokens)
      through ``Engine`` with 4 slots and max_len 2048, random weights
@@ -70,15 +92,16 @@ first fault exits non-zero and prints no result:
      plain path with its SSD scan in float64 (logged, not a check), the
      greedy tokens of a plain-path burst (logged), TTFT and decode
      tokens/s, and one burst under the profiler;
- 10. one JSON line ``{"kernels": [...]}``: launches on the main paths,
+ 11. one JSON line ``{"kernels": [...]}``: launches on the main paths
+     (``launches_by_path``: the search CLI and the service),
      max error, kernel and plain times per call (CUDA events, after a
      warm-up, in turns plain/kernel/kernel/plain; at small sizes they
      include the host's launch overhead), the same work's device time
      from the profiler (``device_ms``, ``plain_device_ms``), the bound
      for this run's inputs and, for flash_attention, the SDPA time; B1 and
-     B2 also at the separate search's shape (``separate_ms``,
-     ``separate_device_ms``);
- 11. the last line: ``{"ok": true, "device": {...}}``.
+     B2 also at the separate search's and the service's shapes
+     (``separate_ms``, ``service_ms``, ...);
+ 12. the last line: ``{"ok": true, "device": {...}}``.
 
 Timings at every shape and the traces are printed as one
 ``[smoke] timings {...}`` JSON line before the kernels line.
@@ -285,7 +308,9 @@ def b1_inputs(torch, B, P, W, L, gen, dev, paper, kind):
     """Designs (B, P, 9), feats (B, W, L, 6), mask (B, W, L).  ``kind``
     "joint": every search over the 4 paper CNNs; "separate": search b over
     CNN b alone (W=1), as ``core/search.py:separate_search`` packs them;
-    "random": integer-valued random layers with ragged masks."""
+    "pairs": search b over CNNs (b, b+1) mod 4 (W=2), the service's largest
+    ``--backend kernel`` group; "random": integer-valued random layers with
+    ragged masks."""
     designs = _designs(torch, B, P, gen, dev)
     if kind == "joint":
         feats = paper.feats[None].expand(B, -1, -1, -1).to(dev).contiguous()
@@ -293,6 +318,9 @@ def b1_inputs(torch, B, P, W, L, gen, dev, paper, kind):
         return designs, feats, mask
     if kind == "separate":
         return designs, paper.feats[:, None].to(dev), paper.mask[:, None].to(dev)
+    if kind == "pairs":
+        pairs = torch.tensor([[b % 4, (b + 1) % 4] for b in range(B)])
+        return designs, paper.feats[pairs].to(dev), paper.mask[pairs].to(dev)
     feats = torch.round(torch.randn((B, W, L, 6), generator=gen, device=dev).abs()
                         * 100 + 1)
     n_layers = torch.randint(1, L + 1, (B, W), generator=gen, device=dev)
@@ -313,6 +341,7 @@ def phase_b1(torch, dev, paper, timings):
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     cases = [("main", 8, 40, 4, 64, "joint"), ("separate", 4, 40, 1, 64, "separate"),
+             ("service", 28, 40, 2, 64, "pairs"),
              ("edges", 2, 129, 3, 65, "random"), ("large", 16, 4096, 4, 64, "joint")]
     # around the kernel's tiles (32 lanes, 8 designs a block), W=1
     cases += [(f"tile_L{L}_P{P}", 2, P, 1, L, "random")
@@ -434,6 +463,10 @@ def b2_bound(B, P, W, tot, R, C, Bc, Gn):
     return n_bytes, ops
 
 
+# the workload subsets of serve.dse.paper_request_mix over the 4 CNNs: a
+# table-backend plan of the service packs 64 searches over these (W=4 tables)
+SERVE_SUBSETS = [[0, 1, 2, 3], [0], [1], [2], [3], [0, 1], [1, 2], [2, 3], [3, 0]]
+
 # B2 populations checked bit for bit: the main path's 40, odd and even P,
 # both sides of the rank-by-counting / bitonic threshold, and 1024
 B2_POPS = (1, 2, 3, 15, 16, 40, 63, 64, 65, 127, 128, 129, 1024)
@@ -447,10 +480,13 @@ def phase_b2(torch, dev, timings):
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     # mixed subsets padded to W=4; one CNN per search (W=1), as the
-    # separate search runs
-    for subsets in ([[0], [1, 2], [0, 1, 2, 3], [3]], [[0], [1], [2], [3]]):
+    # separate search runs; the service's plans (64 searches over W=1, 2
+    # and 4 sets padded to W=4) at its population
+    for subsets, pops in (([[0], [1, 2], [0, 1, 2, 3], [3]], B2_POPS),
+                          ([[0], [1], [2], [3]], B2_POPS),
+                          ([SERVE_SUBSETS[i % 9] for i in range(64)], (SERVE_POP,))):
         W = max(len(s) for s in subsets)
-        for P in B2_POPS:
+        for P in pops:
             tables, kind, area, pop, scores, u = b2_case(torch, dev, P, subsets, gen)
             check(tables.demand.shape[1] == W, f"B2 tables W {tables.demand.shape}")
             ck = cp = (pop, scores)
@@ -473,8 +509,9 @@ def phase_b2(torch, dev, timings):
     # and at P=1024
     for label, P, subsets in (("main", 40, [[0, 1, 2, 3]] * 8),
                               ("separate", 40, [[0], [1], [2], [3]]),
+                              ("service", 40, [SERVE_SUBSETS[i % 9] for i in range(64)]),
                               ("p1024", 1024, [[0, 1, 2, 3]] * 8)):
-        B, W = len(subsets), len(subsets[0])
+        B, W = len(subsets), max(len(s) for s in subsets)
         tables, kind, area, pop, scores, u = b2_case(torch, dev, P, subsets, gen)
         ctx = (tables, kind, area)
 
@@ -726,6 +763,328 @@ def phase_trace(torch, dev, backend, timings):
         f"device busy {busy * 1e3:.2f} ms (idle share {1.0 - busy / wall:.4f}), "
         f"{sum(c for _, c in per.values())} device activities; top: "
         + "; ".join(f"{n[:60]} {ms:.2f} ms x{c}" for n, (ms, c) in top[:3]))
+
+
+# ------------------------------------------------------------ DSE service
+SERVE_POP, SERVE_GENS = 40, 10
+
+
+def _serve_main(argv):
+    """``launch.search.main(argv)`` with its per-request lines captured;
+    returns (exit code, stdout)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch.search import main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue()
+
+
+def _summary_lines(out: str) -> list:
+    return [ln for ln in out.splitlines()
+            if ln.startswith("[serve]") and not ln.startswith("[serve] rid ")]
+
+
+def _same_bits(a, b) -> bool:
+    """Two SearchResults agree on every result field, bit for bit."""
+    import numpy as np
+
+    return (np.array_equal(a.top_scores, b.top_scores)
+            and np.array_equal(a.top_genomes, b.top_genomes)
+            and np.array_equal(a.convergence, b.convergence, equal_nan=True)
+            and a.top_designs == b.top_designs and a.valid == b.valid
+            and a.generations == b.generations
+            and a.workload_names == b.workload_names and a.objective == b.objective)
+
+
+def _drain(svc, reqs) -> list:
+    rids = svc.submit_all(reqs)
+    res = svc.drain()
+    return [res[r] for r in rids]
+
+
+def _check_serve_entries(torch, dev, ws, backend, n, entries, label):
+    """Every rid answered; each best re-scores to itself on the plain dense
+    path (rtol 1e-5); 8 sampled requests run alone give the same bits."""
+    import numpy as np
+
+    from repro_torch.core.engine import SearchEngine
+    from repro_torch.core.objectives import make_objective
+    from repro_torch.imc.cost import DesignArrays, evaluate_designs
+    from repro_torch.serve.dse import paper_request_mix
+
+    check(sorted(e["rid"] for e in entries) == list(range(n)),
+          f"{label}: {len(entries)} of {n} requests answered")
+    idx = {name: i for i, name in enumerate(ws.names)}
+    n_feasible = 0
+    for e in entries:
+        if e["best"] is None:
+            continue
+        n_feasible += 1
+        d = DesignArrays(*(torch.tensor([e["best_design"][f]], device=dev)
+                           for f in DesignArrays._fields))
+        on = ws.subset([idx[w] for w in e["workloads"]])
+        s = float(make_objective(e["objective"], 150.0)(evaluate_designs(d, on))[0])
+        check(math.isclose(s, e["best"], rel_tol=1e-5),
+              f"{label} rid {e['rid']}: best re-scores to {s}, reported {e['best']}")
+    check(n_feasible >= n // 2, f"{label}: only {n_feasible} of {n} requests feasible")
+    reqs = paper_request_mix(ws, n, backend=backend, pop_size=SERVE_POP,
+                             generations=SERVE_GENS)
+    sample = sorted(int(r) for r in np.random.default_rng(0).choice(n, 8, replace=False))
+    for rid in sample:
+        alone = SearchEngine(device=dev).run([reqs[rid]])[0]
+        e = entries[rid]
+        check([float(v) for v in alone.top_scores] == e["top_scores"]
+              and (alone.top_designs[0] if alone.top_designs else None) == e["best_design"],
+              f"{label} rid {rid}: alone {list(alone.top_scores[:3])}, in the "
+              f"service {e['top_scores'][:3]}")
+    return n_feasible, sample
+
+
+def phase_service(torch, dev, card, timings):
+    """The DSE service on the card: the CLI's ``--serve`` drains on both
+    kernel backends (launch counts, re-scores, requests alone), sequential
+    against pipelined, segments, kill and resume, the result cache, the
+    async front end, one traced drain of each engine mode, the engine's
+    own run in both modes, and the seeder's time.  Returns {kernel:
+    launches}."""
+    import numpy as np
+
+    from repro_torch.checkpoint import store
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.core.engine import SearchEngine, plan_batch, plan_key
+    from repro_torch.serve.dse import AsyncDSEService, DSEService, paper_request_mix
+
+    ws = _paper_ws()
+    counters = _counters()
+    launches = {}
+    common = ["--pop", str(SERVE_POP), "--gens", str(SERVE_GENS), "--device", str(dev)]
+    rec = timings["service"] = {"card": card}
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        tmp = Path(tmp)
+        # the CLI's drains, one per kernel backend
+        for backend, n, kname in (("table", 256, "ga_gen_step"), ("kernel", 64, "imc_eval")):
+            out = tmp / f"serve_{backend}.json"
+            reqs = paper_request_mix(ws, n, backend=backend, pop_size=SERVE_POP,
+                                     generations=SERVE_GENS)
+            plans = plan_batch(reqs)
+            for c in counters.values():
+                c.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc, text = _serve_main(["--serve", str(n), "--backend", backend,
+                                    "--out", str(out)] + common)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {k: c.launches for k, c in counters.items()}
+            check(rc == 0, f"--serve {n} --backend {backend} returned {rc}")
+            want = len(plans) * (SERVE_GENS if kname == "ga_gen_step" else SERVE_GENS + 1)
+            check(got[kname] == want, f"--serve --backend {backend}: {kname} launched "
+                  f"{got[kname]} times, want {len(plans)} plans x generations = {want}")
+            others = {k: v for k, v in got.items() if k != kname and v}
+            check(not others, f"--serve --backend {backend}: other kernels: {others}")
+            launches[kname] = got[kname]
+            entries = json.loads(out.read_text())
+            n_ok, sample = _check_serve_entries(torch, dev, ws, backend, n, entries,
+                                                f"--serve {backend}")
+            for ln in _summary_lines(text):
+                log(ln)
+            rec[f"cli_{backend}"] = dict(
+                requests=n, plans=len(plans), slots=[len(p.requests) for p in plans],
+                widths=[p.pad_w for p in plans], launches=got[kname], wall_s=wall,
+                feasible=n_ok, alone_sample=sample)
+            log(f"service --backend {backend}: {n} requests in {len(plans)} plans "
+                f"(searches a launch {[len(p.requests) for p in plans]}, W "
+                f"{[p.pad_w for p in plans]}), {got[kname]} {kname} launches, "
+                f"{wall:.3f}s host clock; {n_ok} feasible bests re-score to "
+                f"themselves; rids {sample} alone: bit for bit")
+
+        # sequential against pipelined (table, 256 requests), in turns
+        # sequential, pipelined, pipelined, sequential
+        reqs = paper_request_mix(ws, 256, backend="table", pop_size=SERVE_POP,
+                                 generations=SERVE_GENS)
+        drains = {}
+        for mode in ("sequential", "pipelined", "pipelined", "sequential"):
+            eng = SearchEngine(device=dev, pipelined=mode == "pipelined")
+            svc = DSEService(engine=eng)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = _drain(svc, reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            st = svc.stats
+            drains.setdefault(mode, []).append(dict(
+                results=res, wall_s=wall, launches=eng.launches,
+                transfer_bytes=eng.transfer_bytes, stats=st.summary(),
+                requests_per_s_wall=len(res) / wall))
+        seq, pip = drains["sequential"], drains["pipelined"]
+        for i, (a, b) in enumerate(zip(seq[0]["results"], pip[0]["results"])):
+            check(_same_bits(a, b), f"service: pipelined rid {i} differs from sequential")
+            check(b.ga is None and a.ga is not None, "service: thin results carry ga=None")
+        for d in seq[1:] + pip[1:]:
+            check(all(_same_bits(a, b) for a, b in zip(seq[0]["results"], d["results"])),
+                  "service: a repeated drain differs")
+        check(pip[0]["transfer_bytes"] < seq[0]["transfer_bytes"],
+              f"service: pipelined read {pip[0]['transfer_bytes']} bytes, sequential "
+              f"{seq[0]['transfer_bytes']}")
+        base = seq[0]["results"]
+        for mode, ds in drains.items():
+            rec[mode] = [{k: v for k, v in d.items() if k != "results"} for d in ds]
+            for d in ds:
+                s = d["stats"]
+                log(f"service {mode} drain (256 table requests): {d['wall_s']:.4f}s host "
+                    f"clock ({d['requests_per_s_wall']:.1f} requests/s), "
+                    f"{d['launches']} launches, {d['transfer_bytes']} bytes to the host; "
+                    f"ServiceStats: {s['requests_per_s']:.1f} requests/s busy, wait "
+                    f"p50/p99 {s['wait_p50_s']:.4f}/{s['wait_p99_s']:.4f}s, latency "
+                    f"p50/p99 {s['latency_p50_s']:.4f}/{s['latency_p99_s']:.4f}s, "
+                    f"dispatch gap p50 {s['dispatch_gap_p50_s']:.5f}s, device idle "
+                    f"estimate {s['device_idle_s']:.4f}s")
+
+        # the engine's own whole drain, SearchEngine.run over the same 256
+        # requests, in turns sequential, pipelined, pipelined, sequential:
+        # the pipelined run seeds all 4 plans, then launches them
+        runs = {}
+        for mode in ("sequential", "pipelined", "pipelined", "sequential"):
+            eng = SearchEngine(device=dev, pipelined=mode == "pipelined")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = eng.run(reqs)
+            torch.cuda.synchronize()
+            runs.setdefault(mode, []).append(time.perf_counter() - t0)
+            check(all(_same_bits(a, b) for a, b in zip(base, res)),
+                  f"engine: a {mode} run differs from the service's drain")
+        rec["engine_run_s"] = runs
+        log(f"engine run (256 table requests): sequential "
+            f"{', '.join(f'{v:.4f}' for v in runs['sequential'])} s, pipelined "
+            f"{', '.join(f'{v:.4f}' for v in runs['pipelined'])} s host clock, "
+            f"bit for bit the service's drain")
+
+        # the seeder alone (a sync a round) at the first plan's shape
+        plan = plan_batch(reqs)[0]
+        eng = SearchEngine(device=dev)
+        feats, mask = eng._packed(plan.requests, plan.pad_w, plan.pad_l)
+        seed_ms = []
+        for _ in range(4):
+            gens = [engine_mod._slot_generators(r.seed, dev)[0] for r in plan.requests]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine_mod._seed_pools(gens, feats, mask, SERVE_POP, tech=plan.requests[0].tech)
+            torch.cuda.synchronize()
+            seed_ms.append((time.perf_counter() - t0) * 1e3)
+        rec["seeding"] = dict(B=len(plan.requests), ms=seed_ms[1:])
+        log(f"seeder at B={len(plan.requests)}, P={SERVE_POP}: "
+            f"{', '.join(f'{v:.2f}' for v in seed_ms[1:])} ms (after one warm-up)")
+
+        # segments (2 generations each), sequential and pipelined
+        for pipelined in (False, True):
+            eng = SearchEngine(device=dev, segment_gens=2, pipelined=pipelined)
+            res = _drain(DSEService(engine=eng), reqs)
+            check(all(_same_bits(a, b) for a, b in zip(base, res)),
+                  f"service: segmented drain (pipelined={pipelined}) differs")
+        log("service segmented drains (2-generation segments, sequential and "
+            "pipelined): bit for bit the single launch")
+
+        # kill after the first committed checkpoint, then resume
+        class Killed(BaseException):
+            pass
+
+        ck = tmp / "ckpt"
+        one = reqs[:64]
+        real_save = store.save
+
+        def save_then_kill(*a, **kw):
+            real_save(*a, **kw)
+            raise Killed()
+
+        store.save = save_then_kill
+        svc = DSEService(engine=SearchEngine(device=dev, segment_gens=2,
+                                             checkpoint_dir=str(ck)))
+        svc.submit_all(one)
+        try:
+            svc.drain()
+            killed = False
+        except Killed:
+            killed = True
+        finally:
+            store.save = real_save
+        check(killed, "kill/resume: the drain was not killed")
+        check(svc.pending() == len(one), "kill/resume: the killed drain lost requests")
+        key = plan_key(plan_batch(one)[0], dev)
+        check(store.scan(ck) == [key] and store.latest_step(ck / key) == 2,
+              f"kill/resume: checkpoints {store.scan(ck)}")
+        for c in counters.values():
+            c.launches = 0
+        res = _drain(DSEService(engine=SearchEngine(device=dev, segment_gens=2,
+                                                    checkpoint_dir=str(ck))), one)
+        resumed = counters["ga_gen_step"].launches
+        check(all(_same_bits(a, b) for a, b in zip(base[:64], res)),
+              "kill/resume: the resumed drain differs")
+        check(resumed == SERVE_GENS - 2, f"kill/resume: {resumed} generations after "
+              f"the resume, want {SERVE_GENS - 2}")
+        check(store.scan(ck) == [], "kill/resume: the finished plan left its checkpoint")
+        log(f"service kill after the first checkpoint (generation 2) and resume: "
+            f"{resumed} generations run after it, 64 results bit for bit")
+
+        # the result cache: a second drain over the same directory
+        cache_dir = tmp / "cache"
+        outs, texts, runs = [], [], []
+        for i in range(2):
+            out = tmp / f"cached_{i}.json"
+            for c in counters.values():
+                c.launches = 0
+            rc, text = _serve_main(["--serve", "64", "--backend", "table",
+                                    "--result-cache", str(cache_dir), "--out", str(out)]
+                                   + common)
+            check(rc == 0, f"--result-cache drain {i} returned {rc}")
+            runs.append({k: c.launches for k, c in counters.items()})
+            outs.append(json.loads(out.read_text()))
+            texts.append(text)
+        m = re.search(r"over (\d+) engine launches", texts[1])
+        check(m is not None and int(m.group(1)) == 0,
+              f"--result-cache: second drain: {_summary_lines(texts[1])}")
+        check(not any(runs[1].values()), f"--result-cache: second drain launched {runs[1]}")
+        check(runs[0]["ga_gen_step"] > 0, "--result-cache: first drain launched nothing")
+        check(outs[0] == outs[1], "--result-cache: the cached drain's results differ")
+        log(f"service --result-cache: second drain 0 engine launches, 0 kernel "
+            f"launches, 64 equal results; {[ln for ln in _summary_lines(texts[1]) if 'cache:' in ln]}")
+
+        # the async front end under the priority policy
+        areqs = paper_request_mix(ws, 64, backend="table", pop_size=SERVE_POP,
+                                  generations=SERVE_GENS, priorities=[3, 0, 1, 2])
+        with AsyncDSEService(engine=SearchEngine(device=dev), policy="priority") as asvc:
+            futs = [asvc.submit(r) for r in areqs]
+            ares = [f.result(timeout=600) for f in futs]
+            n_launch = asvc.stats.launches
+        check(all(_same_bits(a, b) for a, b in zip(base[:64], ares)),
+              "async service: results differ from the sequential drain")
+        log(f"async service (priority policy): 64 of 64 futures answered in {n_launch} "
+            "launches, bit for bit the sequential drain")
+
+        # one traced drain of each engine mode: the device's idle share
+        for mode in ("pipelined", "sequential"):
+            eng = SearchEngine(device=dev, pipelined=mode == "pipelined")
+            prof, wall = _profiled(torch, lambda: _drain(DSEService(engine=eng), reqs))
+            per = device_kernels(prof)
+            if not per:
+                rec[f"trace/{mode}"] = {"wall_s": wall, "device": "not measured"}
+                log(f"service trace {mode}: device time not measured")
+                continue
+            busy = sum(ms for ms, _ in per.values()) / 1e3
+            top = sorted(per.items(), key=lambda kv: -kv[1][0])[:6]
+            rec[f"trace/{mode}"] = {
+                "wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
+                "device_activities": sum(c for _, c in per.values()),
+                "top": [{"name": n[:120], "ms": ms, "count": c} for n, (ms, c) in top]}
+            log(f"service trace {mode} (256 table requests, profiled): {wall:.3f}s host "
+                f"clock, device busy {busy * 1e3:.2f} ms (idle share "
+                f"{1.0 - busy / wall:.4f}), {sum(c for _, c in per.values())} device "
+                "activities; top: " + "; ".join(f"{n[:60]} {ms:.2f} ms x{c}"
+                                                for n, (ms, c) in top[:3]))
+    return launches
 
 
 # ----------------------------------------------------------- LM kernels
@@ -1124,6 +1483,7 @@ def run() -> dict:
     b2_launches = phase_main_path(torch, dev, "table", ga_gen_step)
     for backend in ("kernel", "table"):
         phase_trace(torch, dev, backend, timings)
+    serve_launches = phase_service(torch, dev, card, timings)
     b3_launches = phase_lm(torch, dev, "llama3.2-1b", card, timings)
     b4_launches = phase_lm(torch, dev, "mamba2-780m", card, timings)
 
@@ -1131,26 +1491,37 @@ def run() -> dict:
 
     t1, t2 = timings["imc_eval/main"], timings["ga_gen_step/main"]
     s1, s2 = timings["imc_eval/separate"], timings["ga_gen_step/separate"]
+    v1, v2 = timings["imc_eval/service"], timings["ga_gen_step/service"]
     # B3 and B4 at the longest prompt of the main path, in the model's dtype
     t3, t4 = timings["flash_attention/s1024"], timings["ssd_scan/bf16_s1024"]
     kernels = [
         {"name": "imc_eval", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/imc_eval.cu",
          "replaces": "src/repro/kernels/imc_eval/kernel.py:47",
-         "launches": b1_launches, "max_abs_err": b1_err[0],
+         "launches": b1_launches + serve_launches["imc_eval"],
+         "launches_by_path": {"search": b1_launches,
+                              "serve": serve_launches["imc_eval"]},
+         "max_abs_err": b1_err[0],
          "max_rel_err": b1_err[1],
          "ms": t1["ms"], "plain_ms": t1["plain_ms"], "bound_ms": t1["bound_ms"],
          "bound_by": t1["bound_by"], "library_ms": None,
          "device_ms": t1["device_ms"], "plain_device_ms": t1["plain_device_ms"],
-         "separate_ms": s1["ms"], "separate_device_ms": s1["device_ms"]},
+         "separate_ms": s1["ms"], "separate_device_ms": s1["device_ms"],
+         "service_ms": v1["ms"], "service_device_ms": v1["device_ms"],
+         "service_bound_ms": v1["bound_ms"]},
         {"name": "ga_gen_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ga_gen_step.cu",
          "replaces": "src/repro/kernels/ga_gen_step/kernel.py:115",
-         "launches": b2_launches, "max_abs_err": 0.0,
+         "launches": b2_launches + serve_launches["ga_gen_step"],
+         "launches_by_path": {"search": b2_launches,
+                              "serve": serve_launches["ga_gen_step"]},
+         "max_abs_err": 0.0,
          "ms": t2["ms"], "plain_ms": t2["plain_ms"], "bound_ms": t2["bound_ms"],
          "bound_by": t2["bound_by"], "library_ms": None,
          "device_ms": t2["device_ms"], "plain_device_ms": t2["plain_device_ms"],
-         "separate_ms": s2["ms"], "separate_device_ms": s2["device_ms"]},
+         "separate_ms": s2["ms"], "separate_device_ms": s2["device_ms"],
+         "service_ms": v2["ms"], "service_device_ms": v2["device_ms"],
+         "service_bound_ms": v2["bound_ms"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:33",

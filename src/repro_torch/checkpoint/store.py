@@ -1,0 +1,108 @@
+"""Atomic on-disk checkpoints of a flat list of numpy arrays.
+
+Layout (one directory per step):
+
+    <dir>/step_000000123/
+        MANIFEST.json       # step, wall time, each leaf's shape and dtype
+        arr_<idx>.npy       # one file per leaf
+        _COMMITTED          # written last: a save without it is ignored
+
+``save`` writes into ``step_x.tmp``, adds the commit marker and renames
+the directory into place, so a crash mid-save never corrupts the newest
+committed step; it keeps the newest ``keep`` steps.  ``restore`` loads
+the newest committed step (or the one asked for) as a list of arrays in
+save order.  The callers (the engine's segment checkpoints, the result
+cache's disk tier) give their leaves a fixed order; no tree structure is
+stored.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import time
+from pathlib import Path
+from typing import List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+
+PathLike = Union[str, Path]
+
+_MARKER = "_COMMITTED"
+
+
+def _step_dir(ckpt_dir: Path, step: int) -> Path:
+    return ckpt_dir / f"step_{step:09d}"
+
+
+def save(ckpt_dir: PathLike, step: int, leaves: Sequence, *, keep: int = 3) -> Path:
+    """Write ``leaves`` (arrays or tensors, each brought to the host) as
+    step ``step``; atomic, keeps the newest ``keep`` committed steps."""
+    ckpt_dir = Path(ckpt_dir)
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    final = _step_dir(ckpt_dir, step)
+    tmp = final.with_name(final.name + ".tmp")
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    tmp.mkdir(parents=True)
+    manifest = {"step": int(step), "time": time.time(), "leaves": []}
+    for i, leaf in enumerate(leaves):
+        if hasattr(leaf, "detach"):  # a torch tensor, on any device
+            leaf = leaf.detach().cpu().numpy()
+        arr = np.asarray(leaf)
+        np.save(tmp / f"arr_{i}.npy", arr)
+        manifest["leaves"].append(
+            {"idx": i, "shape": list(arr.shape), "dtype": str(arr.dtype)})
+    with open(tmp / "MANIFEST.json", "w") as f:
+        json.dump(manifest, f)
+    (tmp / _MARKER).touch()
+    if final.exists():
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+    for s in sorted(committed_steps(ckpt_dir))[:-keep]:
+        shutil.rmtree(_step_dir(ckpt_dir, s), ignore_errors=True)
+    return final
+
+
+def committed_steps(ckpt_dir: PathLike) -> List[int]:
+    ckpt_dir = Path(ckpt_dir)
+    if not ckpt_dir.exists():
+        return []
+    return [int(p.name[5:]) for p in ckpt_dir.iterdir()
+            if p.name.startswith("step_") and not p.name.endswith(".tmp")
+            and (p / _MARKER).exists()]
+
+
+def latest_step(ckpt_dir: PathLike) -> Optional[int]:
+    steps = committed_steps(ckpt_dir)
+    return max(steps) if steps else None
+
+
+def restore(ckpt_dir: PathLike, step: Optional[int] = None
+            ) -> Tuple[List[np.ndarray], int]:
+    """(leaves in save order, step) of the newest committed step, or of
+    ``step``."""
+    ckpt_dir = Path(ckpt_dir)
+    step = latest_step(ckpt_dir) if step is None else step
+    if step is None:
+        raise FileNotFoundError(f"no committed checkpoint in {ckpt_dir}")
+    path = _step_dir(ckpt_dir, step)
+    with open(path / "MANIFEST.json") as f:
+        manifest = json.load(f)
+    return [np.load(path / f"arr_{e['idx']}.npy") for e in manifest["leaves"]], step
+
+
+def clear(ckpt_dir: PathLike) -> None:
+    """Remove a checkpoint directory and everything in it; a missing one is
+    a no-op."""
+    shutil.rmtree(Path(ckpt_dir), ignore_errors=True)
+
+
+def scan(root: PathLike) -> List[str]:
+    """Names of the child directories of ``root`` that hold a committed
+    step: the keys a keyed store (the result cache's disk tier) can serve."""
+    root = Path(root)
+    if not root.exists():
+        return []
+    return sorted(p.name for p in root.iterdir()
+                  if p.is_dir() and latest_step(p) is not None)

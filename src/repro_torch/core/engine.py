@@ -1,20 +1,41 @@
-"""DSE engine: search requests -> groups -> one batched GA per group.
+"""DSE engine: search request -> batch plan -> dispatch / harvest.
 
-``SearchRequest`` describes one search (workload set, objective, area
-constraint, seed, backend, GA sizes); ``SearchEngine.run`` groups requests
-by signature (backend, pop size, generations, tech), packs each group
-into one batched GA (``core.ga.run_ga_batched``) with an explicit search
-axis ``B``, and finalizes every slot on the host.  Within a group:
+The service layer of the search stack.  The search functions of
+``core.search`` and the DSE service (``serve.dse``) are thin wrappers
+over three pieces:
+
+  * ``SearchRequest`` - one search: workload set, objective, area
+    constraint, seed, backend, GA sizes, and the scheduling metadata
+    ``priority`` / ``deadline_s`` (never part of a result).
+  * ``plan_batch`` - groups requests by signature (backend, pop size,
+    generations, tech, and the exact (W, L) for the dense backends; the
+    table backend carries no shape, so any workload sets pack together),
+    orders them by a scheduling policy (fifo / priority / edf) and cuts
+    each group into chunks of at most ``max_slots`` searches.
+  * ``SearchEngine`` - runs a plan as one batched GA (``core.ga``) with an
+    explicit search axis B: ``dispatch`` enqueues the work on the device
+    without waiting for it, ``harvest`` brings the results back and
+    finalizes them on the host.
+
+Within a plan:
 
   * **Objectives** are per-slot data: a kind index and an area constraint
     (``objectives.make_indexed_objective``), bit-identical per element to
     the static ``make_objective`` path.
-  * **Workload sets** are padded to the group's (W, L): masked layers and
-    all-zero workloads (or zero table rows on the table backend) are
-    exactly neutral under the max-reduction and the fits test.
+  * **Workload sets**: the table backend stacks each request's own tables
+    (``WorkloadSet.tables``), zero-padded along W: a zero row fits
+    everywhere and adds 0 to the objective's max, so a request scores the
+    same alone and in any batch.  The dense backends group by exact
+    (W, L), so their tensors are never padded.
   * **Seeds** are data: each slot draws its initial population and its
-    uniform blocks from its own ``torch.Generator``, so a slot's results do
-    not depend on its batch-mates.
+    uniform blocks from its own ``torch.Generator``s, so a slot's results
+    do not depend on its batch-mates.  The streams differ between the CPU
+    and CUDA generators; ``stream_tag`` names them in every cache key.
+
+A plan of S requests runs S rows: ``BatchPlan.slots`` (the chunk size
+of its group, as the JAX package plans it) enters ``plan_key`` only, and
+the pad rows the JAX package runs to reuse a compiled program are dropped
+before launch, since nothing here is compiled per shape.
 
 Backends: ``"dense"`` (``imc.cost``, plain PyTorch), ``"kernel"`` (the
 same model with its layer sums from the ``imc_eval`` kernel) and
@@ -22,25 +43,38 @@ same model with its layer sums from the ``imc_eval`` kernel) and
 ``ga_gen_step`` kernel).  They are the JAX package's ``"jnp"``,
 ``"pallas"`` and ``"table"``.
 
-Not ported yet: scheduling policies, pipelined dispatch/harvest, GA
-segments, checkpoints, the result cache, direct seeding, meshes, and the
-Pareto and weighted objectives.
+Not ported (ROADMAP.md, "What remains" items 6 and 7): the Pareto and
+weighted objectives, direct seeding, meshes and the ``fused`` switch;
+asking for one raises ``ValueError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from functools import lru_cache
+from pathlib import Path
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import store
 from repro_torch.core import space
-from repro_torch.core.ga import GAResult, block_layout, run_ga_batched
+from repro_torch.core.ga import (
+    GAResult,
+    GAState,
+    GAThin,
+    block_layout,
+    ga_epilogue_batched,
+    init_ga_state_batched,
+    run_ga_batched,
+    run_ga_batched_segment,
+    run_ga_batched_thin,
+)
 from repro_torch.core.objectives import OBJECTIVE_INDEX, make_indexed_objective
 from repro_torch.device import resolve_device
 from repro_torch.imc.cost import evaluate_designs_arrays
-from repro_torch.imc.tables import build_tables_arrays, evaluate_genomes_tables
+from repro_torch.imc.tables import WorkloadTables, evaluate_genomes_tables
 from repro_torch.imc.tech import TECH, TechParams
 from repro_torch.kernels.ga_gen_step.ops import ga_gen_step
 from repro_torch.kernels.imc_eval.ops import evaluate_designs_kernel_arrays
@@ -48,13 +82,22 @@ from repro_torch.workloads.pack import WorkloadSet
 
 BACKENDS = ("dense", "kernel", "table")
 MAX_SLOTS = 64  # searches per batched GA
+NOT_PORTED = "not ported yet (ROADMAP.md, 'What remains' items 6 and 7)"
+
+
+def stream_tag(device) -> str:
+    """Names the random stream a seed draws on ``device``: the same seed
+    gives other designs on the CPU's and on CUDA's generator, so cache and
+    checkpoint keys must tell them apart."""
+    return f"repro_torch seed streams v1, torch.Generator({torch.device(device).type})"
 
 
 @dataclasses.dataclass
 class SearchResult:
     workload_names: Tuple[str, ...]
     objective: str
-    ga: Optional[GAResult]  # host (numpy) history of this search
+    ga: Optional[GAResult]  # host history; None for thin (pipelined) results
+    # and for empty partials
     top_designs: List[Dict[str, float]]  # decoded, deduped, best-first
     top_scores: np.ndarray
     top_genomes: np.ndarray
@@ -63,6 +106,25 @@ class SearchResult:
     partial: bool = False  # True: search stopped before its full budget
     generations: int = -1  # generations actually applied (-1 = full budget)
     objective_vectors: Optional[np.ndarray] = None  # Pareto family (not ported)
+
+
+class EngineFault(RuntimeError):
+    """A launch failed for good (retries spent, or no retry path).
+    ``partials``, when the plan had advanced, holds one anytime
+    ``SearchResult`` (``partial=True``) per plan request (``None`` where
+    nothing was evaluated), so a service can resolve those requests with
+    their best so far."""
+
+    def __init__(self, msg: str, *, partials: Optional[List[Optional[SearchResult]]] = None,
+                 generations_done: int = 0):
+        super().__init__(msg)
+        self.partials = partials
+        self.generations_done = int(generations_done)
+
+
+class NonFiniteScoreError(EngineFault):
+    """The per-segment guard tripped: a launch produced NaN scores (+inf
+    is the normal score of an infeasible design, so the guard is NaN-only)."""
 
 
 # --------------------------------------------------------- eval callbacks
@@ -100,18 +162,6 @@ def _ctx_eval(tech: TechParams, backend: str) -> Callable:
     return eval_fn
 
 
-def _eval_ctx(feats: torch.Tensor, mask: torch.Tensor, tech: TechParams,
-              backend: str) -> Tuple:
-    """The workload half of an eval ``ctx`` for slot-packed feats (B, W, L,
-    6) and mask (B, W, L): the raw tensors, or, for the table backend, the
-    factorized ``(tables,)`` statistics, reduced over the layer axis here,
-    once per batch.  Padded (masked) layers and workloads give zero table
-    rows, which fit everywhere and add 0 to the max-reduction."""
-    if backend != "table":
-        return (feats, mask)
-    return (build_tables_arrays(feats, mask, tech),)
-
-
 def _workload_weights(feats: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Crossbar-demand proxy per workload (total weight count K * N * groups);
     the single definition of "largest" shared by every seeding path."""
@@ -130,9 +180,9 @@ def _seed_rounds(generators: Sequence[torch.Generator], feats: torch.Tensor,
     """Batched rejection sampler against ONE workload per slot (feats
     (B, L, 6), mask (B, L)).  Each round every slot draws ``pop_size *
     oversample`` candidates from its own generator, keeps those that fit
-    and are V/f-valid, and fills its next free pool slots; rounds repeat
-    until every pool is full or ``max_rounds`` is hit.  A slot draws the
-    same candidates whatever batch it runs in."""
+    and are V/f-valid, and fills its next free pool slots.  The rounds stop
+    once every pool is full, which the host reads after each round (a
+    sync).  A slot draws the same candidates whatever batch it runs in."""
     B = feats.shape[0]
     dev = feats.device
     n_cand = pop_size * oversample
@@ -155,6 +205,28 @@ def _seed_rounds(generators: Sequence[torch.Generator], feats: torch.Tensor,
     return pool[:, :pop_size], count
 
 
+def _seed_pools(generators, feats, mask, pop_size, *, tech, oversample=64,
+                max_rounds=8):
+    """(pools (B, P, n), counts (B,)) on the device, not checked: each slot
+    rejects against its own largest workload of feats (B, W, L, 6).  The
+    early exit costs a host sync a round and saves the rounds after the
+    pools fill (one round nearly always, at P=40); PERF.md has its reading
+    against all rounds without a sync."""
+    li = torch.argmax(_workload_weights(feats, mask.to(torch.float32)), dim=1)
+    bidx = torch.arange(feats.shape[0], device=feats.device)
+    return _seed_rounds(generators, feats[bidx, li], mask[bidx, li],
+                        int(pop_size), int(oversample), int(max_rounds), tech)
+
+
+def _check_seeded(counts: np.ndarray, pop_size: int, names=None) -> None:
+    if counts.min() < pop_size:
+        bad = int(np.argmin(counts))
+        what = f" (workloads {names[bad]})" if names is not None else ""
+        raise RuntimeError(
+            f"could not seed {pop_size} valid designs for batch element {bad}"
+            f"{what}; {int(counts[bad])} found")
+
+
 def seed_population_batched(
     generators: Sequence[torch.Generator],
     feats: torch.Tensor,
@@ -168,18 +240,9 @@ def seed_population_batched(
     """Per-slot seeding: feats (B, W, L, 6), mask (B, W, L) -> pools
     (B, pop_size, n).  Each slot rejects against its own largest workload
     (paper Sec. III-C: designs failing it, or V/f-invalid, are dropped)."""
-    li = torch.argmax(_workload_weights(feats, mask.to(torch.float32)), dim=1)
-    bidx = torch.arange(feats.shape[0], device=feats.device)
-    pools, counts = _seed_rounds(generators, feats[bidx, li], mask[bidx, li],
-                                 int(pop_size), int(oversample),
-                                 int(max_rounds), tech)
-    counts = counts.cpu().numpy()
-    if counts.min() < pop_size:
-        bad = int(np.argmin(counts))
-        raise RuntimeError(
-            f"could not seed {pop_size} valid designs for batch element {bad} "
-            f"({int(counts[bad])} found)"
-        )
+    pools, counts = _seed_pools(generators, feats, mask, pop_size, tech=tech,
+                                oversample=oversample, max_rounds=max_rounds)
+    _check_seeded(counts.cpu().numpy(), pop_size)
     return pools
 
 
@@ -275,12 +338,94 @@ def _finalize_batch(
     return out
 
 
-# ---------------------------------------------------------------- requests
+def _finalize_batch_thin(
+    thin_np: GAThin, requests: Sequence["SearchRequest"], *, partial: bool = False,
+) -> List[SearchResult]:
+    """``_finalize_batch`` over the thin epilogue's outputs: the device
+    already picked each slot's best unique designs (K = the plan's largest
+    ``top_k``, in rank order), so a request keeps its own ``top_k`` prefix:
+    the designs the history path keeps, with ``ga=None``."""
+    out = []
+    for i, r in enumerate(requests):
+        kept = int(min(int(thin_np.n_kept[i]), r.top_k))
+        top_g = thin_np.top_genomes[i][:kept]
+        top_s = thin_np.top_scores[i][:kept]
+        conv = thin_np.convergence[i]
+        out.append(SearchResult(
+            workload_names=tuple(r.ws.names),
+            objective=r.objective,
+            ga=None,
+            top_designs=space.design_dicts_from_indices(space.decode_indices_np(top_g)),
+            top_scores=top_s,
+            top_genomes=top_g,
+            convergence=conv,
+            valid=bool(kept),
+            partial=bool(partial),
+            generations=int(conv.shape[-1]) - 1,
+        ))
+    return out
+
+
+def _history_result(gh_i: np.ndarray, sh_i: np.ndarray) -> GAResult:
+    """A host ``GAResult`` over one slot's (g+1, P, .) history; the first
+    minimum is the best, as in ``ga.run_ga_batched``."""
+    n = gh_i.shape[-1]
+    flat_s = sh_i.reshape(-1)
+    b = int(np.argmin(flat_s)) if flat_s.size else 0
+    return GAResult(
+        genomes=gh_i, scores=sh_i,
+        best_genome=gh_i.reshape(-1, n)[b] if flat_s.size else np.zeros(n, np.float32),
+        best_score=flat_s[b] if flat_s.size else np.float32(np.inf),
+    )
+
+
+def _finalize(ga: GAResult, names: Sequence[str], objective: str, top_k: int,
+              *, partial: bool = False) -> SearchResult:
+    """One search's result from its host history (the segmented path and
+    anytime partials)."""
+    G1, P, n = ga.genomes.shape
+    top_g, top_s = _top_unique(ga.genomes.reshape(-1, n), ga.scores.reshape(-1), top_k)
+    return SearchResult(
+        workload_names=tuple(names),
+        objective=objective,
+        ga=ga,
+        top_designs=space.design_dicts_from_indices(space.decode_indices_np(top_g)),
+        top_scores=top_s,
+        top_genomes=top_g,
+        convergence=np.minimum.accumulate(ga.scores.min(axis=1)),
+        valid=bool(len(top_s)),
+        partial=bool(partial),
+        generations=int(G1) - 1,
+    )
+
+
+def empty_partial_result(req: "SearchRequest") -> SearchResult:
+    """The anytime result of a request that never had a good launch: no
+    designs, ``valid=False``, ``partial=True``."""
+    return SearchResult(
+        workload_names=tuple(req.ws.names),
+        objective=req.objective,
+        ga=None,
+        top_designs=[],
+        top_scores=np.zeros((0,), np.float32),
+        top_genomes=np.zeros((0, space.N_GENES), np.float32),
+        convergence=np.zeros((0,), np.float32),
+        valid=False,
+        partial=True,
+        generations=0,
+    )
+
+
+# ------------------------------------------------------- request -> plan
 @dataclasses.dataclass(frozen=True, eq=False)
 class SearchRequest:
     """One DSE query, as data.  ``init_genomes`` (P, n) and ``u_blocks``
     (G, tot) replace the seeded population and the drawn uniform blocks
-    when given (tests feed the JAX package's own); neither is modified."""
+    when given (tests feed the JAX package's own); neither is modified.
+
+    ``priority`` (0 = most urgent) and ``deadline_s`` (seconds from
+    submit) are scheduling metadata for ``plan_batch``'s policies and the
+    service: they never enter ``signature()``, a cache key or a result."""
 
     ws: WorkloadSet
     objective: str = "ela"
@@ -293,102 +438,676 @@ class SearchRequest:
     tech: TechParams = TECH
     init_genomes: Optional[object] = None
     u_blocks: Optional[object] = None
+    priority: int = 0
+    deadline_s: Optional[float] = None
+    obj_weights: Optional[Tuple[float, ...]] = None  # weighted objective: not ported
 
     def signature(self) -> tuple:
-        """Requests with equal signatures run as one batched GA."""
+        """Requests with equal signatures run as one batched GA.  The table
+        backend reduced the layer axis away, so its signature carries no
+        workload shape; the dense backends group by their exact (W, L)."""
         if self.backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {self.backend!r}")
+        if self.objective == "pareto":
+            raise ValueError(f"objective='pareto' is {NOT_PORTED}")
+        if self.obj_weights is not None:
+            raise ValueError(f"obj_weights (the weighted objective) is {NOT_PORTED}")
         if self.objective not in OBJECTIVE_INDEX:
             raise ValueError(
                 f"objective must be one of {tuple(OBJECTIVE_INDEX)}, "
                 f"got {self.objective!r}")
-        return (self.backend, int(self.pop_size), int(self.generations), self.tech)
+        shape = (() if self.backend == "table"
+                 else (int(self.ws.feats.shape[0]), int(self.ws.feats.shape[1])))
+        return (self.backend, int(self.pop_size), int(self.generations),
+                self.tech, shape, ("indexed",))
 
 
-def _as_tensor(x, device) -> torch.Tensor:
+def _f32(x) -> torch.Tensor:
+    """A float32 host tensor of an array-like or a tensor (on any device)."""
     if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.float32)
-    return torch.as_tensor(np.array(x, np.float32), device=device)
+        return x.detach().to(torch.float32)
+    return torch.tensor(np.asarray(x, np.float32))
+
+
+def _array_bytes(x) -> Tuple[tuple, bytes]:
+    """(shape, float32 bytes) of an array-like or tensor, for hashing."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    a = np.ascontiguousarray(np.asarray(x, np.float32))
+    return a.shape, a.tobytes()
+
+
+def hash_stream(h, req: SearchRequest) -> None:
+    """Feed the identity of a request's randomness to ``h``: its seed, and
+    the given population and blocks that replace the seeded ones."""
+    h.update(repr(("seed", int(req.seed))).encode())
+    for name in ("init_genomes", "u_blocks"):
+        x = getattr(req, name)
+        if x is not None:
+            shape, raw = _array_bytes(x)
+            h.update(repr((name, shape)).encode())
+            h.update(raw)
+
+
+@dataclasses.dataclass
+class BatchPlan:
+    """One launch: ``len(requests)`` searches of one signature group.
+    ``slots`` is the group's chunk size (the JAX package runs that many
+    rows, its pad rows repeating the first request; here only the real
+    requests run); ``pad_w``/``pad_l`` are the group-wide padded workload
+    shape."""
+
+    signature: tuple
+    requests: List[SearchRequest]
+    indices: List[int]  # positions in the submitted request list
+    slots: int
+    pad_w: int
+    pad_l: int
+
+
+def plan_key(plan: BatchPlan, device="cuda") -> str:
+    """Content hash of everything that determines a plan's GA trajectory
+    on ``device``: workload fingerprints, objectives, areas, tech, GA
+    sizes, each request's random stream (its seed, given blocks and
+    population, and the device's generator), the slot shape and the grid.
+    Stable across processes: the checkpoint directory name, so a killed
+    drain's restart finds its own saved state, and never another tech's or
+    another device's stream."""
+    h = hashlib.sha256()
+    h.update(stream_tag(device).encode())
+    for r in plan.requests:
+        h.update(r.ws.fingerprint().encode())
+        h.update(repr((
+            r.objective, float(r.area_constr), r.backend, int(r.pop_size),
+            int(r.generations), int(r.top_k), r.tech,
+        )).encode())
+        hash_stream(h, r)
+    h.update(repr((int(plan.slots), int(plan.pad_w), int(plan.pad_l))).encode())
+    h.update(space.grid_token().encode())
+    return h.hexdigest()[:24]
+
+
+# ------------------------------------------------------ scheduling policy
+@dataclasses.dataclass(frozen=True)
+class RequestMeta:
+    """Scheduling facts the policies key on, per queued request: ``seq``
+    the submit order (the FIFO key and the tie-break), ``wait_s`` the time
+    queued (priority aging), ``deadline_s`` the absolute deadline on the
+    scheduler's clock (``None`` = none)."""
+
+    seq: int
+    priority: int = 0
+    wait_s: float = 0.0
+    deadline_s: Optional[float] = None
+
+
+class SchedulingPolicy:
+    """Maps a queued request to a sortable urgency key (lower = sooner).
+    The planner stable-sorts the queue by it before grouping, so a policy
+    decides which requests share a chunk and which chunk launches first,
+    never the chunk shapes."""
+
+    name = "fifo"
+
+    def key(self, req: SearchRequest, meta: RequestMeta) -> tuple:
+        return (meta.seq,)
+
+
+class PriorityPolicy(SchedulingPolicy):
+    """Strict priority (0 = most urgent) with aging: a request waiting
+    ``aging_s`` seconds gains one level, so every priority eventually
+    launches.  ``aging_s=None`` is strict priority (can starve)."""
+
+    name = "priority"
+
+    def __init__(self, aging_s: Optional[float] = 30.0):
+        if aging_s is not None and aging_s <= 0:
+            raise ValueError(f"aging_s must be positive or None, got {aging_s}")
+        self.aging_s = aging_s
+
+    def key(self, req: SearchRequest, meta: RequestMeta) -> tuple:
+        p = float(meta.priority)
+        if self.aging_s is not None:
+            p -= meta.wait_s / self.aging_s
+        return (p, meta.seq)
+
+
+class EDFPolicy(SchedulingPolicy):
+    """Earliest deadline first, then submit order; requests without a
+    deadline run after every one with."""
+
+    name = "edf"
+
+    def key(self, req: SearchRequest, meta: RequestMeta) -> tuple:
+        d = float("inf") if meta.deadline_s is None else float(meta.deadline_s)
+        return (d, meta.seq)
+
+
+POLICIES = {"fifo": SchedulingPolicy, "priority": PriorityPolicy, "edf": EDFPolicy}
+
+
+def get_policy(policy) -> SchedulingPolicy:
+    """A policy name or an already-built ``SchedulingPolicy``."""
+    if isinstance(policy, SchedulingPolicy):
+        return policy
+    cls = POLICIES.get(policy)
+    if cls is None:
+        raise ValueError(f"policy must be one of {tuple(POLICIES)} or a "
+                         f"SchedulingPolicy, got {policy!r}")
+    return cls()
+
+
+def plan_batch(
+    requests: Sequence[SearchRequest],
+    *,
+    max_slots: int = MAX_SLOTS,
+    policy="fifo",
+    meta: Optional[Sequence[RequestMeta]] = None,
+    slot_hints: Optional[Dict[tuple, int]] = None,
+) -> List[BatchPlan]:
+    """Group requests by signature and cut each group into chunks, in the
+    policy's order.  A group of ``total`` requests gets ``slots =
+    min(total, max_slots)``; ``slot_hints`` (signature -> a slot count used
+    before) rounds a smaller group up to it, never down.  The queue is
+    stable-sorted by the policy's key before grouping, so chunk members
+    are in key order and ``plans[0]`` is the launch the policy wants next.
+    ``meta`` comes from the service; bare calls derive it from the
+    requests (submit order = list order, no wait)."""
+    pol = get_policy(policy)
+    if meta is None:
+        meta = [RequestMeta(seq=i, priority=int(r.priority), wait_s=0.0,
+                            deadline_s=r.deadline_s)
+                for i, r in enumerate(requests)]
+    keys = [pol.key(r, m) for r, m in zip(requests, meta)]
+    order = sorted(range(len(requests)), key=keys.__getitem__)
+    groups: Dict[tuple, List[int]] = {}
+    for i in order:
+        groups.setdefault(requests[i].signature(), []).append(i)
+    plans: List[BatchPlan] = []
+    for sig, idxs in groups.items():
+        reqs = [requests[i] for i in idxs]
+        pad_w = max(int(r.ws.feats.shape[0]) for r in reqs)
+        pad_l = max(int(r.ws.feats.shape[1]) for r in reqs)
+        slots = min(len(idxs), int(max_slots))
+        hint = (slot_hints or {}).get(sig)
+        if hint is not None and slots < hint <= int(max_slots):
+            slots = hint
+        for lo in range(0, len(idxs), slots):
+            plans.append(BatchPlan(signature=sig, requests=reqs[lo:lo + slots],
+                                   indices=idxs[lo:lo + slots], slots=slots,
+                                   pad_w=pad_w, pad_l=pad_l))
+    plans.sort(key=lambda p: keys[p.indices[0]])
+    return plans
 
 
 # ----------------------------------------------------------------- engine
+@dataclasses.dataclass
+class _Staged:
+    """Device tensors on their way to the host: pinned copies enqueued
+    behind the work that makes them, and the event that marks them done
+    (``None`` on the CPU, where the tensors are the host arrays)."""
+
+    host: List[torch.Tensor]
+    event: Optional[object]
+    cls: Optional[type]  # the NamedTuple the fields came from, or None
+
+
+@dataclasses.dataclass
+class _LaunchPrep:
+    """Everything a launch needs before its GA runs."""
+
+    ctx: tuple
+    eval_fn: Callable
+    init: Optional[torch.Tensor]  # (S, P, n) initial populations
+    u: Optional[torch.Tensor]  # (G, S, tot) the GA's uniform stream
+    seed_check: Optional[Callable]  # raises if a pool came up short
+
+
+@dataclasses.dataclass
+class PendingLaunch:
+    """A dispatched plan that ``harvest`` has not read yet.  One payload is
+    set: ``thin`` (the staged thin epilogue: pipelined), ``ga`` (the staged
+    history: sequential) or ``results`` (finalized already: the sequential
+    segmented path, which syncs per segment anyway)."""
+
+    plan: BatchPlan
+    thin: Optional[_Staged] = None
+    ga: Optional[_Staged] = None
+    results: Optional[List[SearchResult]] = None
+    seed_check: Optional[Callable] = None
+
+
 class SearchEngine:
-    """Runs groups of requests as batched GAs on one device, at most
-    ``MAX_SLOTS`` searches per batch.  ``launches`` counts batched GA runs
-    since construction."""
+    """Runs batch plans as batched GAs on one device.
 
-    def __init__(self, *, device="cuda"):
+    Knobs (all off by default):
+
+      * ``segment_gens`` - run each plan as ceil(G / k) segments of k
+        generations (``core.ga.run_ga_batched_segment``, the same bits as
+        one run) with a NaN guard after every segment.
+      * ``segment_retries`` - how often a failed or NaN segment runs again
+        from the last good ``GAState`` before the plan gives up with an
+        ``EngineFault`` carrying anytime partials.
+      * ``checkpoint_dir`` - save the ``GAState`` and the history every
+        ``checkpoint_every`` segments under ``checkpoint_dir/<plan_key>``
+        (``checkpoint.store``); an identical plan resumes from the newest
+        committed step, and a finished plan clears its directory.
+      * ``result_cache`` - a ``serve.cache.ResultCache`` for this device:
+        finished requests persist under their own content key, and
+        ``run`` resolves cached requests without planning them.
+      * ``pipelined`` - the thin path: each launch ends in the thin
+        epilogue on the device and brings back (S, K, n) genomes, (S, K)
+        scores and (S, G+1) convergence instead of the history; ``run``
+        seeds every plan, then launches them all before harvesting the
+        first, so the host's finalize of one plan overlaps the device's
+        work on the next.  Results equal the sequential path's except
+        ``ga`` is ``None``.
+
+    ``dispatch`` waits for the device once per seeding round: the seeder
+    reads its pools' counts to stop once they are full.  As the device
+    runs one stream, that read also waits for every launch still queued,
+    so a dispatch behind a plan in flight waits for that plan's GA (``run``
+    seeds first for this reason).  Nothing else in ``dispatch`` waits:
+    copies to the host go to pinned buffers behind the work, and the
+    seeding check moves to ``harvest``.  ``transfer_bytes`` counts the
+    bytes brought to the host at the engine's sync point, ``launches`` the
+    plans run."""
+
+    def __init__(self, *, device="cuda", max_slots: int = MAX_SLOTS,
+                 segment_gens: Optional[int] = None, segment_retries: int = 1,
+                 checkpoint_dir: Optional[str] = None, checkpoint_every: int = 1,
+                 result_cache=None, pipelined: bool = False, mesh=None,
+                 fused: Optional[bool] = None, direct_seed: bool = False):
+        if mesh is not None:
+            raise ValueError(f"SearchEngine(mesh=...) is {NOT_PORTED}")
+        if fused is not None:
+            raise ValueError(f"SearchEngine(fused=...) is {NOT_PORTED}")
+        if direct_seed:
+            raise ValueError(f"SearchEngine(direct_seed=True) is {NOT_PORTED}")
         self.device = resolve_device(device)
+        self.stream = stream_tag(self.device)
+        cache_stream = getattr(result_cache, "stream", None)
+        if cache_stream is not None and cache_stream != self.stream:
+            raise ValueError(f"result cache keys {cache_stream!r}, this engine "
+                             f"draws {self.stream!r}")
+        self.max_slots = int(max_slots)
+        self.pipelined = bool(pipelined)
+        self.transfer_bytes = 0
         self.launches = 0
+        self.segment_gens = None if segment_gens is None else int(segment_gens)
+        self.segment_retries = int(segment_retries)
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = max(1, int(checkpoint_every))
+        self.result_cache = result_cache
+        # content-keyed caches of what a warm drain repacks: each request's
+        # W-padded host tables, and the slot-packed device tensors
+        self._padded_tables: Dict[tuple, tuple] = {}
+        self._packed_workloads: Dict[tuple, tuple] = {}
+        self._stacked_tables: Dict[tuple, WorkloadTables] = {}
 
+    # ------------------------------------------------------------ planning
     def run(self, requests: Sequence[SearchRequest]) -> List[SearchResult]:
-        """Group, execute, finalize; results align with ``requests``."""
+        """Plan and run; results align with ``requests``.  With a
+        ``result_cache``, cached requests resolve without a launch."""
         out: List[Optional[SearchResult]] = [None] * len(requests)
-        groups: Dict[tuple, List[int]] = {}
-        for i, r in enumerate(requests):
-            groups.setdefault(r.signature(), []).append(i)
-        for idxs in groups.values():
-            for lo in range(0, len(idxs), MAX_SLOTS):
-                chunk = idxs[lo:lo + MAX_SLOTS]
-                res = self._execute([requests[i] for i in chunk])
-                for i, r in zip(chunk, res):
-                    out[i] = r
+        todo = list(range(len(requests)))
+        if self.result_cache is not None:
+            todo = []
+            for i, r in enumerate(requests):
+                hit = self.result_cache.get(r)
+                if hit is not None:
+                    out[i] = hit
+                else:
+                    todo.append(i)
+        plans = plan_batch([requests[i] for i in todo], max_slots=self.max_slots)
+        if self.pipelined:
+            # seeding syncs (see the class docstring): seed every plan while
+            # the stream is empty, then queue the launches back to back
+            preps = [None if self._segmented(p) else self._prepare(p) for p in plans]
+            pending = [self.dispatch(p, prep=prep) for p, prep in zip(plans, preps)]
+            for plan, pend in zip(plans, pending):
+                for i, res in zip(plan.indices, self.harvest(pend)):
+                    out[todo[i]] = res
+        else:
+            for plan in plans:
+                for i, res in zip(plan.indices, self.execute(plan)):
+                    out[todo[i]] = res
         return out  # type: ignore[return-value]
 
-    def _execute(self, reqs: List[SearchRequest]) -> List[SearchResult]:
-        dev = self.device
+    def reset_transfer_stats(self) -> None:
+        self.transfer_bytes = 0
+        self.launches = 0
+
+    # ------------------------------------------------- host <-> device
+    def _to_device(self, x) -> torch.Tensor:
+        """A host array or tensor on the engine's device; on CUDA through a
+        pinned buffer, so the copy does not wait for queued work."""
+        t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+        if self.device.type != "cuda" or t.device.type == "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _stage(self, x) -> _Staged:
+        """Enqueue the copy of a tensor (or a NamedTuple of tensors) to the
+        host without waiting for it."""
+        cls = type(x) if isinstance(x, tuple) else None
+        fields = list(x) if cls is not None else [x]
+        if self.device.type != "cuda":
+            return _Staged(host=[f.detach() for f in fields], event=None, cls=cls)
+        host = [torch.empty(f.shape, dtype=f.dtype, pin_memory=True).copy_(
+            f, non_blocking=True) for f in fields]
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return _Staged(host=host, event=event, cls=cls)
+
+    def _sync(self, x):
+        """The engine's one device-to-host sync point: waits for a staged
+        copy (or stages and waits for ``x``) and counts its bytes into
+        ``transfer_bytes``.  Returns numpy arrays in ``x``'s structure."""
+        st = x if isinstance(x, _Staged) else self._stage(x)
+        if st.event is not None:
+            st.event.synchronize()
+        arrs = [h.numpy() for h in st.host]
+        self.transfer_bytes += sum(a.nbytes for a in arrs)
+        return st.cls(*arrs) if st.cls is not None else arrs[0]
+
+    # ----------------------------------------------------------- execution
+    def _padded_request_tables(self, req: SearchRequest, pad_w: int) -> tuple:
+        """One request's table leaves (numpy), zero-padded along W to the
+        plan width: a zero row fits everywhere and adds 0 to the max over
+        workloads, so padding cannot move a real score."""
+        key = (req.ws.fingerprint(), req.tech, pad_w, space.grid_token())
+        hit = self._padded_tables.get(key)
+        if hit is None:
+            leaves = [leaf.numpy() for leaf in req.ws.tables(req.tech)]
+            extra = pad_w - leaves[0].shape[0]
+            if extra:
+                leaves = [np.pad(leaf, [(0, extra)] + [(0, 0)] * (leaf.ndim - 1))
+                          for leaf in leaves]
+            hit = self._padded_tables[key] = tuple(leaves)
+        return hit
+
+    def _tables(self, reqs: Sequence[SearchRequest], W: int, tech: TechParams):
+        """The slot-stacked tables (leaves (S, W, ...)) on the device."""
+        key = (tuple(r.ws.fingerprint() for r in reqs), W, tech, space.grid_token())
+        hit = self._stacked_tables.get(key)
+        if hit is None:
+            per = [self._padded_request_tables(r, W) for r in reqs]
+            hit = WorkloadTables(*(self._to_device(np.stack([t[f] for t in per]))
+                                   for f in range(len(per[0]))))
+            self._stacked_tables[key] = hit
+        return hit
+
+    def _packed(self, reqs: Sequence[SearchRequest], W: int, L: int):
+        """Slot-packed feats (S, W, L, 6) and mask (S, W, L) on the device,
+        zero-padded and masked past each request's own shape."""
+        key = (tuple(r.ws.fingerprint() for r in reqs), W, L)
+        hit = self._packed_workloads.get(key)
+        if hit is None:
+            feats = np.zeros((len(reqs), W, L, 6), np.float32)
+            mask = np.zeros((len(reqs), W, L), bool)
+            for i, r in enumerate(reqs):
+                w, l = r.ws.feats.shape[:2]
+                feats[i, :w, :l] = r.ws.feats.cpu().numpy()
+                mask[i, :w, :l] = r.ws.mask.cpu().numpy()
+            hit = self._packed_workloads[key] = (self._to_device(feats),
+                                                 self._to_device(mask))
+        return hit
+
+    def execute(self, plan: BatchPlan, *,
+                on_progress: Optional[Callable[[int, SearchResult], None]] = None,
+                ) -> List[SearchResult]:
+        """One launch (or, with ``segment_gens``, a chain of guarded
+        segments: the same bits); results in plan order.  ``on_progress(i,
+        partial)`` gets a monotone best-so-far snapshot of plan request i
+        after every segment but the last (the segmented path only)."""
+        return self.harvest(self.dispatch(plan, on_progress=on_progress))
+
+    def _segmented(self, plan: BatchPlan) -> bool:
+        k = self.segment_gens
+        return k is not None and 0 < k < int(plan.requests[0].generations)
+
+    def dispatch(self, plan: BatchPlan, *,
+                 on_progress: Optional[Callable[[int, SearchResult], None]] = None,
+                 prep: Optional[_LaunchPrep] = None) -> PendingLaunch:
+        """Seed and launch a plan without waiting for its GA: the GA (and,
+        when ``pipelined``, the thin epilogue) is enqueued and the copies of
+        its outputs to the host ride in the ``PendingLaunch``.  ``prep`` is
+        the plan's ``_prepare``, when the caller seeded it already.  The
+        segmented path runs its guarded segments here (it syncs per segment
+        by design) and leaves only the final read to ``harvest``."""
+        r0 = plan.requests[0]
+        if self._segmented(plan):
+            return self._dispatch_segmented(plan, self.segment_gens,
+                                            on_progress=on_progress)
+        if prep is None:
+            prep = self._prepare(plan)
+        self.launches += 1
+        kw = dict(pop_size=int(r0.pop_size), generations=int(r0.generations),
+                  init_genomes=prep.init, ctx=prep.ctx, u_blocks=prep.u)
+        if self.pipelined:
+            thin = run_ga_batched_thin(prep.eval_fn,
+                                       top_k=max(int(r.top_k) for r in plan.requests), **kw)
+            return PendingLaunch(plan=plan, thin=self._stage(thin),
+                                 seed_check=prep.seed_check)
+        ga = run_ga_batched(prep.eval_fn, **kw)
+        return PendingLaunch(plan=plan, ga=self._stage(ga), seed_check=prep.seed_check)
+
+    def harvest(self, pending: PendingLaunch) -> List[SearchResult]:
+        """Wait for a dispatched plan's outputs, finalize them, and put the
+        finished results into the cache: the host half of ``execute``."""
+        if pending.seed_check is not None:
+            pending.seed_check()
+        if pending.results is not None:
+            results = pending.results
+        elif pending.thin is not None:
+            results = _finalize_batch_thin(self._sync(pending.thin), pending.plan.requests)
+        else:
+            results = _finalize_batch(self._sync(pending.ga), pending.plan.requests)
+        self._cache_completed(pending.plan, results)
+        return results
+
+    def _cache_completed(self, plan: BatchPlan, results: Sequence[SearchResult]) -> None:
+        if self.result_cache is not None:
+            for r, res in zip(plan.requests, results):
+                self.result_cache.put(r, res)
+
+    def _prepare(self, plan: BatchPlan, *, fresh: bool = True) -> _LaunchPrep:
+        """A plan's device inputs up to the GA launch: the eval ctx and,
+        when ``fresh`` (not resuming a checkpoint), the initial populations
+        and the uniform stream.  Only the seeder's rounds wait for the
+        device, one sync each."""
+        reqs = plan.requests
         r0 = reqs[0]
         backend, tech = r0.backend, r0.tech
-        P, G = int(r0.pop_size), int(r0.generations)
-        S = len(reqs)
-        W = max(r.ws.n for r in reqs)
-        L = max(int(r.ws.feats.shape[1]) for r in reqs)
-        feats = torch.zeros((S, W, L, 6), dtype=torch.float32, device=dev)
-        mask = torch.zeros((S, W, L), dtype=torch.bool, device=dev)
-        for i, r in enumerate(reqs):
-            w, l = r.ws.feats.shape[:2]
-            feats[i, :w, :l] = r.ws.feats.to(dev)
-            mask[i, :w, :l] = r.ws.mask.to(dev)
-
-        gens = [_slot_generators(r.seed, dev) for r in reqs]
-        ctx = _eval_ctx(feats, mask, tech, backend)
-        kinds = torch.tensor([OBJECTIVE_INDEX[r.objective] for r in reqs],
-                             dtype=torch.int64, device=dev)
-        areas = torch.tensor([r.area_constr for r in reqs],
-                             dtype=torch.float32, device=dev)
+        W, L = plan.pad_w, plan.pad_l
+        if backend == "table":
+            ctx: tuple = (self._tables(reqs, W, tech),)
+        else:
+            ctx = self._packed(reqs, W, L)
+        kinds = self._to_device(np.array([OBJECTIVE_INDEX[r.objective] for r in reqs],
+                                         np.int64))
+        areas = self._to_device(np.array([r.area_constr for r in reqs], np.float32))
         ctx = ctx + (kinds, areas)
+        init = u = seed_check = None
+        if fresh:
+            gens = [_slot_generators(r.seed, self.device) for r in reqs]
+            init, seed_check = self._init_populations(reqs, gens, W, L)
+            P, G = int(r0.pop_size), int(r0.generations)
+            tot = block_layout(P, space.N_GENES).tot
+            u = torch.stack([
+                torch.rand((G, tot), generator=g_ga, device=self.device)
+                if r.u_blocks is None else self._to_device(_f32(r.u_blocks))
+                for r, (_, g_ga) in zip(reqs, gens)
+            ], dim=1)  # (G, S, tot)
+        return _LaunchPrep(ctx=ctx, eval_fn=_ctx_eval(tech, backend), init=init,
+                           u=u, seed_check=seed_check)
 
-        init = self._init_populations(reqs, gens, feats, mask)
-        tot = block_layout(P, space.N_GENES).tot
-        u_blocks = torch.stack([
-            _as_tensor(r.u_blocks, dev) if r.u_blocks is not None
-            else torch.rand((G, tot), generator=g_ga, device=dev)
-            for r, (_, g_ga) in zip(reqs, gens)
-        ], dim=1)  # (G, S, tot)
-
-        self.launches += 1
-        ga = run_ga_batched(_ctx_eval(tech, backend), pop_size=P,
-                            generations=G, init_genomes=init, ctx=ctx,
-                            u_blocks=u_blocks)
-        ga_np = GAResult(*(f.cpu().numpy() for f in ga))
-        return _finalize_batch(ga_np, reqs)
-
-    def _init_populations(self, reqs, gens, feats, mask) -> torch.Tensor:
-        """Provided ``init_genomes`` are copied in; the other slots run the
-        batched largest-workload rejection seeder."""
+    def _init_populations(self, reqs, gens, W: int, L: int):
+        """(init (S, P, n), check): given ``init_genomes`` are copied in,
+        the other slots run the batched rejection seeder against the
+        slot-packed feats; ``check`` raises at harvest if one came up
+        short (``None`` when no slot was seeded)."""
         P = int(reqs[0].pop_size)
         need = [i for i, r in enumerate(reqs) if r.init_genomes is None]
-        pools = [None] * len(reqs)
+        pools: List[Optional[torch.Tensor]] = [None] * len(reqs)
+        check = None
         if need:
-            seeded = seed_population_batched(
-                [gens[i][0] for i in need], feats[need], mask[need], P,
-                tech=reqs[0].tech)
+            sub = [reqs[i] for i in need]
+            feats, mask = self._packed(sub, W, L)
+            seeded, counts = _seed_pools([gens[i][0] for i in need], feats, mask, P,
+                                         tech=reqs[0].tech)
+            staged = self._stage(counts)
+            names = [r.ws.names for r in sub]
+
+            def check(staged=staged, names=names):
+                _check_seeded(self._sync(staged), P, names)
+
             for j, i in enumerate(need):
                 pools[i] = seeded[j]
         for i, r in enumerate(reqs):
             if r.init_genomes is not None:
-                pools[i] = _as_tensor(r.init_genomes, self.device)
-        return torch.stack(pools)
+                pools[i] = self._to_device(_f32(r.init_genomes))
+        return torch.stack(pools), check
+
+    # ------------------------------------------------- segmented execution
+    def _ckpt_dir(self, plan: BatchPlan) -> Optional[Path]:
+        if self.checkpoint_dir is None:
+            return None
+        return Path(self.checkpoint_dir) / plan_key(plan, self.device)
+
+    def _partial_results(self, plan: BatchPlan, gh: Optional[np.ndarray],
+                         sh: Optional[np.ndarray]) -> List[Optional[SearchResult]]:
+        """Anytime results from the accumulated host history (``None`` per
+        request when nothing was evaluated)."""
+        if gh is None:
+            return [None] * len(plan.requests)
+        return [_finalize(_history_result(gh[i], sh[i]), r.ws.names, r.objective,
+                          r.top_k, partial=True)
+                for i, r in enumerate(plan.requests)]
+
+    def _dispatch_segmented(
+        self, plan: BatchPlan, seg: int,
+        on_progress: Optional[Callable[[int, SearchResult], None]] = None,
+    ) -> PendingLaunch:
+        """Advance the plan ``seg`` generations a launch with a NaN guard,
+        retries from the last good state, and optional checkpoints; the
+        chained segments repeat the single launch bit for bit.  After each
+        good segment but the last, ``on_progress`` gets every request's
+        best so far, finalized from the history so far (monotone).
+
+        ``pipelined`` keeps the history on the device: the guard reads one
+        byte a segment, snapshots go through the thin epilogue, and the
+        final epilogue is staged for ``harvest``.  Checkpoints and fault
+        partials read the full history at their (cold) boundaries."""
+        reqs = plan.requests
+        G = int(plan.requests[0].generations)
+        K = max(int(r.top_k) for r in reqs)
+        thin = self.pipelined
+        ck_dir = self._ckpt_dir(plan)
+
+        state: Optional[GAState] = None
+        done = 0
+        gh = sh = None  # (S, done+1, P, n) / (S, done+1, P): numpy, or device if thin
+        if ck_dir is not None and store.latest_step(ck_dir) is not None:
+            (g_, s_, u_, gen_, gh, sh), _ = store.restore(ck_dir)
+            done = int(gen_)
+            state = GAState(genomes=self._to_device(g_), scores=self._to_device(s_),
+                            u=self._to_device(u_), gen=done)
+            if thin:
+                gh, sh = self._to_device(gh), self._to_device(sh)
+
+        def host_hist():
+            if gh is None:
+                return None, None
+            if thin:
+                return self._sync(gh), self._sync(sh)
+            return gh, sh
+
+        try:
+            prep = self._prepare(plan, fresh=state is None)
+            self.launches += 1
+            if state is None:
+                if prep.seed_check is not None:
+                    prep.seed_check()
+                state = init_ga_state_batched(prep.eval_fn, prep.init, prep.u,
+                                              ctx=prep.ctx)
+                if thin:
+                    if bool(torch.isnan(state.scores).any()):
+                        raise NonFiniteScoreError("NaN scores in the seed evaluation")
+                    gh, sh = state.genomes[:, None], state.scores[:, None]
+                else:
+                    s0 = self._sync(state.scores)
+                    if np.isnan(s0).any():
+                        raise NonFiniteScoreError("NaN scores in the seed evaluation")
+                    gh, sh = self._sync(state.genomes)[:, None], s0[:, None]
+        except EngineFault:
+            raise
+        except Exception as e:
+            raise EngineFault(f"segmented launch setup failed: {e}",
+                              partials=self._partial_results(plan, *host_hist())) from e
+
+        seg_idx = 0
+        while done < G:
+            k_gens = min(seg, G - done)
+            attempt = 0
+            while True:
+                try:
+                    new_state, (hg, hs) = run_ga_batched_segment(
+                        state, prep.eval_fn, ctx=prep.ctx, generations=k_gens,
+                        total_generations=G)
+                    if thin:
+                        if bool(torch.isnan(hs).any()):
+                            raise NonFiniteScoreError(
+                                f"NaN scores in segment at generation {done}")
+                    else:
+                        hs_np = self._sync(hs)
+                        if np.isnan(hs_np).any():
+                            raise NonFiniteScoreError(
+                                f"NaN scores in segment at generation {done}")
+                        hg_np = self._sync(hg)
+                    break
+                except Exception as e:
+                    attempt += 1
+                    if attempt > self.segment_retries:
+                        raise EngineFault(
+                            f"segment at generation {done} failed after "
+                            f"{attempt} attempts: {e}",
+                            partials=self._partial_results(plan, *host_hist()),
+                            generations_done=done) from e
+                    # a retry runs again from the same (unmodified) state
+            if thin:
+                gh, sh = torch.cat([gh, hg], dim=1), torch.cat([sh, hs], dim=1)
+            else:
+                gh = np.concatenate([gh, hg_np], axis=1)
+                sh = np.concatenate([sh, hs_np], axis=1)
+            state = new_state
+            done += k_gens
+            seg_idx += 1
+            if ck_dir is not None and done < G and seg_idx % self.checkpoint_every == 0:
+                hg_ck, hs_ck = host_hist()
+                store.save(ck_dir, done, [
+                    self._sync(state.genomes), self._sync(state.scores),
+                    self._sync(state.u), np.int64(done), hg_ck, hs_ck])
+            if on_progress is not None and done < G:
+                if thin:
+                    snap = self._sync(ga_epilogue_batched(gh, sh, top_k=K))
+                    for i, res in enumerate(_finalize_batch_thin(snap, reqs, partial=True)):
+                        on_progress(i, res)
+                else:
+                    for i, r in enumerate(reqs):
+                        on_progress(i, _finalize(_history_result(gh[i], sh[i]),
+                                                 r.ws.names, r.objective, r.top_k,
+                                                 partial=True))
+
+        if ck_dir is not None:
+            store.clear(ck_dir)
+        if thin:
+            return PendingLaunch(plan=plan,
+                                 thin=self._stage(ga_epilogue_batched(gh, sh, top_k=K)))
+        return PendingLaunch(plan=plan, results=[
+            _finalize(_history_result(gh[i], sh[i]), r.ws.names, r.objective, r.top_k)
+            for i, r in enumerate(reqs)])
 
 
 _ENGINES: Dict[str, SearchEngine] = {}

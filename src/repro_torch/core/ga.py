@@ -27,12 +27,27 @@ parameter.  A callback may carry a ``gen_step`` attribute: a
 whole-generation step for its ctx (the engine attaches the
 ``ga_gen_step`` kernel wrapper to its table-backend callback), which then
 replaces the plain step below.
+
+Segments: ``GAState`` is the loop's carry as a value (population, scores,
+the run's whole uniform stream and the generations applied), and
+``run_ga_batched_segment`` advances it k generations.  The stream is drawn
+once, at init, so a segment reads ``u[gen:gen + k]``: N segments of k
+generations are the same calls on the same tensors as one run of N*k, bit
+for bit, and a checkpointed state restores the same stream on any device.
+
+The thin epilogue (``ga_epilogue_batched``) reduces a history on the
+device to each search's best unique designs and its convergence curve, so
+a launch brings back (B, K, n) genomes instead of (B, G+1, P, n).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Optional, Sequence
+import math
+from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+
+from repro_torch.core import space
 
 SBX_PROB = 0.95
 SBX_ETA = 3.0
@@ -45,6 +60,31 @@ class GAResult(NamedTuple):
     scores: torch.Tensor  # (B, G+1, P)
     best_genome: torch.Tensor  # (B, n)
     best_score: torch.Tensor  # (B,)
+
+
+class GAState(NamedTuple):
+    """The GA loop's carry as a resumable value.  ``u`` is the run's whole
+    uniform stream, drawn once at init; ``gen`` counts the generations
+    applied (a host int).  Batched states carry a leading B axis on
+    ``genomes`` and ``scores`` and hold ``u`` as (G, B, tot), the layout
+    ``run_ga_batched`` takes."""
+
+    genomes: torch.Tensor  # (B, P, n) current population
+    scores: torch.Tensor  # (B, P)
+    u: torch.Tensor  # (G, B, tot) every generation's uniform block
+    gen: int  # generations completed so far
+
+
+class GAThin(NamedTuple):
+    """What a launch brings back instead of its history: per search the
+    best ``min(top_k, (G+1)*P)`` designs that are unique by decoded grid
+    cell, best first (rows past ``n_kept`` are padding: genome 0, score
+    +inf), and the best-so-far score per generation."""
+
+    top_genomes: torch.Tensor  # (B, K, n)
+    top_scores: torch.Tensor  # (B, K)
+    n_kept: torch.Tensor  # (B,) int64
+    convergence: torch.Tensor  # (B, G+1)
 
 
 class BlockLayout(NamedTuple):
@@ -200,6 +240,66 @@ def draw_u_blocks(generators: Sequence[torch.Generator], generations: int,
     ], dim=1)
 
 
+def _stream(u_blocks, generators, G: int, B: int, tot: int, dev) -> torch.Tensor:
+    """The run's (G, B, tot) uniform stream: ``u_blocks`` checked and moved
+    to ``dev``, or drawn from one generator per search."""
+    if u_blocks is None:
+        if generators is None or len(generators) != B:
+            raise ValueError("pass u_blocks (G, B, tot) or one generator per search")
+        u_blocks = draw_u_blocks(generators, G, tot, dev)
+    if tuple(u_blocks.shape) != (G, B, tot):
+        raise ValueError(f"u_blocks must be {(G, B, tot)}, got {tuple(u_blocks.shape)}")
+    return u_blocks.to(device=dev, dtype=torch.float32)
+
+
+def init_ga_state_batched(eval_fn: Callable, init_genomes: torch.Tensor,
+                          u_blocks: torch.Tensor, ctx: Any = None) -> GAState:
+    """Score the seed populations (B, P, n) into a ``GAState`` at
+    generation 0 that carries the run's stream ``u_blocks`` (G, B, tot).
+    ``init_genomes`` is copied, never modified."""
+    B, P, n = init_genomes.shape
+    tot = block_layout(P, n).tot
+    if u_blocks.dim() != 3 or u_blocks.shape[1:] != (B, tot):
+        raise ValueError(f"u_blocks must be (G, {B}, {tot}), got {tuple(u_blocks.shape)}")
+    pop = init_genomes.to(torch.float32).clone()
+    return GAState(genomes=pop, scores=eval_fn(pop, ctx),
+                   u=u_blocks.to(device=pop.device, dtype=torch.float32), gen=0)
+
+
+def run_ga_batched_segment(
+    state: GAState,
+    eval_fn: Callable,
+    *,
+    generations: int,
+    total_generations: int,
+    ctx: Any = None,
+    sbx_prob: float = SBX_PROB,
+    sbx_eta: float = SBX_ETA,
+    mut_eta: float = MUT_ETA,
+) -> Tuple[GAState, Tuple[torch.Tensor, torch.Tensor]]:
+    """Advance ``generations`` (k) generations from ``state``: returns
+    ``(new_state, (children (B, k, P, n), child_scores (B, k, P)))``.
+    Generation g reads ``state.u[g]``, so chained segments covering the
+    budget repeat ``run_ga_batched`` of ``total_generations`` bit for bit.
+    ``state`` is not modified; a failed segment can run again from it."""
+    k, G, g0 = int(generations), int(total_generations), int(state.gen)
+    if state.u.shape[0] != G:
+        raise ValueError(f"state carries {state.u.shape[0]} generations' blocks, "
+                         f"total_generations={G}")
+    if k < 1 or g0 + k > G:
+        raise ValueError(f"segment of {k} from generation {g0} exceeds {G}")
+    gen = make_gen_step(eval_fn, ctx, sbx_prob=sbx_prob, sbx_eta=sbx_eta,
+                        mut_eta=mut_eta)
+    pop, scores = state.genomes, state.scores
+    hist_g, hist_s = [], []
+    for g in range(g0, g0 + k):
+        pop, scores, children, child_scores = gen(pop, scores, state.u[g])
+        hist_g.append(children)
+        hist_s.append(child_scores)
+    new = GAState(genomes=pop, scores=scores, u=state.u, gen=g0 + k)
+    return new, (torch.stack(hist_g, dim=1), torch.stack(hist_s, dim=1))
+
+
 def run_ga_batched(
     eval_fn: Callable,
     *,
@@ -216,41 +316,101 @@ def run_ga_batched(
     """B independent GAs.  ``init_genomes`` (B, P, n) (not modified);
     every leaf of ``ctx`` carries a leading B axis.  Randomness comes from
     ``u_blocks`` (G, B, tot) or, when absent, from one ``generators``
-    entry per search.  Lower score = better."""
+    entry per search.  Lower score = better.  One segment of the whole
+    budget from a fresh ``GAState``."""
     B, P, n = init_genomes.shape
     if P != int(pop_size):
         raise ValueError(f"init_genomes holds {P} genomes, pop_size={pop_size}")
     G = int(generations)
-    tot = block_layout(P, n).tot
-    dev = init_genomes.device
-    if u_blocks is None:
-        if generators is None or len(generators) != B:
-            raise ValueError("pass u_blocks (G, B, tot) or one generator per search")
-        u_blocks = draw_u_blocks(generators, G, tot, dev)
-    if tuple(u_blocks.shape) != (G, B, tot):
-        raise ValueError(f"u_blocks must be {(G, B, tot)}, got {tuple(u_blocks.shape)}")
-    u_blocks = u_blocks.to(device=dev, dtype=torch.float32)
-
-    pop = init_genomes.to(torch.float32).clone()
-    scores = eval_fn(pop, ctx)
-    gen = make_gen_step(eval_fn, ctx, sbx_prob=sbx_prob, sbx_eta=sbx_eta,
-                        mut_eta=mut_eta)
-    hist_g, hist_s = [pop], [scores]
-    for g in range(G):
-        pop, scores, children, child_scores = gen(pop, scores, u_blocks[g])
-        hist_g.append(children)
-        hist_s.append(child_scores)
-    genomes = torch.stack(hist_g, dim=1)  # (B, G+1, P, n)
-    scores_h = torch.stack(hist_s, dim=1)  # (B, G+1, P)
+    u = _stream(u_blocks, generators, G, B, block_layout(P, n).tot,
+                init_genomes.device)
+    state = init_ga_state_batched(eval_fn, init_genomes, u, ctx)
+    hg = [state.genomes[:, None]]
+    hs = [state.scores[:, None]]
+    if G:
+        _, (g, s) = run_ga_batched_segment(
+            state, eval_fn, generations=G, total_generations=G, ctx=ctx,
+            sbx_prob=sbx_prob, sbx_eta=sbx_eta, mut_eta=mut_eta)
+        hg.append(g)
+        hs.append(s)
+    genomes = torch.cat(hg, dim=1)  # (B, G+1, P, n)
+    scores_h = torch.cat(hs, dim=1)  # (B, G+1, P)
     flat_s = scores_h.reshape(B, -1)
     best = torch.argmin(flat_s, dim=1)
-    bidx = torch.arange(B, device=dev)
+    bidx = torch.arange(B, device=genomes.device)
     return GAResult(
         genomes=genomes,
         scores=scores_h,
         best_genome=genomes.reshape(B, -1, n)[bidx, best],
         best_score=flat_s[bidx, best],
     )
+
+
+# ------------------------------------------------------- thin epilogue
+def _cell_codes(genomes: torch.Tensor) -> torch.Tensor:
+    """(..., n) genomes -> one int64 mixed-radix code of the decoded grid
+    cell per design (injective; the host ``engine._top_unique`` code)."""
+    idx = space.decode_indices(genomes)
+    sizes = space.GRID_SIZES.astype(np.int64)
+    strides = np.concatenate([np.cumprod(sizes[::-1])[::-1][1:], np.ones(1, np.int64)])
+    code = idx[..., 0] * int(strides[0])
+    for j in range(1, idx.shape[-1]):
+        code = code + idx[..., j] * int(strides[j])
+    return code
+
+
+_SENTINEL = torch.iinfo(torch.int64).max
+
+
+def ga_epilogue_batched(genomes_hist: torch.Tensor, scores_hist: torch.Tensor,
+                        *, top_k: int) -> GAThin:
+    """The thin epilogue over (B, G+1, P, n) / (B, G+1, P) histories, on
+    their device: per search, the host's ``_top_unique`` over its whole
+    history (stable score order, each decoded grid cell's first (best)
+    occurrence, non-finite scores dropped, the best ``top_k`` of those)
+    and the best-so-far curve.
+
+    Every design gets the unique key ``order_keys(score) * 2^32 + flat
+    index``, whose ascending order is numpy's stable argsort of the scores
+    (both zero signs fold to 0), or the sentinel when its score is not
+    finite (a cell's non-finite occurrences sort after its finite ones on
+    the host, so dropping them first keeps the same occurrence).  Sorting
+    by key and then, stably, by cell code puts each cell's best
+    occurrence first in its run; those firsts, sorted by key again, are
+    the selection in the host's order."""
+    B, G1, P, n = genomes_hist.shape
+    N = G1 * P
+    flat_g = genomes_hist.reshape(B, N, n)
+    flat_s = scores_hist.reshape(B, N)
+    iota = torch.arange(N, device=flat_s.device, dtype=torch.int64)
+    key = order_keys(flat_s).to(torch.int64) * (1 << 32) + iota
+    key = torch.where(torch.isfinite(flat_s), key, _SENTINEL)
+    codes = _cell_codes(flat_g)
+    by_key = torch.argsort(key, dim=1)  # keys are unique below the sentinel
+    by_cell = torch.gather(by_key, 1, torch.argsort(
+        torch.gather(codes, 1, by_key), dim=1, stable=True))
+    c = torch.gather(codes, 1, by_cell)
+    first = torch.ones_like(c, dtype=torch.bool)
+    first[:, 1:] = c[:, 1:] != c[:, :-1]
+    cand = torch.where(first, torch.gather(key, 1, by_cell), _SENTINEL)
+    K = min(int(top_k), N)
+    sel_key, sel = torch.sort(cand, dim=1, stable=True)
+    sel_key, sel = sel_key[:, :K], sel[:, :K]
+    keep = sel_key < _SENTINEL
+    j = torch.gather(by_cell, 1, sel)
+    top_g = torch.where(keep[..., None], _rows(flat_g, j), 0.0)
+    top_s = torch.where(keep, torch.gather(flat_s, 1, j), math.inf)
+    conv = torch.cummin(scores_hist.amin(dim=2), dim=1).values
+    return GAThin(top_genomes=top_g, top_scores=top_s,
+                  n_kept=keep.sum(dim=1), convergence=conv)
+
+
+def run_ga_batched_thin(eval_fn: Callable, *, top_k: int, **kw) -> GAThin:
+    """``run_ga_batched`` followed by the thin epilogue on the same device:
+    the selection and convergence equal the host finalize of the history,
+    which itself never leaves the device."""
+    res = run_ga_batched(eval_fn, **kw)
+    return ga_epilogue_batched(res.genomes, res.scores, top_k=top_k)
 
 
 def _add_batch(tree):
@@ -287,3 +447,22 @@ def run_ga(
     )
     return GAResult(*(f[0] for f in res))
 
+
+def init_ga_state(eval_fn: Callable, init_genomes: torch.Tensor,
+                  u_blocks: torch.Tensor, ctx: Any = ()) -> GAState:
+    """``init_ga_state_batched`` for one search: ``init_genomes`` (P, n),
+    ``u_blocks`` (G, tot), ``ctx`` unbatched.  The state keeps its batch
+    axis of 1; pass it on to ``run_ga_segment``."""
+    return init_ga_state_batched(eval_fn, init_genomes[None], u_blocks[:, None],
+                                 _add_batch(ctx))
+
+
+def run_ga_segment(state: GAState, eval_fn: Callable, *, generations: int,
+                   total_generations: int, ctx: Any = (), **kw
+                   ) -> Tuple[GAState, Tuple[torch.Tensor, torch.Tensor]]:
+    """``run_ga_batched_segment`` for a state from ``init_ga_state``:
+    histories come back as (k, P, n) / (k, P)."""
+    new, (g, s) = run_ga_batched_segment(
+        state, eval_fn, generations=generations,
+        total_generations=total_generations, ctx=_add_batch(ctx), **kw)
+    return new, (g[0], s[0])

@@ -12,6 +12,30 @@ per-workload baselines, whose winners are re-scored on the whole set.
 ``kernel`` (its layer sums from the ``imc_eval`` CUDA kernel) or
 ``table`` (factorized grid tables; every generation on the card is one
 ``ga_gen_step`` kernel launch).  ``--device`` defaults to ``cuda``.
+
+``--serve N`` runs the DSE service instead: N heterogeneous requests
+(workload subsets x objectives x seeds over the selected set,
+``serve.dse.paper_request_mix``) are queued and drained, slot-packed,
+through one ``SearchEngine``; each request's best prints as its launch
+lands, then a requests/s and latency-percentile summary:
+
+    PYTHONPATH=src python -m repro_torch.launch.search --serve 256 --backend table
+
+``--serve-policy priority|edf`` schedules by request priority (mixed
+priorities are cycled into the mix) or earliest deadline, and
+``--serve-async`` drains through the threaded ``AsyncDSEService``.
+``--pipelined`` runs the thin path (the top designs are picked on the
+device; only they and the convergence curve come back) and, under
+``--serve``, dispatches plan i+1 before harvesting plan i.
+``--segment-gens K`` runs every search as segments of K generations (the
+same bits) with a NaN guard and ``--segment-retries``;
+``--checkpoint-dir DIR`` saves segment boundaries, so a killed run
+resumes.  ``--retry-attempts`` / ``--retry-backoff`` arm the service's
+retry lane, ``--partial-results`` resolves quarantined or late requests
+with their best so far, ``--result-cache DIR`` answers requests seen
+before (this process or an earlier one over DIR, on the same device)
+with no launch, and ``--stream-progress`` prints each request's best so
+far after every segment.
 """
 from __future__ import annotations
 
@@ -24,6 +48,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch.core.engine import SearchEngine
 from repro_torch.core.search import (
     joint_search_batched,
     rescore_designs,
@@ -31,6 +56,8 @@ from repro_torch.core.search import (
 )
 from repro_torch.core.objectives import OBJECTIVES
 from repro_torch.device import resolve_device
+from repro_torch.serve.cache import ResultCache
+from repro_torch.serve.dse import AsyncDSEService, DSEService, RetryPolicy, paper_request_mix
 from repro_torch.workloads.cnn import PAPER_WORKLOADS, cnn_workload
 from repro_torch.workloads.pack import WorkloadSet, pack_workloads
 
@@ -38,6 +65,139 @@ from repro_torch.workloads.pack import WorkloadSet, pack_workloads
 def build_workloads(args) -> WorkloadSet:
     names = [n for n in args.workloads.split(",") if n] or list(PAPER_WORKLOADS)
     return pack_workloads([(n, cnn_workload(n)) for n in names])
+
+
+def _fmt(v, spec: str = ".2f") -> str:
+    """A possibly-``None`` percentile (empty sample window)."""
+    return "n/a" if v is None else f"{v:{spec}}"
+
+
+def build_engine(args, dev, result_cache=None):
+    """A ``SearchEngine`` with the knobs when one is set, else ``None``
+    (the search functions then use the shared engine; the service builds
+    its own around ``result_cache``)."""
+    if not (args.segment_gens or args.checkpoint_dir or args.pipelined):
+        return None
+    # checkpoints are written at segment boundaries: a checkpoint dir
+    # without a segment length gets 1-generation segments
+    return SearchEngine(
+        device=dev,
+        segment_gens=args.segment_gens or (1 if args.checkpoint_dir else None),
+        segment_retries=args.segment_retries,
+        checkpoint_dir=args.checkpoint_dir or None,
+        result_cache=result_cache,
+        pipelined=args.pipelined,
+    )
+
+
+def _best(res) -> str:
+    return f"{res.top_scores[0]:.4g}" if len(res.top_scores) else "infeasible"
+
+
+def serve(args, ws: WorkloadSet, dev) -> int:
+    """``--serve N``: drain N mixed requests through the DSE service."""
+    cache = None
+    if args.result_cache:
+        cache = ResultCache(disk_dir=args.result_cache, device=dev)
+        print(f"[serve] result cache armed ({len(cache.disk_keys())} "
+              f"entries on disk under {args.result_cache})")
+    if args.stream_progress and not (args.segment_gens or args.checkpoint_dir):
+        # streaming needs segment boundaries; segments change no result
+        args.segment_gens = 2
+        print("[serve] --stream-progress: defaulting --segment-gens 2")
+    engine = build_engine(args, dev, result_cache=cache)
+    on_progress = None
+    if args.stream_progress:
+        def on_progress(rid, snap):
+            print(f"[serve] rid {rid} partial @gen {snap.generations}: "
+                  f"best-so-far {_best(snap)}")
+    retry = None
+    if args.retry_attempts > 1:
+        retry = RetryPolicy(max_attempts=args.retry_attempts,
+                            backoff_s=args.retry_backoff)
+    svc_kw = dict(engine=engine, device=dev, policy=args.serve_policy,
+                  retry=retry, partial_results=args.partial_results,
+                  result_cache=cache, pipelined=args.pipelined or None)
+    mix_kw = {}
+    if args.serve_policy == "priority":
+        mix_kw["priorities"] = [3, 0, 1, 2]
+    elif args.serve_policy == "edf":
+        mix_kw["deadlines_s"] = [5.0, 60.0, 30.0, None]
+    reqs = paper_request_mix(ws, args.serve, backend=args.backend, pop_size=args.pop,
+                             generations=args.gens, area_constr=args.area, **mix_kw)
+    results = {}
+    t0 = time.perf_counter()
+    if args.serve_async:
+        with AsyncDSEService(**svc_kw) as svc:
+            futs = [svc.submit(r, on_progress=on_progress) for r in reqs]
+            print(f"[serve] {args.serve} heterogeneous requests submitted "
+                  f"async (policy={args.serve_policy}, backend={args.backend}, "
+                  f"slots={svc.service.engine.max_slots})")
+            for fut in futs:
+                res = results[fut.rid] = fut.result()
+                print(f"[serve] rid {fut.rid}: {res.objective} on "
+                      f"{','.join(res.workload_names)} -> best={_best(res)}")
+        stats, eng = svc.stats, svc.service.engine
+    else:
+        svc = DSEService(**svc_kw)
+        rids = [svc.submit(r, on_progress=on_progress) for r in reqs]
+        print(f"[serve] {args.serve} heterogeneous requests queued "
+              f"(policy={args.serve_policy}, backend={args.backend}, "
+              f"slots={svc.engine.max_slots})")
+        # cache hits resolved at submit never reach the queue
+        for rid in rids:
+            res = svc.results.get(rid)
+            if res is not None:
+                results[rid] = res
+                print(f"[serve] rid {rid}: {res.objective} on "
+                      f"{','.join(res.workload_names)} -> best={_best(res)} "
+                      f"(cache hit)")
+        for rid, res in svc.stream():
+            results[rid] = res
+            print(f"[serve] rid {rid}: {res.objective} on "
+                  f"{','.join(res.workload_names)} -> best={_best(res)}")
+        stats, eng = svc.stats, svc.engine
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    n_evald = args.serve * args.pop * (args.gens + 1)
+    print(f"[serve] drained {len(results)} requests in {dt:.1f}s "
+          f"({len(results) / dt:.1f} req/s, {n_evald / dt:.0f} designs/s, "
+          f"{stats.launches} launches, wait p50/p99 "
+          f"{_fmt(stats.wait_p(50))}/{_fmt(stats.wait_p(99))}s, "
+          f"latency p50/p99 {_fmt(stats.latency_p(50))}/"
+          f"{_fmt(stats.latency_p(99))}s, "
+          f"{stats.deadline_misses} deadline misses)")
+    print(f"[serve] faults: {stats.failures} failures, {stats.retries} "
+          f"retries, {stats.partials} partials, {stats.abandoned} abandoned")
+    print(f"[serve] overlap: pipelined={'on' if args.pipelined else 'off'}, "
+          f"dispatch->harvest gap p50 "
+          f"{_fmt(stats.dispatch_gap_p(50), '.4f')}s, device idle "
+          f"{stats.device_idle_s:.3f}s, "
+          f"{getattr(eng, 'transfer_bytes', 0)} bytes harvested over "
+          f"{getattr(eng, 'launches', 0)} engine launches")
+    if cache is not None:
+        print(f"[serve] cache: {stats.cache_hits} submit hits / "
+              f"{stats.cache_misses} misses this drain "
+              f"(hit rate {stats.cache_hit_rate():.1%}); tiers: "
+              f"{cache.stats.summary()}")
+    if args.out:
+        payload = [
+            {
+                "rid": rid,
+                "objective": res.objective,
+                "workloads": list(res.workload_names),
+                "best": float(res.top_scores[0]) if len(res.top_scores) else None,
+                "best_design": res.top_designs[0] if res.top_designs else None,
+                "top_scores": [float(v) for v in res.top_scores],
+            }
+            for rid, res in sorted(results.items())
+        ]
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(payload, f, indent=1)
+        print(f"[serve] wrote {args.out}")
+    return 0
 
 
 def main(argv=None) -> int:
@@ -56,6 +216,58 @@ def main(argv=None) -> int:
     ap.add_argument("--separate", action="store_true",
                     help="also run per-workload baselines")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument(
+        "--serve", type=int, default=0, metavar="N",
+        help="run the DSE service on N heterogeneous requests (mixed "
+             "workload subsets / objectives / seeds) instead of the search",
+    )
+    ap.add_argument(
+        "--serve-policy", default="fifo", choices=["fifo", "priority", "edf"],
+        help="--serve scheduling policy; priority/edf cycle mixed "
+             "priorities / deadlines into the request mix",
+    )
+    ap.add_argument("--serve-async", action="store_true",
+                    help="drain --serve through the threaded AsyncDSEService")
+    ap.add_argument(
+        "--pipelined", action="store_true",
+        help="thin path: the top designs are picked on the device and only "
+             "they come back (result.ga is None); under --serve, dispatch "
+             "plan i+1 before harvesting plan i; the same results",
+    )
+    ap.add_argument(
+        "--segment-gens", type=int, default=0, metavar="K",
+        help="run each search as segments of K generations (the same bits) "
+             "with a NaN guard; 0 = one launch",
+    )
+    ap.add_argument("--segment-retries", type=int, default=1,
+                    help="retries of a failed segment from the last good state")
+    ap.add_argument(
+        "--checkpoint-dir", default="", metavar="DIR",
+        help="save segment boundaries under DIR; the same plan run again "
+             "resumes (1-generation segments unless --segment-gens is set)",
+    )
+    ap.add_argument(
+        "--retry-attempts", type=int, default=0, metavar="N",
+        help="--serve: launch attempts per request before it is abandoned "
+             "(failed chunks re-plan each member alone); <2 disables retries",
+    )
+    ap.add_argument("--retry-backoff", type=float, default=0.5, metavar="S",
+                    help="--serve: base retry backoff in seconds")
+    ap.add_argument(
+        "--partial-results", action="store_true",
+        help="--serve: resolve quarantined / past-deadline requests with "
+             "their best so far (partial=True) instead of dropping them",
+    )
+    ap.add_argument(
+        "--result-cache", default="", metavar="DIR",
+        help="--serve: result cache with a disk tier under DIR; a request "
+             "answered before on this device resolves with no launch",
+    )
+    ap.add_argument(
+        "--stream-progress", action="store_true",
+        help="--serve: print each request's best so far after every "
+             "segment (--segment-gens 2 unless a boundary is set)",
+    )
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
 
@@ -66,10 +278,12 @@ def main(argv=None) -> int:
     ws = build_workloads(args)
     print(f"[search] workloads: {ws.names} (L_max={ws.feats.shape[1]}) "
           f"on {dev} ({name})")
+    if args.serve:
+        return serve(args, ws, dev)
 
     kw = dict(objective=args.objective, area_constr=args.area,
               pop_size=args.pop, generations=args.gens,
-              backend=args.backend, device=dev)
+              backend=args.backend, device=dev, engine=build_engine(args, dev))
     t0 = time.perf_counter()
     ress = joint_search_batched(list(range(args.seeds)), ws, **kw)
     dt_all = time.perf_counter() - t0

@@ -226,6 +226,94 @@ def test_table_and_kernel_backends_agree_on_card(cuda, ws):
     np.testing.assert_allclose(sa[np.isfinite(sa)], sb[np.isfinite(sb)], rtol=1e-5)
 
 
+# ------------------------------------------------------------ DSE service
+# the workload subsets of serve.dse.paper_request_mix over the 4 CNNs
+_SERVE_SUBSETS = [[0, 1, 2, 3], [0], [1], [2], [3], [0, 1], [1, 2], [2, 3], [3, 0]]
+
+
+def test_ga_gen_step_64_mixed_slots_match_each_alone(cuda, ws):
+    """A service plan's shape: 64 searches over W=1, 2 and 4 sets, tables
+    zero-padded to W=4.  The batch's 3 chained generations equal the plain
+    version's on the same inputs, and every slot's equal the same search
+    run alone on its own unpadded tables, bit for bit."""
+    subsets = [_SERVE_SUBSETS[i % 9] for i in range(64)]
+    ctx, pop, scores, u = _b2_case(cuda, ws, 40, subsets, 64)
+    tables, kind, area = ctx
+    batch = [(pop, scores)]
+    for g in range(3):
+        batch.append(ga_gen_step(*batch[-1], u[g], ctx)[:2])
+        plain = gref.ga_gen_step_ref(*batch[-2], u[g], *ctx)[:2]
+        for a, c in zip(plain, batch[-1]):
+            assert torch.equal(a.view(torch.int32), c.view(torch.int32))
+    for b, sub in enumerate(subsets):
+        own = WorkloadTables(*(leaf[b:b + 1, :len(sub)].contiguous() for leaf in tables))
+        one = (pop[b:b + 1], gref.table_scores(pop[b:b + 1], own, kind[b:b + 1],
+                                               area[b:b + 1]))
+        assert torch.equal(one[1][0].view(torch.int32), scores[b].view(torch.int32))
+        for g in range(3):
+            one = ga_gen_step(*one, u[g, b:b + 1].contiguous(),
+                              (own, kind[b:b + 1], area[b:b + 1]))[:2]
+            for a, c in zip(one, batch[g + 1]):
+                assert torch.equal(a[0].view(torch.int32), c[b].view(torch.int32))
+
+
+def test_imc_eval_service_groups_match_each_alone(cuda, ws):
+    """The service's --backend kernel groups (W=4 x 8, W=1 x 28, W=2 x 28
+    searches): each search's sums equal the same search alone (B=1)."""
+    for W, B in ((4, 8), (1, 28), (2, 28)):
+        subs = [s for s in _SERVE_SUBSETS if len(s) == W]
+        idx = torch.tensor([subs[b % len(subs)] for b in range(B)])
+        feats, mask = ws.feats[idx].to(cuda), ws.mask[idx].to(cuda)
+        g = torch.rand((B, 40, space.N_GENES), generator=_gen(cuda, W), device=cuda)
+        designs = torch.stack(list(space.decode(g)), dim=-1)
+        big = imc_eval_multi(designs, feats, mask)
+        for b in range(B):
+            one = imc_eval_multi(designs[b:b + 1].contiguous(), feats[b:b + 1].contiguous(),
+                                 mask[b:b + 1].contiguous())
+            for a, c in zip(one, big):
+                assert torch.equal(a[0], c[b])
+
+
+@pytest.mark.parametrize("backend", ["table", "kernel"])
+def test_service_pipelined_equals_sequential_on_card(cuda, ws, backend):
+    """A pipelined drain of the service's mix equals the sequential drain
+    on every result field and brings fewer bytes to the host."""
+    from repro_torch.core.engine import SearchEngine
+    from repro_torch.serve.dse import DSEService, paper_request_mix
+
+    reqs = paper_request_mix(ws, 72, backend=backend, pop_size=40, generations=4)
+    out, nbytes = {}, {}
+    for pipelined in (False, True):
+        eng = SearchEngine(device=cuda, pipelined=pipelined)
+        svc = DSEService(engine=eng)
+        rids = svc.submit_all(reqs)
+        res = svc.drain()
+        out[pipelined] = [res[r] for r in rids]
+        nbytes[pipelined] = eng.transfer_bytes
+    assert nbytes[True] < nbytes[False]
+    for a, b in zip(out[False], out[True]):
+        assert b.ga is None
+        np.testing.assert_array_equal(a.top_scores, b.top_scores)
+        np.testing.assert_array_equal(a.top_genomes, b.top_genomes)
+        np.testing.assert_array_equal(a.convergence, b.convergence)
+        assert a.top_designs == b.top_designs and a.valid == b.valid
+
+
+def test_async_service_worker_keeps_the_card(cuda, ws):
+    """The async front end's worker thread runs on the building thread's
+    card and answers every future with the sequential drain's bits."""
+    from repro_torch.core.engine import SearchEngine
+    from repro_torch.serve.dse import AsyncDSEService, paper_request_mix
+
+    reqs = paper_request_mix(ws, 12, backend="table", pop_size=16, generations=2)
+    ref = SearchEngine(device=cuda).run(reqs)
+    with AsyncDSEService(engine=SearchEngine(device=cuda), policy="priority") as svc:
+        got = [f.result(timeout=300) for f in [svc.submit(r) for r in reqs]]
+    for a, b in zip(ref, got):
+        np.testing.assert_array_equal(a.top_scores, b.top_scores)
+        assert a.top_designs == b.top_designs
+
+
 # ------------------------------------------------------------- LM kernels
 @pytest.mark.parametrize("B,Sq,Skv,H,KV,D,window,q_offset,dtype", [
     (1, 128, 128, 32, 8, 64, 0, 0, torch.bfloat16),
