@@ -18,7 +18,9 @@ first fault exits non-zero and prints no result:
      W=3, ragged masks, integer layer features), around the kernel's tiles
      (W=1, L in {1, 31, 32, 33, 64, 65} x P in {1, 7, 8, 9}) and at a
      large population (B=16, P=4096), where the kernel gives each design
-     fewer lanes: 40 of its designs must keep their bits at B=1;
+     fewer lanes: 40 of its designs must keep their bits at B=1; and at an
+     LM workload's depth (qwen3-moe-235b decode, L=36,567, P=40) within
+     ``B1_DEEP_RTOL``;
   4. ga_gen_step against the plain generation step on the card, fed the
      same uniform blocks and tables: P in ``B2_POPS`` (1 to 1024, both
      sides of the rank-by-counting / bitonic survival threshold; the path
@@ -72,13 +74,35 @@ first fault exits non-zero and prints no result:
      sampled requests run alone give the same bits; then sequential and
      pipelined drains of the 256 table requests (equal bits, fewer bytes
      to the host when pipelined; requests/s, wait and latency p50/p99 and
-     launches logged), ``SearchEngine.run`` over the same requests in
-     both modes (equal bits; timed), the seeder alone (timed), segmented
-     drains, a drain
+     launches logged; per pipelined dispatch, the host seconds it spent in
+     the seeder and whether the plan before's staged outputs were complete
+     when it returned), ``SearchEngine.run`` over the same requests in
+     both modes (equal bits; timed), the seeder alone on the engine's
+     seeding stream and on the current stream (the same pools; timed),
+     segmented drains, a drain
      killed after its first checkpoint and resumed (the same bits, 8
      generations after the resume), a second ``--result-cache`` drain (0
      launches, equal results), the async front end under the priority
      policy, and one traced drain per engine mode (device idle share);
+ 9b. the rest of the search path at the paper's configuration (4 CNNs,
+     pop 40, 10 generations, 8 seeds), every launch count set to 0 before
+     each run: the weighted objective over ``OBJECTIVE_WEIGHTS``' four rows
+     on ``kernel`` (B1) and ``table`` (no kernel: B2 takes the indexed
+     objective only), each best re-scoring to itself on the dense path and
+     weights (1, 1, 1) giving the ``ela`` bits; ``--objective pareto
+     --pareto-k 10`` through the CLI on both backends, and Pareto engine
+     runs whose members are feasible, re-score to their vectors (rtol
+     1e-5), are dominated by no later member, and are the same bits
+     sequential and pipelined; direct-seeded table searches (every seed
+     fits and is V/f-valid; two runs equal); the service's 64-request mix
+     turned Pareto, drained sequential and pipelined (equal bits);
+     NSGA-II survival (2P = 80) and the front epilogue (440) timed; and LM
+     layers as workloads: ``llama3.2-1b,mixtral-8x7b`` decode must stop in
+     the seeder (mixtral fits no design, as in the JAX package), and
+     ``llama3.2-1b,mamba2-780m`` decode at 12,000 mm^2 runs on ``table``
+     through ``SearchEngine(direct_seed=True)`` (B2), and the mix of
+     ``repro_torch.examples.lm_hw_cosearch`` through that example on
+     ``kernel`` (B1), each best re-scoring to itself;
  10. the LM serving path at full width, once per model (``llama3.2-1b``,
      then ``mamba2-780m``, the first freed before the second loads): 8
      requests from seed 0 (prompts of 128-1024 tokens, 16-32 new tokens)
@@ -88,12 +112,19 @@ first fault exits non-zero and prints no result:
      launch 16 times per prefill (llama) or ssd_scan 48 times (mamba) and
      no other kernel at all.  Then the kernel path's prefill logits
      against the plain path's (same weights, plain attention / SSD called
-     directly) within 0.05; for mamba, both paths' logits against the
-     plain path with its SSD scan in float64 (logged, not a check), the
-     greedy tokens of a plain-path burst (logged), TTFT and decode
-     tokens/s, and one burst under the profiler;
+     directly) within 0.05; for mamba, every ssd_scan call of a kernel-path
+     prefill held on its own inputs against the scan in float64 (its y at
+     most ``SSD_Y_MARGIN`` of the call's largest |y| further than the plain
+     scan's), a check shown to reject a scan whose last chunk lost its
+     inter-chunk term and one that drops each position's own term; the
+     logits' gap to the plain path with its SSD in float64 (logged); the
+     greedy tokens of a
+     plain-path burst (logged), TTFT and decode tokens/s, and one burst
+     under the profiler (for llama with the time of float GEMVs and
+     direct copies, which decode attention's widened cache made before);
  11. one JSON line ``{"kernels": [...]}``: launches on the main paths
-     (``launches_by_path``: the search CLI and the service),
+     (``launches_by_path``: the search CLI, the service and phase 9b's
+     paths),
      max error, kernel and plain times per call (CUDA events, after a
      warm-up, in turns plain/kernel/kernel/plain; at small sizes they
      include the host's launch overhead), the same work's device time
@@ -412,6 +443,29 @@ def phase_b1(torch, dev, paper, timings):
         check(torch.equal(a[:1, :, :40], b), f"B1: {what} of a design depends on its batch")
     log(f"B1 batch invariance: 40 designs at {lanes[1]} lanes (B=1) and at {lanes[0]} "
         f"lanes (B=16, P=4096): bit for bit")
+    # an LM workload's depth: qwen3-moe-235b decode exports 36,567 layers,
+    # which B1 stages 256 at a time
+    from repro_torch.configs.base import get_config
+    from repro_torch.workloads.lm import lm_workload
+    from repro_torch.workloads.pack import pack_workloads
+
+    deep = pack_workloads([("qwen3-moe-235b-a22b",
+                            lm_workload(get_config("qwen3-moe-235b-a22b"), mode="decode"))])
+    designs = _designs(torch, 1, 40, gen, dev)
+    feats, mask = deep.feats[None].to(dev), deep.mask[None].to(dev)
+    k = imc_eval_multi(designs, feats, mask)
+    p = ref.eval_workloads(designs, feats, mask)
+    torch.cuda.synchronize()
+    rel = {}
+    for what, a, b in zip(("energy", "latency", "demand"), k, p):
+        check(bool(torch.isfinite(a).all()), f"B1 deep LM {what} not finite")
+        rel[what] = float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+        check(rel[what] <= B1_DEEP_RTOL, f"B1 deep LM {what}: rel err {rel[what]:.3g} > "
+              f"{B1_DEEP_RTOL}")
+    timings["imc_eval/deep_lm"] = dict(B=1, P=40, W=1, L=int(feats.shape[2]), rel_err=rel)
+    log(f"B1 at LM depth (qwen3-moe-235b-a22b decode, L={feats.shape[2]}, P=40): max rel "
+        f"err against the plain version {rel} (tolerance {B1_DEEP_RTOL}: two orders of "
+        f"a float32 sum of {feats.shape[2]} positive terms)")
     return errs["main"]
 
 
@@ -772,14 +826,19 @@ SERVE_POP, SERVE_GENS = 40, 10
 def _serve_main(argv):
     """``launch.search.main(argv)`` with its per-request lines captured;
     returns (exit code, stdout)."""
+    from repro_torch.launch.search import main
+
+    return _captured(main, argv)
+
+
+def _captured(fn, argv):
+    """``fn(argv)`` with its stdout captured; returns (exit code, stdout)."""
     import contextlib
     import io
 
-    from repro_torch.launch.search import main
-
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = main(argv)
+        rc = fn(argv)
     return rc, buf.getvalue()
 
 
@@ -842,6 +901,44 @@ def _check_serve_entries(torch, dev, ws, backend, n, entries, label):
               f"{label} rid {rid}: alone {list(alone.top_scores[:3])}, in the "
               f"service {e['top_scores'][:3]}")
     return n_feasible, sample
+
+
+class _DispatchProbe:
+    """Wraps an engine's ``dispatch`` and the seeder for one drain: per
+    dispatch, the host seconds spent in ``_seed_pools`` and whether the
+    previous plan's staged outputs (recorded after its GA) were complete
+    when the dispatch started and when it returned (``None`` for the
+    first)."""
+
+    def __init__(self, eng, engine_mod):
+        self.rows, self._spent, self._prev = [], [0.0], None
+        self._mod, self._real_seed = engine_mod, engine_mod._seed_pools
+        real_dispatch = eng.dispatch
+
+        def seed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return self._real_seed(*a, **kw)
+            finally:
+                self._spent[0] += time.perf_counter() - t0
+
+        def fired():
+            staged = None if self._prev is None else self._prev.thin
+            return None if staged is None or staged.event is None else staged.event.query()
+
+        def dispatch(plan, **kw):
+            before, at_start = self._spent[0], fired()
+            pend = real_dispatch(plan, **kw)
+            self.rows.append({"seed_s": self._spent[0] - before, "prev_fired_at_start":
+                              at_start, "prev_fired": fired()})
+            self._prev = pend
+            return pend
+
+        engine_mod._seed_pools = seed
+        eng.dispatch = dispatch
+
+    def close(self):
+        self._mod._seed_pools = self._real_seed
 
 
 def phase_service(torch, dev, card, timings):
@@ -910,16 +1007,28 @@ def phase_service(torch, dev, card, timings):
         for mode in ("sequential", "pipelined", "pipelined", "sequential"):
             eng = SearchEngine(device=dev, pipelined=mode == "pipelined")
             svc = DSEService(engine=eng)
+            probe = _DispatchProbe(eng, engine_mod) if mode == "pipelined" else None
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            res = _drain(svc, reqs)
+            try:
+                res = _drain(svc, reqs)
+            finally:
+                if probe is not None:
+                    probe.close()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             st = svc.stats
             drains.setdefault(mode, []).append(dict(
                 results=res, wall_s=wall, launches=eng.launches,
                 transfer_bytes=eng.transfer_bytes, stats=st.summary(),
-                requests_per_s_wall=len(res) / wall))
+                requests_per_s_wall=len(res) / wall,
+                dispatches=None if probe is None else probe.rows))
+            if probe is not None:
+                log("service pipelined drain, per dispatch: host seconds in the seeder "
+                    "and whether the plan before's last GA event had fired when it "
+                    "started / returned: " + "; ".join(
+                        f"plan {i}: {r['seed_s']:.5f}s, {r['prev_fired_at_start']} / "
+                        f"{r['prev_fired']}" for i, r in enumerate(probe.rows)))
         seq, pip = drains["sequential"], drains["pipelined"]
         for i, (a, b) in enumerate(zip(seq[0]["results"], pip[0]["results"])):
             check(_same_bits(a, b), f"service: pipelined rid {i} differs from sequential")
@@ -963,21 +1072,55 @@ def phase_service(torch, dev, card, timings):
             f"{', '.join(f'{v:.4f}' for v in runs['pipelined'])} s host clock, "
             f"bit for bit the service's drain")
 
-        # the seeder alone (a sync a round) at the first plan's shape
+        # the seeder alone (a read a round) at the first plan's shape, on the
+        # engine's seeding stream and on the current stream, in turns; the
+        # generators are made before the timed region
         plan = plan_batch(reqs)[0]
         eng = SearchEngine(device=dev)
         feats, mask = eng._packed(plan.requests, plan.pad_w, plan.pad_l)
-        seed_ms = []
-        for _ in range(4):
+        seed_ms = {"seeding stream": [], "current stream": []}
+        pools = {}
+        for i in range(8):
+            where = ("seeding stream", "current stream")[i % 2]
             gens = [engine_mod._slot_generators(r.seed, dev)[0] for r in plan.requests]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            engine_mod._seed_pools(gens, feats, mask, SERVE_POP, tech=plan.requests[0].tech)
+            out = engine_mod._seed_pools(
+                gens, feats, mask, SERVE_POP, tech=plan.requests[0].tech,
+                stream=eng._seed_stream if where == "seeding stream" else None)
             torch.cuda.synchronize()
-            seed_ms.append((time.perf_counter() - t0) * 1e3)
-        rec["seeding"] = dict(B=len(plan.requests), ms=seed_ms[1:])
-        log(f"seeder at B={len(plan.requests)}, P={SERVE_POP}: "
-            f"{', '.join(f'{v:.2f}' for v in seed_ms[1:])} ms (after one warm-up)")
+            seed_ms[where].append((time.perf_counter() - t0) * 1e3)
+            pools.setdefault(where, out)
+        check(all(torch.equal(a, b) for a, b in zip(*pools.values())),
+              "seeder: the seeding stream's pools differ from the current stream's")
+        rec["seeding"] = dict(B=len(plan.requests), ms={k: v[1:] for k, v in seed_ms.items()})
+
+        # a dispatch behind work still queued on the engine's stream: ~0.5 s
+        # of device sleep, then a pipelined dispatch of the first plan, with
+        # the seeder on its stream and, for the reading, on the current one
+        queued = {}
+        for where in ("seeding stream", "current stream"):
+            eng = SearchEngine(device=dev, pipelined=True)
+            if where == "current stream":
+                eng._seed_stream = None
+            eng.harvest(eng.dispatch(plan))  # warm: tables, uploads
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1_000_000_000)
+            slept = torch.cuda.Event()
+            slept.record()
+            t0 = time.perf_counter()
+            pend = eng.dispatch(plan)
+            queued[where] = (time.perf_counter() - t0, not slept.query())
+            eng.harvest(pend)
+        check(queued["seeding stream"][1], "seeder: the dispatch behind queued work "
+              "returned only after that work: the seeding stream waited for it")
+        rec["dispatch_behind_queued_work"] = queued
+        log("a pipelined dispatch behind ~0.5 s of work queued on the engine's stream "
+            "(host seconds, returned before that work ended): " + "; ".join(
+                f"seeder on the {k} {v[0]:.4f}s, {v[1]}" for k, v in queued.items()))
+        log(f"seeder at B={len(plan.requests)}, P={SERVE_POP} (after one warm-up each, "
+            f"the same pools): " + "; ".join(
+                f"{k} {', '.join(f'{x:.2f}' for x in v[1:])} ms" for k, v in seed_ms.items()))
 
         # segments (2 generations each), sequential and pipelined
         for pipelined in (False, True):
@@ -1085,6 +1228,334 @@ def phase_service(torch, dev, card, timings):
                 "activities; top: " + "; ".join(f"{n[:60]} {ms:.2f} ms x{c}"
                                                 for n, (ms, c) in top[:3]))
     return launches
+
+
+# ------------------------------------- objectives, NSGA-II, LM workloads
+PAPER_SEEDS = 8
+# a sum of 36,567 positive float32 terms taken in two orders (B1 stages
+# 256 layers at a time): the stated tolerance of the LM-depth B1 case
+B1_DEEP_RTOL = 1e-4
+
+
+def _reset(counters):
+    for c in counters.values():
+        c.launches = 0
+
+
+def _read(counters):
+    return {k: c.launches for k, c in counters.items()}
+
+
+def _design_arrays(torch, dev, designs):
+    from repro_torch.imc.cost import DesignArrays
+
+    return DesignArrays(*(torch.tensor([d[f] for d in designs], device=dev)
+                          for f in DesignArrays._fields))
+
+
+def _dense_eval(torch, dev, designs, ws):
+    """The plain dense cost model of design dicts on ``ws``."""
+    from repro_torch.imc.cost import evaluate_designs
+
+    return evaluate_designs(_design_arrays(torch, dev, designs), ws)
+
+
+def _check_rescored(torch, dev, results, ws, label, area=150.0):
+    """Each result's best re-scores to itself on the plain dense path
+    under its own objective (rtol 1e-5); returns how many were feasible."""
+    from repro_torch.core.objectives import make_objective
+
+    n = 0
+    for i, res in enumerate(results):
+        if not res.valid:
+            continue
+        r = _dense_eval(torch, dev, res.top_designs[:1], ws)
+        s = float(make_objective(res.objective, area)(r)[0])
+        check(math.isclose(s, float(res.top_scores[0]), rel_tol=1e-5),
+              f"{label} {i}: best re-scores to {s}, reported {res.top_scores[0]}")
+        n += 1
+    return n
+
+
+def _check_front(torch, dev, res, ws, label, area=150.0):
+    """A Pareto result: every member feasible and re-scoring to its (E, L,
+    A) vector on the plain dense path (rtol 1e-5); no member dominated by
+    a later one (members come in ascending non-domination rank).  Returns
+    whether the members are mutually non-dominated."""
+    import numpy as np
+
+    v = res.objective_vectors
+    check(v.shape == (len(res.top_scores), 3), f"{label}: front {v.shape}")
+    check(bool(np.isfinite(v).all()) and bool((v[:, 2] <= area).all()),
+          f"{label}: an infeasible member")
+    r = _dense_eval(torch, dev, res.top_designs, ws)
+    check(bool(r.fits.all()) and bool(r.valid.all()), f"{label}: a member does not fit")
+    dense = torch.stack([r.energy_pj.amax(-1), r.latency_ns.amax(-1), r.area_mm2], -1)
+    try:
+        torch.testing.assert_close(torch.from_numpy(v), dense.cpu(), rtol=1e-5, atol=0.0)
+    except AssertionError as e:
+        raise SmokeFailure(f"{label}: vectors vs the dense path: {e}") from None
+    dom = (v[:, None] <= v[None]).all(-1) & (v[:, None] < v[None]).any(-1)
+    check(not np.triu(dom.T, 1).any(), f"{label}: a member dominated by a later one")
+    return not dom.any()
+
+
+def phase_families(torch, dev, card, timings):
+    """The rest of the search path at the paper's configuration (4 CNNs,
+    L_max = 64, pop 40, 10 generations, 8 seeds): the weighted objective,
+    NSGA-II, direct seeding, a Pareto service drain and LM workloads, each
+    run with every launch count set to 0 just before it.  Returns
+    {path: {kernel: launches}}."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core import ga
+    from repro_torch.core.engine import SearchEngine, SearchRequest
+    from repro_torch.core.objectives import OBJECTIVE_WEIGHTS, OBJECTIVES
+    from repro_torch.core.search import batched_search, joint_search_batched
+    from repro_torch.imc.cost import evaluate_designs_arrays
+    from repro_torch.serve.dse import DSEService, paper_request_mix
+
+    ws = _paper_ws()
+    counters = _counters()
+    rec = timings["families"] = {"card": card}
+    paths = {}
+    seeds = list(range(PAPER_SEEDS))
+    common = dict(pop_size=SERVE_POP, generations=SERVE_GENS, device=dev)
+    B = len(OBJECTIVES) * PAPER_SEEDS
+    feats = ws.feats[None].expand(B, -1, -1, -1)
+    mask = ws.mask[None].expand(B, -1, -1)
+    weights = [OBJECTIVE_WEIGHTS[k] for k in OBJECTIVES for _ in seeds]
+
+    # weighted joint searches: the four rows x 8 seeds as one batch
+    for backend, kname in (("kernel", "imc_eval"), ("table", "ga_gen_step")):
+        _reset(counters)
+        t0 = time.perf_counter()
+        res = batched_search(seeds * len(OBJECTIVES), feats, mask, names=ws.names,
+                             obj_weights=weights, backend=backend,
+                             engine=SearchEngine(device=dev), **common)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _read(counters)
+        want = {"kernel": {"imc_eval": SERVE_GENS + 1}, "table": {}}[backend]
+        check({k: v for k, v in got.items() if v} == want,
+              f"weighted {backend}: launches {got}, want {want} (B2 serves the indexed "
+              f"objective only)")
+        paths[f"weighted/{backend}"] = got
+        n_ok = _check_rescored(torch, dev, res, ws, f"weighted {backend}")
+        check(n_ok >= B // 2, f"weighted {backend}: {n_ok} of {B} feasible")
+        check([r.objective for r in res] == [k for k in OBJECTIVES for _ in seeds],
+              f"weighted {backend}: labels {[r.objective for r in res][:5]}")
+        if backend == "table":
+            ela = joint_search_batched(seeds, ws, objective="ela", backend="table",
+                                       engine=SearchEngine(device=dev), **common)
+            for a, b in zip(ela, res[:PAPER_SEEDS]):
+                check(_same_bits(a, b) and np.array_equal(a.ga.genomes, b.ga.genomes),
+                      "weighted (1, 1, 1) on table: not the ela bits")
+        log(f"weighted joint search --backend {backend} (4 rows x {PAPER_SEEDS} seeds, "
+            f"one batch): {got[kname]} {kname} launches, {wall:.3f}s host clock; {n_ok} "
+            f"feasible bests re-score to themselves"
+            + ("; weights (1, 1, 1) give the ela bits" if backend == "table" else ""))
+        rec[f"weighted/{backend}"] = dict(wall_s=wall, launches=got, feasible=n_ok)
+
+    # Pareto through the CLI, then sequential against pipelined engines
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        for backend, kname in (("kernel", "imc_eval"), ("table", "ga_gen_step")):
+            out = Path(tmp) / f"pareto_{backend}.json"
+            _reset(counters)
+            t0 = time.perf_counter()
+            rc, _ = _serve_main(["--objective", "pareto", "--pareto-k", "10", "--seeds",
+                                 str(PAPER_SEEDS), "--pop", str(SERVE_POP), "--gens",
+                                 str(SERVE_GENS), "--backend", backend, "--device",
+                                 str(dev), "--out", str(out)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = _read(counters)
+            check(rc == 0, f"--objective pareto --backend {backend} returned {rc}")
+            want = {"kernel": {"imc_eval": SERVE_GENS + 1}, "table": {}}[backend]
+            check({k: v for k, v in got.items() if v} == want,
+                  f"pareto {backend}: launches {got}, want {want}")
+            paths[f"pareto/{backend}"] = got
+            entries = json.loads(out.read_text())
+            fronts = [e.get("pareto_front") or [] for e in entries]
+            check(len(entries) == PAPER_SEEDS and sum(map(bool, fronts)) >= PAPER_SEEDS // 2,
+                  f"pareto {backend}: fronts of sizes {[len(f) for f in fronts]}")
+            log(f"pareto CLI --backend {backend}: {got[kname]} {kname} launches, "
+                f"{wall:.3f}s host clock, front sizes {[len(f) for f in fronts]}")
+            rec[f"pareto_cli/{backend}"] = dict(wall_s=wall, launches=got,
+                                                front_sizes=[len(f) for f in fronts])
+    reqs = [SearchRequest(ws=ws, objective="pareto", pareto_k=10, seed=s, backend=b,
+                          pop_size=SERVE_POP, generations=SERVE_GENS)
+            for b in ("kernel", "table") for s in seeds]
+    seq = SearchEngine(device=dev).run(reqs)
+    pip = SearchEngine(device=dev, pipelined=True).run(reqs)
+    n_mutual = n_front = 0
+    for i, (a, b) in enumerate(zip(seq, pip)):
+        check(_same_bits(a, b) and np.array_equal(a.objective_vectors, b.objective_vectors),
+              f"pareto request {i}: pipelined front differs from sequential")
+        if a.valid:
+            n_front += 1
+            n_mutual += _check_front(torch, dev, a, ws, f"pareto request {i}")
+    check(n_front >= len(reqs) // 2, f"pareto engine runs: {n_front} of {len(reqs)} fronts")
+    log(f"pareto engine runs ({len(reqs)} requests, kernel and table): sequential and "
+        f"pipelined fronts bit for bit; {n_front} non-empty, every member feasible, "
+        f"re-scoring to its vector, none dominated by a later one; {n_mutual} fronts "
+        f"mutually non-dominated")
+    rec["pareto_mutual"] = n_mutual
+
+    # direct-seeded table searches: every seed fits and is valid; repeatable
+    dreqs = [SearchRequest(ws=ws, seed=s, backend="table", pop_size=SERVE_POP,
+                           generations=SERVE_GENS) for s in seeds]
+    _reset(counters)
+    runs = [SearchEngine(device=dev, direct_seed=True).run(dreqs) for _ in range(2)]
+    got = _read(counters)
+    paths["direct/table"] = got
+    from repro_torch.core.engine import largest_workload_index
+
+    wi = largest_workload_index(ws)
+    for a, b in zip(*runs):
+        check(_same_bits(a, b) and np.array_equal(a.ga.genomes, b.ga.genomes),
+              "direct seed: two runs differ")
+        g0 = torch.from_numpy(a.ga.genomes[0]).to(dev)
+        from repro_torch.core import space
+
+        r = evaluate_designs_arrays(space.decode(g0), ws.feats[wi][None].to(dev),
+                                    ws.mask[wi][None].to(dev))
+        check(bool(r.fits.all()) and bool(r.valid.all()),
+              "direct seed: a seed does not fit its largest workload")
+    n_ok = _check_rescored(torch, dev, runs[0], ws, "direct seed")
+    log(f"direct-seeded table search ({PAPER_SEEDS} seeds, twice): every seed fits "
+        f"{ws.names[wi]} and is V/f-valid, the runs are bit for bit, {n_ok} bests "
+        f"re-score to themselves; launches {got}")
+
+    # the service's 64-request mix turned Pareto, sequential and pipelined
+    preqs = [dataclasses.replace(r, objective="pareto")
+             for r in paper_request_mix(ws, 64, backend="table", pop_size=SERVE_POP,
+                                        generations=SERVE_GENS)]
+    drains = {}
+    for mode in ("sequential", "pipelined", "pipelined", "sequential"):
+        eng = SearchEngine(device=dev, pipelined=mode == "pipelined")
+        svc = DSEService(engine=eng)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = _drain(svc, preqs)
+        torch.cuda.synchronize()
+        drains.setdefault(mode, []).append((res, time.perf_counter() - t0, eng.launches))
+    base = drains["sequential"][0][0]
+    for mode, ds in drains.items():
+        for res, _, _ in ds:
+            check(all(_same_bits(a, b) and np.array_equal(a.objective_vectors,
+                                                          b.objective_vectors)
+                      for a, b in zip(base, res)), f"pareto service {mode}: bits differ")
+    n_valid = sum(r.valid for r in base)
+    check(n_valid >= 32, f"pareto service: {n_valid} of 64 fronts")
+    rec["pareto_service"] = {m: [dict(wall_s=w, launches=n) for _, w, n in ds]
+                             for m, ds in drains.items()}
+    log("pareto service drain (64 table requests, sequential / pipelined / pipelined / "
+        "sequential): " + ", ".join(f"{m} {w:.4f}s ({n} launches)"
+                                    for m in drains for _, w, n in drains[m])
+        + f"; bit for bit; {n_valid} of 64 fronts non-empty")
+
+    # NSGA-II survival (2P = 80) and the front epilogue ((G+1) P = 440),
+    # plain torch, at the CLI's batch of 8
+    gen = _gen(torch, dev, 7)
+    allo = torch.rand((PAPER_SEEDS, 2 * SERVE_POP, 3), generator=gen, device=dev) * 1e3
+    allo[:, ::5] = math.inf  # infeasible candidates tie
+
+    def survival():
+        ga._crowded_order(*ga._crowded_order_keys(allo))
+
+    gh = torch.rand((PAPER_SEEDS, SERVE_GENS + 1, SERVE_POP, 9), generator=gen, device=dev)
+    oh = torch.rand((PAPER_SEEDS, SERVE_GENS + 1, SERVE_POP, 3), generator=gen, device=dev)
+
+    def epilogue():
+        ga.pareto_epilogue_batched(gh, oh, top_k=10)
+
+    for name, fn in (("survival_2p80", survival), ("epilogue_440", epilogue)):
+        fn()
+        ms = cuda_ms(fn, 20)
+        dev_ms = device_ms(torch, fn, 10)
+        rec[f"nsga2/{name}"] = dict(B=PAPER_SEEDS, ms=ms, device_ms=dev_ms)
+        log(f"NSGA-II {name} (B={PAPER_SEEDS}): {ms:.4f} ms per call, {_ms(dev_ms)} "
+            f"on the device (plain torch; the front peel reads the device every "
+            f"{ga.PEEL_BLOCK} fronts)")
+
+    # LM layers as workloads: the CLI stops in the rejection seeder (mixtral
+    # fits no design, as in the JAX package's CLI); a mix that fits runs on
+    # table through SearchEngine(direct_seed=True) (B2) and, through the
+    # example's deep-oversampled seeds, on kernel (B1)
+    try:
+        _serve_main(["--lm-workloads", "llama3.2-1b,mixtral-8x7b", "--mode", "decode",
+                     "--backend", "table", "--seeds", "1", "--pop", str(SERVE_POP),
+                     "--gens", "1", "--device", str(dev)])
+        raised = ""
+    except RuntimeError as e:
+        raised = str(e)
+    check("could not seed" in raised and "0 found" in raised,
+          f"llama3.2-1b + mixtral-8x7b decode: {raised or 'seeded'}")
+    log("--lm-workloads llama3.2-1b,mixtral-8x7b --mode decode: 'could not seed ... 0 "
+        "found' (mixtral's decode weights fit none of the grid's 12,000 capacity "
+        "cells), as the JAX package's CLI")
+    from repro_torch.configs.base import get_config
+    from repro_torch.examples import lm_hw_cosearch
+    from repro_torch.workloads.lm import lm_workload
+    from repro_torch.workloads.pack import pack_workloads
+
+    lm_area = lm_hw_cosearch.AREA
+    lm_names = ("llama3.2-1b", "mamba2-780m")
+    lm_ws = pack_workloads([(n, lm_workload(get_config(n), mode="decode"))
+                            for n in lm_names])
+    lreqs = [SearchRequest(ws=lm_ws, seed=s, backend="table", area_constr=lm_area,
+                           pop_size=SERVE_POP, generations=SERVE_GENS) for s in seeds]
+    _reset(counters)
+    lres = SearchEngine(device=dev, direct_seed=True).run(lreqs)
+    got = _read(counters)
+    check(got["ga_gen_step"] == SERVE_GENS
+          and not any(v for k, v in got.items() if k != "ga_gen_step"),
+          f"LM table search: launches {got}")
+    paths["lm/table"] = got
+    n_lm = _check_rescored(torch, dev, lres, lm_ws, "LM table", area=lm_area)
+    check(n_lm == PAPER_SEEDS, f"LM table: {n_lm} of {PAPER_SEEDS} seeds feasible")
+    from repro_torch.core.objectives import make_objective
+
+    lm_arch = lm_hw_cosearch.ARCHS
+    lm_ws = pack_workloads([(n, lm_workload(get_config(n), mode="decode"))
+                            for n in lm_arch])
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        out = Path(tmp) / "lm_kernel.json"
+        _reset(counters)
+        t0 = time.perf_counter()
+        rc, _ = _captured(lm_hw_cosearch.main, [
+            "--backend", "kernel", "--device", str(dev), "--pop", str(SERVE_POP),
+            "--gens", str(SERVE_GENS), "--out", str(out)])
+        wall = time.perf_counter() - t0
+        got = _read(counters)
+        check(rc == 0 and got["imc_eval"] > 0
+              and not any(v for k, v in got.items() if k != "imc_eval"),
+              f"LM kernel search (example): rc {rc}, launches {got}")
+        paths["lm/kernel"] = got
+        best = json.loads(out.read_text())
+    n_k = 0
+    for name, e in [("joint", best["joint"])] + list(best["separate"].items()):
+        if e["best"] is None:
+            continue
+        on = lm_ws if name == "joint" else lm_ws.subset([lm_arch.index(name)])
+        s = float(make_objective("ela", lm_area)(_dense_eval(torch, dev, [e["design"]],
+                                                            on))[0])
+        check(math.isclose(s, e["best"], rel_tol=1e-5),
+              f"LM kernel {name}: best re-scores to {s}, reported {e['best']}")
+        n_k += 1
+    check(best["joint"]["best"] is not None, "LM kernel: the joint search found nothing")
+    log(f"LM workloads {lm_names} decode, area {lm_area:g}: table search with "
+        f"direct seeds {paths['lm/table']['ga_gen_step']} ga_gen_step launches, {n_lm} of "
+        f"{PAPER_SEEDS} bests re-score to themselves; the example {lm_arch} (L_max "
+        f"{lm_ws.feats.shape[1]}) on kernel {got['imc_eval']} imc_eval launches, "
+        f"{wall:.2f}s, joint best {best['joint']['best']:.6g}, {n_k} bests (joint and "
+        f"per model) re-score to themselves")
+    rec["lm"] = dict(table=paths["lm/table"], kernel=got, kernel_wall_s=wall)
+    rec["launches"] = paths
+    return paths
 
 
 # ----------------------------------------------------------- LM kernels
@@ -1307,7 +1778,13 @@ def phase_b4(torch, dev, timings):
 # model -> (its prefill kernel, layers that run it)
 LM_PATHS = {"llama3.2-1b": ("flash_attention", 16), "mamba2-780m": ("ssd_scan", 48)}
 LM_LOGIT_TOL = 0.05
-
+# mamba: each ssd_chunked call of a kernel-path prefill is held, on its own
+# inputs, against the scan in float64, by max |y - y64| over the call's
+# largest |y64|.  y is bf16: the plain float32 scan lies up to half a bf16
+# ulp (2^-8 of a value) from float64, and a sound scan that sums in another
+# order may round a y the other way, one ulp (2^-7) more.  The kernel's gap
+# may exceed the plain scan's by at most that ulp.
+SSD_Y_MARGIN = 2.0 ** -7
 
 def _counters():
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -1339,6 +1816,58 @@ def _prefill_ssd_float64(torch, cfg, params, toks):
         mamba.ssd = saved
 
 
+def _scan_gaps(real, gaps):
+    """``real`` (an ``ssd_chunked``) that also holds each call, on the
+    call's own inputs, against the plain scan and the scan in float64:
+    appends (its gap, the plain scan's gap) to ``gaps``, each max |y - y64|
+    over the call's largest |y64|."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ref
+
+    def f64(t):
+        return None if t is None else t.double()
+
+    def scan(x, dt, A, Bm, Cm, h0=None, *, chunk=128):
+        y, h = real(x, dt, A, Bm, Cm, h0, chunk=chunk)
+        yp, _ = ref.ssd_chunked(x, dt, A, Bm, Cm, h0, chunk=chunk)
+        y64, _ = ref.ssd_chunked(f64(x), f64(dt), f64(A), f64(Bm), f64(Cm), f64(h0),
+                                 chunk=chunk, compute_dtype=torch.float64)
+        scale = y64.abs().max()
+        gaps.append((float((y.double() - y64).abs().max() / scale),
+                     float((yp.double() - y64).abs().max() / scale)))
+        return y, h
+    return scan
+
+
+def _drop_last_chunk_inter(real):
+    """An ``ssd_chunked`` with one fault: the last chunk's y loses its
+    inter-chunk term (it is scanned again from a zero state)."""
+    import torch
+
+    def scan(x, dt, A, Bm, Cm, h0=None, *, chunk=128):
+        y, h = real(x, dt, A, Bm, Cm, h0, chunk=chunk)
+        lo = x.shape[1] - min(chunk, x.shape[1])
+        if lo > 0:
+            y_last, _ = real(x[:, lo:], dt[:, lo:], A, Bm[:, lo:], Cm[:, lo:], None,
+                             chunk=chunk)
+            y = torch.cat([y[:, :lo], y_last], dim=1)
+        return y, h
+    return scan
+
+
+def _drop_own_term(real):
+    """An ``ssd_chunked`` with one fault: a strict causal mask, so each
+    position loses its own term ``(C_t . B_t) dt_t x_t`` (the intra-chunk
+    diagonal, M[t, t] = 1), as a scan off by one on the mask would."""
+    def scan(x, dt, A, Bm, Cm, h0=None, *, chunk=128):
+        y, h = real(x, dt, A, Bm, Cm, h0, chunk=chunk)
+        cb = (Cm.float() * Bm.float()).sum(-1)[..., None]  # (B, S, 1, 1), G = 1
+        own = cb * dt.float()[..., None] * x.float()
+        return (y.float() - own).to(y.dtype), h
+    return scan
+
+
 def phase_lm(torch, dev, name, card, timings):
     """The LM serving path at full width: a burst of 8 requests through
     ``Engine`` (4 slots, max_len 2048), random weights from seed 0.  Every
@@ -1346,8 +1875,10 @@ def phase_lm(torch, dev, name, card, timings):
     once per layer per prefill, the other kernels never.  Then the
     kernel path's prefill logits against the plain path's (same weights,
     plain attention / SSD called directly) within LM_LOGIT_TOL; for mamba
-    both against the plain path with its SSD in float64 (logged), the greedy
-    tokens of a plain-path burst (logged), and one traced burst."""
+    both against the plain path with its SSD in float64 (logged), and each
+    scan call's y against the scan in float64 within SSD_Y_MARGIN of the
+    plain scan's gap, also with two faulty scans that it must reject; the
+    greedy tokens of a plain-path burst (logged), and one traced burst."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch.serve import build_params, make_burst, serve_burst
     from repro_torch.models import transformer
@@ -1402,6 +1933,52 @@ def phase_lm(torch, dev, name, card, timings):
     err = max(errs.values())
     check(err <= LM_LOGIT_TOL, f"{name}: kernel vs plain prefill logits differ by "
           f"{err} > {LM_LOGIT_TOL}")
+    scan_gap = None
+    if kname == "ssd_scan":
+        # every scan call against float64 on its own inputs (the kernel
+        # wrapper monkeypatched), then the same with faulty scans, which the
+        # check must reject: one that drops the last chunk's inter-chunk
+        # term, one that drops each position's own term
+        import types
+
+        from repro_torch.kernels.ssd_scan import ops as ssd_ops
+        from repro_torch.models import mamba
+
+        def held(make, toks):
+            gaps = []
+            saved = mamba.ssd_ops
+            mamba.ssd_ops = types.SimpleNamespace(
+                ssd_chunked=_scan_gaps(make(ssd_ops.ssd_chunked), gaps))
+            try:
+                with torch.inference_mode():
+                    transformer.prefill(cfg, params, toks, impl="kernel")
+            finally:
+                mamba.ssd_ops = saved
+            check(len(gaps) == per_prefill, f"{name}: {len(gaps)} scan calls held")
+            return {"extra": max(k - p for k, p in gaps), "plain": max(p for _, p in gaps),
+                    "kernel": max(k for k, _ in gaps)}
+
+        scan_gap = {"sound": {}, "faults": {}}
+        for n, r in sorted(firsts.items()):
+            toks = torch.as_tensor(r.prompt[None].astype("int64"), device=dev)
+            g = scan_gap["sound"][n] = held(lambda real: real, toks)
+            check(g["extra"] <= SSD_Y_MARGIN,
+                  f"{name} S={n}: a scan call's y lies {g['kernel']} from float64, the "
+                  f"plain scan's {g['plain']} + margin {SSD_Y_MARGIN}")
+        n = max(firsts)
+        toks = torch.as_tensor(firsts[n].prompt[None].astype("int64"), device=dev)
+        for what, make in (("last chunk's inter-chunk term dropped", _drop_last_chunk_inter),
+                           ("own term dropped", _drop_own_term)):
+            g = scan_gap["faults"][what] = held(make, toks)
+            check(g["extra"] > SSD_Y_MARGIN,
+                  f"{name} S={n}: a scan with its {what} passes the float64 check "
+                  f"(extra gap {g['extra']} <= {SSD_Y_MARGIN})")
+        log(f"{name}: every scan call's y within the plain scan's float64 gap + "
+            f"{SSD_Y_MARGIN:.6g} of its largest |y| (extra gap, worst call: " + ", ".join(
+                f"S={m} {g['extra']:.4g}" for m, g in scan_gap["sound"].items())
+            + f"; plain scan's gap up to {max(g['plain'] for g in scan_gap['sound'].values()):.4g}"
+            f"); faulty scans at S={n} rejected: " + ", ".join(
+                f"{w} {g['extra']:.4g}" for w, g in scan_gap["faults"].items()))
     done_p, st_p = serve_burst(cfg, params, make_burst(cfg, 8, 0), slots=4,
                                max_len=2048, impl="plain")
     same = sum(a == b for r, rp in zip(done, done_p) for a, b in zip(r.out, rp.out))
@@ -1425,12 +2002,19 @@ def phase_lm(torch, dev, name, card, timings):
         trace = {"wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
                  "kernel_s": mine, "kernel_share_of_busy": mine / busy,
                  "device_activities": sum(c for _, c in per.values()),
-                 "top": [{"name": n[:120], "ms": ms, "count": c} for n, (ms, c) in top]}
+                 "top": [{"name": n[:120], "ms": ms, "count": c} for n, (ms, c) in top],
+                 # decode attention widened the cache here before: float GEMVs
+                 # and direct copies
+                 "gemmSN": [sum(ms for n, (ms, _) in per.items() if "gemmSN" in n),
+                            sum(c for n, (_, c) in per.items() if "gemmSN" in n)],
+                 "direct_copy": [sum(ms for n, (ms, _) in per.items() if "direct_copy" in n),
+                                 sum(c for n, (_, c) in per.items() if "direct_copy" in n)]}
     timings[f"serve/{name}"] = dict(
         card=card, params=cfg.param_count(), init_s=init_s, launches=launches[kname],
         stats=st, plain_stats=st_p, logit_err=errs, logit_gap_ssd_float64=f64_gap,
         top1_agree=f"{top1}/{len(errs)}",
-        greedy_same=same, greedy_prefix=prefix, tokens=total, trace=trace)
+        greedy_same=same, greedy_prefix=prefix, tokens=total, trace=trace,
+        ssd_y_gap_float64=scan_gap)
     log(f"{name} ({cfg.param_count() / 1e9:.2f} B params, init {init_s:.2f}s) on {card}: "
         f"{st['requests']} requests, {st['tokens']} tokens, {st['prefills']} prefills "
         f"({launches[kname]} {kname} launches), {st['decode_steps']} decode steps; "
@@ -1445,7 +2029,8 @@ def phase_lm(torch, dev, name, card, timings):
         log(f"{name} trace (profiled): {wall:.3f}s host clock, device busy "
             f"{trace['device_busy_s'] * 1e3:.2f} ms (idle share {trace['idle_share']:.4f}), "
             f"{kname} {trace['kernel_s'] * 1e3:.2f} ms ({trace['kernel_share_of_busy']:.3f} "
-            f"of busy); top: " + "; ".join(f"{t['name'][:60]} {t['ms']:.2f} ms x{t['count']}"
+            f"of busy); float GEMV gemmSN {trace['gemmSN'][0]:.2f} ms x{trace['gemmSN'][1]}, "
+            f"direct copies {trace['direct_copy'][0]:.2f} ms x{trace['direct_copy'][1]}; top: " + "; ".join(f"{t['name'][:60]} {t['ms']:.2f} ms x{t['count']}"
                                             for t in trace["top"][:3]))
     else:
         log(f"{name} trace: device time not measured")
@@ -1484,6 +2069,9 @@ def run() -> dict:
     for backend in ("kernel", "table"):
         phase_trace(torch, dev, backend, timings)
     serve_launches = phase_service(torch, dev, card, timings)
+    fam = phase_families(torch, dev, card, timings)
+    fam_b1 = {k: v["imc_eval"] for k, v in fam.items() if v["imc_eval"]}
+    fam_b2 = {k: v["ga_gen_step"] for k, v in fam.items() if v["ga_gen_step"]}
     b3_launches = phase_lm(torch, dev, "llama3.2-1b", card, timings)
     b4_launches = phase_lm(torch, dev, "mamba2-780m", card, timings)
 
@@ -1498,9 +2086,9 @@ def run() -> dict:
         {"name": "imc_eval", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/imc_eval.cu",
          "replaces": "src/repro/kernels/imc_eval/kernel.py:47",
-         "launches": b1_launches + serve_launches["imc_eval"],
+         "launches": b1_launches + serve_launches["imc_eval"] + sum(fam_b1.values()),
          "launches_by_path": {"search": b1_launches,
-                              "serve": serve_launches["imc_eval"]},
+                              "serve": serve_launches["imc_eval"], **fam_b1},
          "max_abs_err": b1_err[0],
          "max_rel_err": b1_err[1],
          "ms": t1["ms"], "plain_ms": t1["plain_ms"], "bound_ms": t1["bound_ms"],
@@ -1512,9 +2100,9 @@ def run() -> dict:
         {"name": "ga_gen_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ga_gen_step.cu",
          "replaces": "src/repro/kernels/ga_gen_step/kernel.py:115",
-         "launches": b2_launches + serve_launches["ga_gen_step"],
+         "launches": b2_launches + serve_launches["ga_gen_step"] + sum(fam_b2.values()),
          "launches_by_path": {"search": b2_launches,
-                              "serve": serve_launches["ga_gen_step"]},
+                              "serve": serve_launches["ga_gen_step"], **fam_b2},
          "max_abs_err": 0.0,
          "ms": t2["ms"], "plain_ms": t2["plain_ms"], "bound_ms": t2["bound_ms"],
          "bound_by": t2["bound_by"], "library_ms": None,

@@ -4,9 +4,12 @@ A ``ModelConfig`` describes a *family* via a layer plan: a repeating period
 of (mixer, ffn) sub-layer kinds.  Dense transformers have period 1 =
 [("attn", "mlp")]; Mamba-2 is [("mamba", "none")] (the SSD block carries its
 own gating).  The fields are the JAX package's, so a configuration carried
-across compares field by field; the registry holds the configurations this
-port serves so far (llama3.2-1b and mamba2-780m).  The dry-run shape cells
-of the JAX package have no counterpart here.
+across compares field by field.  The registry holds all ten of the JAX
+package's configurations: every one exports its layers as an IMC workload
+(``workloads/lm.py``), and LM serving takes the dense-attention and Mamba-2
+families (``models.transformer.check_supported`` refuses the others;
+``param_count`` leaves out the encoder-decoder terms).  The dry-run shape cells of
+the JAX package have no counterpart here.
 """
 from __future__ import annotations
 
@@ -186,4 +189,15 @@ def list_configs() -> List[str]:
 
 def _load_all() -> None:
     # importing the modules triggers register()
-    from repro_torch.configs import llama32_1b, mamba2_780m  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        gemma_7b,
+        jamba_52b,
+        llama32_1b,
+        mamba2_780m,
+        mixtral_8x7b,
+        qwen2_72b,
+        qwen2_vl_2b,
+        qwen3_moe_235b,
+        whisper_medium,
+        yi_9b,
+    )

@@ -1,0 +1,19 @@
+"""Mixtral-8x7B — MoE 8 experts top-2, sliding-window attention. [arXiv:2401.04088]"""
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="mixtral-8x7b",
+    family="moe",
+    n_layers=32,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=14336,
+    vocab_size=32000,
+    n_experts=8,
+    topk=2,
+    sliding_window=4096,
+    rope_theta=1_000_000.0,
+    source="arXiv:2401.04088; hf:mistralai/Mixtral-8x7B-v0.1",
+))

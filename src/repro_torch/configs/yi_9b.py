@@ -1,0 +1,17 @@
+"""Yi-9B — llama-architecture dense transformer with GQA. [arXiv:2403.04652; hf]"""
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="yi-9b",
+    family="dense",
+    n_layers=48,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=4,
+    head_dim=128,
+    d_ff=11008,
+    vocab_size=64000,
+    mlp_act="silu",
+    rope_theta=10_000.0,
+    source="arXiv:2403.04652; hf:01-ai/Yi-9B",
+))

@@ -21,7 +21,11 @@ Within a plan:
 
   * **Objectives** are per-slot data: a kind index and an area constraint
     (``objectives.make_indexed_objective``), bit-identical per element to
-    the static ``make_objective`` path.
+    the static ``make_objective`` path.  Requests with ``obj_weights`` run
+    the exponent-weighted objective (per-slot weights, one area per
+    group), and ``objective="pareto"`` requests run NSGA-II over (E, L, A)
+    vectors (per-slot areas); each family plans into its own signature
+    group.
   * **Workload sets**: the table backend stacks each request's own tables
     (``WorkloadSet.tables``), zero-padded along W: a zero row fits
     everywhere and adds 0 to the objective's max, so a request scores the
@@ -31,6 +35,10 @@ Within a plan:
     uniform blocks from its own ``torch.Generator``s, so a slot's results
     do not depend on its batch-mates.  The streams differ between the CPU
     and CUDA generators; ``stream_tag`` names them in every cache key.
+    The rejection seeder runs on a CUDA stream of the engine's own, so its
+    early exit waits for its own rounds, never for a GA still queued;
+    ``SearchEngine(direct_seed=True)`` samples table-backend pools from
+    the feasible cells instead (``_seed_direct``), with no host sync.
 
 A plan of S requests runs S rows: ``BatchPlan.slots`` (the chunk size
 of its group, as the JAX package plans it) enters ``plan_key`` only, and
@@ -43,12 +51,14 @@ same model with its layer sums from the ``imc_eval`` kernel) and
 ``ga_gen_step`` kernel).  They are the JAX package's ``"jnp"``,
 ``"pallas"`` and ``"table"``.
 
-Not ported (ROADMAP.md, "What remains" items 6 and 7): the Pareto and
-weighted objectives, direct seeding, meshes and the ``fused`` switch;
-asking for one raises ``ValueError``.
+Not ported: meshes (``SearchEngine(mesh=...)`` raises ``ValueError``;
+ROADMAP.md, queue A, "Multi-device").  ``fused`` is accepted and has no
+effect: the JAX package's two survival programs give the same bits, and
+the port has one.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 from functools import lru_cache
@@ -64,16 +74,25 @@ from repro_torch.core.ga import (
     GAResult,
     GAState,
     GAThin,
+    ParetoThin,
     block_layout,
     ga_epilogue_batched,
     init_ga_state_batched,
     run_ga_batched,
     run_ga_batched_segment,
     run_ga_batched_thin,
+    run_pareto_batched,
 )
-from repro_torch.core.objectives import OBJECTIVE_INDEX, make_indexed_objective
+from repro_torch.core.objectives import (
+    OBJECTIVE_INDEX,
+    OBJECTIVE_WEIGHTS,
+    PARETO,
+    make_indexed_objective,
+    make_pareto_objective,
+    make_weighted_objective,
+)
 from repro_torch.device import resolve_device
-from repro_torch.imc.cost import evaluate_designs_arrays
+from repro_torch.imc.cost import _true_div, evaluate_designs_arrays, valid_vt_mask
 from repro_torch.imc.tables import WorkloadTables, evaluate_genomes_tables
 from repro_torch.imc.tech import TECH, TechParams
 from repro_torch.kernels.ga_gen_step.ops import ga_gen_step
@@ -82,7 +101,9 @@ from repro_torch.workloads.pack import WorkloadSet
 
 BACKENDS = ("dense", "kernel", "table")
 MAX_SLOTS = 64  # searches per batched GA
-NOT_PORTED = "not ported yet (ROADMAP.md, 'What remains' items 6 and 7)"
+NOT_PORTED = "not ported yet (ROADMAP.md, queue A, 'Multi-device')"
+# objective tails of an eval ctx: (kind, area), (3,) weights, or area
+INDEXED, WEIGHTED = "indexed", "weighted"
 
 
 def stream_tag(device) -> str:
@@ -105,7 +126,9 @@ class SearchResult:
     valid: bool = True  # False: no finite-scoring design in the history
     partial: bool = False  # True: search stopped before its full budget
     generations: int = -1  # generations actually applied (-1 = full budget)
-    objective_vectors: Optional[np.ndarray] = None  # Pareto family (not ported)
+    # objective="pareto" only: per-member (max_W E, max_W L, A) vectors,
+    # (kept, 3) float32 aligned with top_genomes / top_scores
+    objective_vectors: Optional[np.ndarray] = None
 
 
 class EngineFault(RuntimeError):
@@ -129,16 +152,38 @@ class NonFiniteScoreError(EngineFault):
 
 # --------------------------------------------------------- eval callbacks
 @lru_cache(maxsize=None)
-def _ctx_eval(tech: TechParams, backend: str) -> Callable:
-    """``eval_fn(genomes (B, P, n), ctx) -> scores (B, P)`` for a backend,
-    with ``ctx = (workload part..., kind (B,), area (B,))``: the workload
-    part is ``(feats, mask)`` for the dense backends and ``(tables,)`` for
-    the table backend.  The table callback carries ``gen_step``, the
-    ``ga_gen_step`` kernel wrapper, which the GA runs in place of its
-    plain generation step."""
+def _ctx_eval(tech: TechParams, backend: str, tail: str = INDEXED,
+              area_constr: float = 0.0) -> Callable:
+    """``eval_fn(genomes (B, P, n), ctx) -> scores`` for a backend and an
+    objective tail.  ``ctx = (workload part..., tail leaves)``: the
+    workload part is ``(feats, mask)`` for the dense backends and
+    ``(tables,)`` for the table backend; the tail is ``kind (B,), area
+    (B,)`` (``INDEXED``: scores (B, P)), ``weights (B, 3)`` (``WEIGHTED``,
+    with ``area_constr`` fixed: scores (B, P)) or ``area (B,)`` (``PARETO``:
+    (B, P, 3) vectors).  The table callback of the indexed tail carries
+    ``gen_step``, the ``ga_gen_step`` kernel wrapper, which the GA runs in
+    place of its plain generation step; the kernel scores only that
+    tail, so the weighted and Pareto tails run the plain step."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
-    obj = make_indexed_objective()
+    if tail == INDEXED:
+        indexed = make_indexed_objective()
+
+        def obj(r, ctx):
+            return indexed(r, ctx[-2], ctx[-1])
+    elif tail == WEIGHTED:
+        weighted = make_weighted_objective(area_constr)
+
+        def obj(r, ctx):
+            return weighted(r, ctx[-1])
+    elif tail == PARETO:
+        vector = make_pareto_objective()
+
+        def obj(r, ctx):
+            return vector(r, ctx[-1])
+    else:
+        raise ValueError(f"objective tail must be {INDEXED!r}, {WEIGHTED!r} or "
+                         f"{PARETO!r}, got {tail!r}")
 
     if backend == "table":
         def ev(genomes, ctx):
@@ -152,9 +197,9 @@ def _ctx_eval(tech: TechParams, backend: str) -> Callable:
             return evaluate_designs_arrays(space.decode(genomes), ctx[0], ctx[1], tech)
 
     def eval_fn(genomes: torch.Tensor, ctx) -> torch.Tensor:
-        return obj(ev(genomes, ctx), ctx[-2], ctx[-1])
+        return obj(ev(genomes, ctx), ctx)
 
-    if backend == "table":
+    if backend == "table" and tail == INDEXED:
         def gen_step(pop, scores, u, ctx, **kw):
             return ga_gen_step(pop, scores, u, ctx, tech=tech, **kw)
 
@@ -176,13 +221,16 @@ def largest_workload_index(ws: WorkloadSet) -> int:
 # ----------------------------------------------------------------- seeding
 def _seed_rounds(generators: Sequence[torch.Generator], feats: torch.Tensor,
                  mask: torch.Tensor, pop_size: int, oversample: int,
-                 max_rounds: int, tech: TechParams):
+                 max_rounds: int, tech: TechParams, stream=None):
     """Batched rejection sampler against ONE workload per slot (feats
     (B, L, 6), mask (B, L)).  Each round every slot draws ``pop_size *
     oversample`` candidates from its own generator, keeps those that fit
     and are V/f-valid, and fills its next free pool slots.  The rounds stop
-    once every pool is full, which the host reads after each round (a
-    sync).  A slot draws the same candidates whatever batch it runs in."""
+    once every pool is full, which the host reads after each round.  With
+    ``stream`` (the current CUDA stream, which the rounds run on) that read
+    waits on an event recorded on it, so it never waits for other streams'
+    work; without, it is a plain read.  A slot draws the same candidates
+    whatever batch or stream it runs in."""
     B = feats.shape[0]
     dev = feats.device
     n_cand = pop_size * oversample
@@ -190,6 +238,9 @@ def _seed_rounds(generators: Sequence[torch.Generator], feats: torch.Tensor,
                        device=dev)  # row pop_size collects the overflow
     count = torch.zeros((B,), dtype=torch.int64, device=dev)
     bidx = torch.arange(B, device=dev)[:, None]
+    if stream is not None:
+        flag = torch.empty((), dtype=torch.bool, pin_memory=True)
+        round_done = torch.cuda.Event()
     for _ in range(int(max_rounds)):
         cand = torch.stack([space.random_genomes(n_cand, generator=g, device=dev)
                             for g in generators])
@@ -200,22 +251,118 @@ def _seed_rounds(generators: Sequence[torch.Generator], feats: torch.Tensor,
         idx = torch.where(ok & (pos < pop_size), pos, pop_size)
         pool[bidx, idx] = cand
         count = torch.clamp_max(count + ok.sum(dim=1), pop_size)
-        if bool((count >= pop_size).all()):
+        full = (count >= pop_size).all()
+        if stream is not None:
+            flag.copy_(full, non_blocking=True)
+            round_done.record(stream)
+            round_done.synchronize()
+            full = flag
+        if bool(full):
             break
     return pool[:, :pop_size], count
 
 
 def _seed_pools(generators, feats, mask, pop_size, *, tech, oversample=64,
-                max_rounds=8):
+                max_rounds=8, stream=None):
     """(pools (B, P, n), counts (B,)) on the device, not checked: each slot
     rejects against its own largest workload of feats (B, W, L, 6).  The
-    early exit costs a host sync a round and saves the rounds after the
-    pools fill (one round nearly always, at P=40); PERF.md has its reading
-    against all rounds without a sync."""
-    li = torch.argmax(_workload_weights(feats, mask.to(torch.float32)), dim=1)
-    bidx = torch.arange(feats.shape[0], device=feats.device)
-    return _seed_rounds(generators, feats[bidx, li], mask[bidx, li],
-                        int(pop_size), int(oversample), int(max_rounds), tech)
+    early exit costs a host read a round and saves the rounds after the
+    pools fill (one round nearly always, at P=40).  With a CUDA ``stream``
+    the rounds run on it (feats and mask must be ready there) and the
+    caller's stream waits for them before it uses the pools; the reads
+    wait for the seeding work only, not for a GA queued on the caller's
+    stream."""
+    main = None if stream is None else torch.cuda.current_stream(feats.device)
+    with contextlib.nullcontext() if stream is None else torch.cuda.stream(stream):
+        li = torch.argmax(_workload_weights(feats, mask.to(torch.float32)), dim=1)
+        bidx = torch.arange(feats.shape[0], device=feats.device)
+        pools, counts = _seed_rounds(generators, feats[bidx, li], mask[bidx, li],
+                                     int(pop_size), int(oversample), int(max_rounds),
+                                     tech, stream)
+    if stream is not None:
+        seeded = torch.cuda.Event()
+        seeded.record(stream)
+        main.wait_event(seeded)
+        # made on the seeding stream, used on the caller's: keep their memory
+        # until the caller's stream is done with them
+        pools.record_stream(main)
+        counts.record_stream(main)
+    return pools, counts
+
+
+# the six jointly constrained fields of the direct seeder: the demand
+# table's axes, then the capacity axes; their mixed-radix order defines
+# the 6-D cell index the CDF runs over
+_CAP_FIELDS = ("rows", "cols", "bits_cell", "c_per_tile", "t_per_router", "g_per_chip")
+
+
+def _seed_cells_cdf(demand_l: np.ndarray) -> np.ndarray:
+    """Host CDF of ONE workload's feasible cells: ``demand[rows, cols,
+    bits] <= c_per_tile * t_per_router * g_per_chip`` over the 6-D grid
+    (the rejection seeder's fit test; ``glb_mb`` and the V/f pair are
+    handled apart), as the inclusive int64 prefix sum over the flat (R, C,
+    Bc, Cpt, Tpr, Gpc) cell order."""
+    cpt = np.asarray(space.SPACE["c_per_tile"], np.float32)
+    tpr = np.asarray(space.SPACE["t_per_router"], np.float32)
+    gpc = np.asarray(space.SPACE["g_per_chip"], np.float32)
+    cap = cpt[:, None, None] * tpr[None, :, None] * gpc[None, None, :]
+    feas = demand_l[:, :, :, None, None, None] <= cap[None, None, None]
+    return np.cumsum(feas.reshape(-1).astype(np.int64))
+
+
+_VT_CDF: Dict[tuple, Tuple[torch.Tensor, int]] = {}
+
+
+def _vt_cdf(tech: TechParams, device) -> Tuple[torch.Tensor, int]:
+    """The (V, Tc) validity mask's inclusive prefix sum on ``device`` and
+    its total, per (tech, grid, device)."""
+    key = (tech, space.grid_token(), str(device))
+    hit = _VT_CDF.get(key)
+    if hit is None:
+        cdf = torch.cumsum(valid_vt_mask(tech).reshape(-1).to(torch.int64), 0)
+        hit = _VT_CDF[key] = (cdf.to(device), int(cdf[-1]))
+    return hit
+
+
+def _seed_direct(u: torch.Tensor, cdf6: torch.Tensor, tech: TechParams = TECH):
+    """Direct inverse-CDF seeder over the feasible cells of each slot's
+    largest workload (the table backend's alternative to the rejection
+    rounds): ``u`` (B, P, N_GENES + 2) uniforms, ``cdf6`` (B, n_cells)
+    ``_seed_cells_cdf`` stacks.  The last two uniforms pick a feasible
+    6-D cell and a V/f-valid (v_op, t_cycle) pair by ``searchsorted``;
+    each gene then sits uniformly inside its cell with a [1e-3, 1 - 1e-3]
+    margin, so ``space.decode_indices`` maps it back to that cell.  Every
+    design fits the largest workload and is V/f-valid by construction,
+    with no host sync.  Returns (pools (B, P, n), counts (B,)): a count is
+    P, or 0 when the workload fits nowhere."""
+    dev = u.device
+    sizes = {f: len(space.SPACE[f]) for f in space.FIELDS}
+    total6 = cdf6[:, -1:]  # (B, 1)
+    cdf2, total2 = _vt_cdf(tech, dev)
+    # the selector stays below the count, also where float32 rounding of
+    # u * total would reach it
+    k6 = torch.minimum((u[..., -2] * total6.to(torch.float32)).to(torch.int64),
+                       total6 - 1)
+    k2 = torch.clamp_max((u[..., -1] * float(total2)).to(torch.int64), total2 - 1)
+    sel6 = torch.searchsorted(cdf6, k6, right=True)
+    sel2 = torch.searchsorted(cdf2, k2, right=True)
+    idx = {}
+    rem = sel6
+    for f in reversed(_CAP_FIELDS):
+        idx[f] = rem % sizes[f]
+        rem = rem // sizes[f]
+    idx["t_cycle_ns"] = sel2 % sizes["t_cycle_ns"]
+    idx["v_op"] = sel2 // sizes["t_cycle_ns"]
+    genes = []
+    for j, f in enumerate(space.FIELDS):
+        frac = torch.clamp(u[..., j], 1e-3, 1.0 - 1e-3)
+        cell = (torch.floor(u[..., j] * sizes[f]) if f == "glb_mb"  # any cell
+                else idx[f].to(torch.float32))
+        genes.append(_true_div(cell + frac, float(sizes[f])))
+    pools = torch.stack(genes, dim=-1)
+    P = u.shape[1]
+    counts = torch.where(total6[:, 0] > 0, P, 0)
+    return pools, counts
 
 
 def _check_seeded(counts: np.ndarray, pop_size: int, names=None) -> None:
@@ -225,6 +372,16 @@ def _check_seeded(counts: np.ndarray, pop_size: int, names=None) -> None:
         raise RuntimeError(
             f"could not seed {pop_size} valid designs for batch element {bad}"
             f"{what}; {int(counts[bad])} found")
+
+
+def _objective_label(req: "SearchRequest") -> str:
+    """``SearchResult.objective``: the kind, the kind a weight vector
+    reproduces, or ``weighted(...)``."""
+    if req.obj_weights is None:
+        return req.objective
+    inv = {v: k for k, v in OBJECTIVE_WEIGHTS.items()}
+    w = tuple(float(v) for v in req.obj_weights)
+    return inv.get(w, f"weighted{w}")
 
 
 def seed_population_batched(
@@ -325,7 +482,7 @@ def _finalize_batch(
         top_g, top_s = flat_g[i][keep], flat_s[i][keep]
         out.append(SearchResult(
             workload_names=tuple(r.ws.names),
-            objective=r.objective,
+            objective=_objective_label(r),
             ga=GAResult(*(f[i] for f in ga_np)),
             top_designs=space.design_dicts_from_indices(idx[i][keep]),
             top_scores=top_s,
@@ -353,7 +510,7 @@ def _finalize_batch_thin(
         conv = thin_np.convergence[i]
         out.append(SearchResult(
             workload_names=tuple(r.ws.names),
-            objective=r.objective,
+            objective=_objective_label(r),
             ga=None,
             top_designs=space.design_dicts_from_indices(space.decode_indices_np(top_g)),
             top_scores=top_s,
@@ -362,6 +519,42 @@ def _finalize_batch_thin(
             valid=bool(kept),
             partial=bool(partial),
             generations=int(conv.shape[-1]) - 1,
+        ))
+    return out
+
+
+def _finalize_batch_pareto(
+    thin_np: ParetoThin, requests: Sequence["SearchRequest"],
+    *, history: Optional[tuple] = None,
+) -> List[SearchResult]:
+    """Host finalize of a Pareto plan: the device epilogue picked each
+    slot's front members in crowded order (K = the plan's largest
+    ``pareto_k``), so a request keeps its own ``pareto_k`` prefix with the
+    members' (E, L, A) vectors.  ``history`` is the host ``(genomes_hist,
+    objs_hist)`` of a sequential engine; its scalar proxy (E*L)*A (the
+    ``ela`` bits) makes the attached ``ga`` readable by every history
+    consumer."""
+    sh_np = None
+    if history is not None:
+        gh_np, oh_np = history
+        sh_np = oh_np[..., 0] * oh_np[..., 1] * oh_np[..., 2]
+    out = []
+    for i, r in enumerate(requests):
+        kept = int(min(int(thin_np.n_kept[i]), int(r.pareto_k)))
+        top_g = thin_np.top_genomes[i][:kept]
+        conv = thin_np.convergence[i]
+        out.append(SearchResult(
+            workload_names=tuple(r.ws.names),
+            objective=PARETO,
+            ga=None if sh_np is None else _history_result(gh_np[i], sh_np[i]),
+            top_designs=space.design_dicts_from_indices(space.decode_indices_np(top_g)),
+            top_scores=thin_np.top_scores[i][:kept],
+            top_genomes=top_g,
+            convergence=conv,
+            valid=bool(kept),
+            partial=False,
+            generations=int(conv.shape[-1]) - 1,
+            objective_vectors=thin_np.top_vectors[i][:kept],
         ))
     return out
 
@@ -404,7 +597,7 @@ def empty_partial_result(req: "SearchRequest") -> SearchResult:
     designs, ``valid=False``, ``partial=True``."""
     return SearchResult(
         workload_names=tuple(req.ws.names),
-        objective=req.objective,
+        objective=_objective_label(req),
         ga=None,
         top_designs=[],
         top_scores=np.zeros((0,), np.float32),
@@ -422,6 +615,10 @@ class SearchRequest:
     """One DSE query, as data.  ``init_genomes`` (P, n) and ``u_blocks``
     (G, tot) replace the seeded population and the drawn uniform blocks
     when given (tests feed the JAX package's own); neither is modified.
+    ``obj_weights`` (w_E, w_L, w_A) switches the request to the
+    exponent-weighted objective; otherwise ``objective`` is a kind of
+    ``objectives.OBJECTIVES`` or ``"pareto"`` (NSGA-II front search, whose
+    result holds the ``pareto_k`` best front members).
 
     ``priority`` (0 = most urgent) and ``deadline_s`` (seconds from
     submit) are scheduling metadata for ``plan_batch``'s policies and the
@@ -440,26 +637,40 @@ class SearchRequest:
     u_blocks: Optional[object] = None
     priority: int = 0
     deadline_s: Optional[float] = None
-    obj_weights: Optional[Tuple[float, ...]] = None  # weighted objective: not ported
+    obj_weights: Optional[Tuple[float, ...]] = None
+    # objective="pareto" only: front members a result returns (crowded
+    # order); hashed by the cache and plan keys, not part of signature()
+    pareto_k: int = 10
 
     def signature(self) -> tuple:
         """Requests with equal signatures run as one batched GA.  The table
         backend reduced the layer axis away, so its signature carries no
-        workload shape; the dense backends group by their exact (W, L)."""
+        workload shape; the dense backends group by their exact (W, L).
+        The objective family closes it: indexed kinds, weighted (one
+        area), or Pareto."""
         if self.backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {self.backend!r}")
-        if self.objective == "pareto":
-            raise ValueError(f"objective='pareto' is {NOT_PORTED}")
-        if self.obj_weights is not None:
-            raise ValueError(f"obj_weights (the weighted objective) is {NOT_PORTED}")
-        if self.objective not in OBJECTIVE_INDEX:
+        if self.objective == PARETO:
+            if self.obj_weights is not None:
+                raise ValueError("objective='pareto' is incompatible with obj_weights")
+            if int(self.pareto_k) < 1:
+                raise ValueError(f"pareto_k must be >= 1, got {self.pareto_k!r}")
+            obj: tuple = (PARETO,)
+        elif self.obj_weights is not None:
+            if len(self.obj_weights) != 3:
+                raise ValueError(f"obj_weights must be (w_E, w_L, w_A), got "
+                                 f"{self.obj_weights!r}")
+            obj = (WEIGHTED, float(self.area_constr))
+        elif self.objective not in OBJECTIVE_INDEX:
             raise ValueError(
-                f"objective must be one of {tuple(OBJECTIVE_INDEX)}, "
-                f"got {self.objective!r}")
+                f"objective must be one of {tuple(OBJECTIVE_INDEX)} or "
+                f"{PARETO!r} (or pass obj_weights), got {self.objective!r}")
+        else:
+            obj = (INDEXED,)
         shape = (() if self.backend == "table"
                  else (int(self.ws.feats.shape[0]), int(self.ws.feats.shape[1])))
         return (self.backend, int(self.pop_size), int(self.generations),
-                self.tech, shape, ("indexed",))
+                self.tech, shape, obj)
 
 
 def _f32(x) -> torch.Tensor:
@@ -518,8 +729,9 @@ def plan_key(plan: BatchPlan, device="cuda") -> str:
     for r in plan.requests:
         h.update(r.ws.fingerprint().encode())
         h.update(repr((
-            r.objective, float(r.area_constr), r.backend, int(r.pop_size),
-            int(r.generations), int(r.top_k), r.tech,
+            r.objective, r.obj_weights, float(r.area_constr), r.backend,
+            int(r.pop_size), int(r.generations), int(r.top_k), int(r.pareto_k),
+            r.tech,
         )).encode())
         hash_stream(h, r)
     h.update(repr((int(plan.slots), int(plan.pad_w), int(plan.pad_l))).encode())
@@ -641,6 +853,18 @@ def plan_batch(
 
 
 # ----------------------------------------------------------------- engine
+def _pack_host(reqs: Sequence[SearchRequest], W: int, L: int):
+    """Slot-packed host feats (S, W, L, 6) and mask (S, W, L), zero-padded
+    and masked past each request's own shape."""
+    feats = np.zeros((len(reqs), W, L, 6), np.float32)
+    mask = np.zeros((len(reqs), W, L), bool)
+    for i, r in enumerate(reqs):
+        w, l = r.ws.feats.shape[:2]
+        feats[i, :w, :l] = r.ws.feats.cpu().numpy()
+        mask[i, :w, :l] = r.ws.mask.cpu().numpy()
+    return feats, mask
+
+
 @dataclasses.dataclass
 class _Staged:
     """Device tensors on their way to the host: pinned copies enqueued
@@ -667,14 +891,19 @@ class _LaunchPrep:
 class PendingLaunch:
     """A dispatched plan that ``harvest`` has not read yet.  One payload is
     set: ``thin`` (the staged thin epilogue: pipelined), ``ga`` (the staged
-    history: sequential) or ``results`` (finalized already: the sequential
-    segmented path, which syncs per segment anyway)."""
+    history: sequential), ``pareto`` (a Pareto plan's staged front, with
+    ``history`` on a sequential engine) or ``results`` (finalized already:
+    the sequential segmented path, which syncs per segment anyway)."""
 
     plan: BatchPlan
     thin: Optional[_Staged] = None
     ga: Optional[_Staged] = None
     results: Optional[List[SearchResult]] = None
     seed_check: Optional[Callable] = None
+    # Pareto plans: the staged ParetoThin, and (sequential engines) the
+    # staged genome and objective-vector histories
+    pareto: Optional[_Staged] = None
+    history: Optional[Tuple[_Staged, _Staged]] = None
 
 
 class SearchEngine:
@@ -702,12 +931,23 @@ class SearchEngine:
         first, so the host's finalize of one plan overlaps the device's
         work on the next.  Results equal the sequential path's except
         ``ga`` is ``None``.
+      * ``direct_seed`` - table-backend plans seed from the feasible-cell
+        CDF of each request's largest workload (``_seed_direct``; CDFs
+        cached per workload set, tech and grid) instead of the rejection
+        rounds: other pools, the same guarantees, no host sync.  The other
+        backends keep the rejection seeder, as in the JAX package.
+      * ``fused`` - accepted and without effect (the JAX package's two
+        survival programs give the same bits; the port has one).
 
-    ``dispatch`` waits for the device once per seeding round: the seeder
-    reads its pools' counts to stop once they are full.  As the device
-    runs one stream, that read also waits for every launch still queued,
-    so a dispatch behind a plan in flight waits for that plan's GA (``run``
-    seeds first for this reason).  Nothing else in ``dispatch`` waits:
+    Pareto plans (``objective="pareto"``) run single-shot also with
+    ``segment_gens``: NSGA-II carries state a ``GAState`` does not hold.
+
+    The rejection seeder reads its pools' counts once a round to stop once
+    they are full.  On CUDA its rounds run on the engine's seeding stream
+    and the read waits on an event of that stream, so a dispatch behind a
+    plan in flight does not wait for that plan's GA; the engine's stream
+    waits for the seeder before it uses the pools.  The NSGA-II front peel
+    reads the device every few fronts.  Nothing else in ``dispatch`` waits:
     copies to the host go to pinned buffers behind the work, and the
     seeding check moves to ``harvest``.  ``transfer_bytes`` counts the
     bytes brought to the host at the engine's sync point, ``launches`` the
@@ -720,11 +960,13 @@ class SearchEngine:
                  fused: Optional[bool] = None, direct_seed: bool = False):
         if mesh is not None:
             raise ValueError(f"SearchEngine(mesh=...) is {NOT_PORTED}")
-        if fused is not None:
-            raise ValueError(f"SearchEngine(fused=...) is {NOT_PORTED}")
-        if direct_seed:
-            raise ValueError(f"SearchEngine(direct_seed=True) is {NOT_PORTED}")
+        if fused not in (None, True, False):
+            raise ValueError(f"fused must be None, True or False, got {fused!r}")
+        self.fused = fused
+        self.direct_seed = bool(direct_seed)
         self.device = resolve_device(device)
+        self._seed_stream = (torch.cuda.Stream(device=self.device)
+                             if self.device.type == "cuda" else None)
         self.stream = stream_tag(self.device)
         cache_stream = getattr(result_cache, "stream", None)
         if cache_stream is not None and cache_stream != self.stream:
@@ -744,6 +986,9 @@ class SearchEngine:
         self._padded_tables: Dict[tuple, tuple] = {}
         self._packed_workloads: Dict[tuple, tuple] = {}
         self._stacked_tables: Dict[tuple, WorkloadTables] = {}
+        # direct-seeder CDFs: per request (host) and per plan (device)
+        self._seed_cdfs: Dict[tuple, np.ndarray] = {}
+        self._stacked_seed_cdfs: Dict[tuple, torch.Tensor] = {}
 
     # ------------------------------------------------------------ planning
     def run(self, requests: Sequence[SearchRequest]) -> List[SearchResult]:
@@ -840,18 +1085,26 @@ class SearchEngine:
 
     def _packed(self, reqs: Sequence[SearchRequest], W: int, L: int):
         """Slot-packed feats (S, W, L, 6) and mask (S, W, L) on the device,
-        zero-padded and masked past each request's own shape."""
+        zero-padded and masked past each request's own shape.  On CUDA they
+        are uploaded on the seeding stream, which the rejection seeder reads
+        them on (an upload on the engine's stream would wait for its queued
+        GA), and the engine's stream waits for that upload."""
         key = (tuple(r.ws.fingerprint() for r in reqs), W, L)
         hit = self._packed_workloads.get(key)
         if hit is None:
-            feats = np.zeros((len(reqs), W, L, 6), np.float32)
-            mask = np.zeros((len(reqs), W, L), bool)
-            for i, r in enumerate(reqs):
-                w, l = r.ws.feats.shape[:2]
-                feats[i, :w, :l] = r.ws.feats.cpu().numpy()
-                mask[i, :w, :l] = r.ws.mask.cpu().numpy()
-            hit = self._packed_workloads[key] = (self._to_device(feats),
-                                                 self._to_device(mask))
+            host = _pack_host(reqs, W, L)
+            if self._seed_stream is None:
+                hit = tuple(self._to_device(a) for a in host)
+            else:
+                main = torch.cuda.current_stream(self.device)
+                with torch.cuda.stream(self._seed_stream):
+                    hit = tuple(self._to_device(a) for a in host)
+                    uploaded = torch.cuda.Event()
+                    uploaded.record(self._seed_stream)
+                main.wait_event(uploaded)
+                for t in hit:
+                    t.record_stream(main)
+            self._packed_workloads[key] = hit
         return hit
 
     def execute(self, plan: BatchPlan, *,
@@ -865,7 +1118,8 @@ class SearchEngine:
 
     def _segmented(self, plan: BatchPlan) -> bool:
         k = self.segment_gens
-        return k is not None and 0 < k < int(plan.requests[0].generations)
+        r0 = plan.requests[0]
+        return k is not None and 0 < k < int(r0.generations) and r0.objective != PARETO
 
     def dispatch(self, plan: BatchPlan, *,
                  on_progress: Optional[Callable[[int, SearchResult], None]] = None,
@@ -885,6 +1139,18 @@ class SearchEngine:
         self.launches += 1
         kw = dict(pop_size=int(r0.pop_size), generations=int(r0.generations),
                   init_genomes=prep.init, ctx=prep.ctx, u_blocks=prep.u)
+        if r0.objective == PARETO:
+            # both engine modes run the same front epilogue, so their fronts
+            # are the same bits; the sequential one also keeps the history
+            kw["top_k"] = max(int(r.pareto_k) for r in plan.requests)
+            if self.pipelined:
+                thin = run_pareto_batched(prep.eval_fn, **kw)
+                return PendingLaunch(plan=plan, pareto=self._stage(thin),
+                                     seed_check=prep.seed_check)
+            gh, oh, thin = run_pareto_batched(prep.eval_fn, history=True, **kw)
+            return PendingLaunch(plan=plan, pareto=self._stage(thin),
+                                 history=(self._stage(gh), self._stage(oh)),
+                                 seed_check=prep.seed_check)
         if self.pipelined:
             thin = run_ga_batched_thin(prep.eval_fn,
                                        top_k=max(int(r.top_k) for r in plan.requests), **kw)
@@ -900,6 +1166,11 @@ class SearchEngine:
             pending.seed_check()
         if pending.results is not None:
             results = pending.results
+        elif pending.pareto is not None:
+            history = (None if pending.history is None
+                       else tuple(self._sync(h) for h in pending.history))
+            results = _finalize_batch_pareto(self._sync(pending.pareto),
+                                             pending.plan.requests, history=history)
         elif pending.thin is not None:
             results = _finalize_batch_thin(self._sync(pending.thin), pending.plan.requests)
         else:
@@ -925,10 +1196,18 @@ class SearchEngine:
             ctx: tuple = (self._tables(reqs, W, tech),)
         else:
             ctx = self._packed(reqs, W, L)
-        kinds = self._to_device(np.array([OBJECTIVE_INDEX[r.objective] for r in reqs],
-                                         np.int64))
-        areas = self._to_device(np.array([r.area_constr for r in reqs], np.float32))
-        ctx = ctx + (kinds, areas)
+        areas = np.array([r.area_constr for r in reqs], np.float32)
+        if r0.objective == PARETO:
+            ctx = ctx + (self._to_device(areas),)
+            eval_fn = _ctx_eval(tech, backend, PARETO)
+        elif r0.obj_weights is not None:
+            weights = np.array([r.obj_weights for r in reqs], np.float32)
+            ctx = ctx + (self._to_device(weights),)
+            eval_fn = _ctx_eval(tech, backend, WEIGHTED, float(r0.area_constr))
+        else:
+            kinds = np.array([OBJECTIVE_INDEX[r.objective] for r in reqs], np.int64)
+            ctx = ctx + (self._to_device(kinds), self._to_device(areas))
+            eval_fn = _ctx_eval(tech, backend)
         init = u = seed_check = None
         if fresh:
             gens = [_slot_generators(r.seed, self.device) for r in reqs]
@@ -940,13 +1219,14 @@ class SearchEngine:
                 if r.u_blocks is None else self._to_device(_f32(r.u_blocks))
                 for r, (_, g_ga) in zip(reqs, gens)
             ], dim=1)  # (G, S, tot)
-        return _LaunchPrep(ctx=ctx, eval_fn=_ctx_eval(tech, backend), init=init,
-                           u=u, seed_check=seed_check)
+        return _LaunchPrep(ctx=ctx, eval_fn=eval_fn, init=init, u=u,
+                           seed_check=seed_check)
 
     def _init_populations(self, reqs, gens, W: int, L: int):
         """(init (S, P, n), check): given ``init_genomes`` are copied in,
-        the other slots run the batched rejection seeder against the
-        slot-packed feats; ``check`` raises at harvest if one came up
+        the other slots are seeded, by the batched rejection seeder against
+        the slot-packed feats or, with ``direct_seed`` on the table backend,
+        by ``_seed_direct``; ``check`` raises at harvest if one came up
         short (``None`` when no slot was seeded)."""
         P = int(reqs[0].pop_size)
         need = [i for i, r in enumerate(reqs) if r.init_genomes is None]
@@ -954,9 +1234,17 @@ class SearchEngine:
         check = None
         if need:
             sub = [reqs[i] for i in need]
-            feats, mask = self._packed(sub, W, L)
-            seeded, counts = _seed_pools([gens[i][0] for i in need], feats, mask, P,
-                                         tech=reqs[0].tech)
+            g_seed = [gens[i][0] for i in need]
+            tech = reqs[0].tech
+            if self.direct_seed and reqs[0].backend == "table":
+                u = torch.stack([
+                    torch.rand((P, space.N_GENES + 2), generator=g, device=self.device)
+                    for g in g_seed])
+                seeded, counts = _seed_direct(u, self._stacked_seed_cdf(sub, tech), tech)
+            else:
+                feats, mask = self._packed(sub, W, L)
+                seeded, counts = _seed_pools(g_seed, feats, mask, P, tech=tech,
+                                             stream=self._seed_stream)
             staged = self._stage(counts)
             names = [r.ws.names for r in sub]
 
@@ -970,6 +1258,30 @@ class SearchEngine:
                 pools[i] = self._to_device(_f32(r.init_genomes))
         return torch.stack(pools), check
 
+    def _request_seed_cdf(self, req: SearchRequest) -> np.ndarray:
+        """One request's feasible-cell CDF for the direct seeder (host
+        numpy, over its largest workload by the crossbar-demand rule of
+        ``largest_workload_index``), per (workload set, tech, grid)."""
+        key = (req.ws.fingerprint(), req.tech, space.grid_token())
+        hit = self._seed_cdfs.get(key)
+        if hit is None:
+            feats = req.ws.feats.cpu().numpy().astype(np.float32)
+            mask = req.ws.mask.cpu().numpy().astype(bool)
+            w = (feats[..., 1] * feats[..., 2] * feats[..., 5] * mask).sum(-1)
+            demand = req.ws.tables(req.tech).demand.cpu().numpy()
+            hit = self._seed_cdfs[key] = _seed_cells_cdf(demand[int(np.argmax(w))])
+        return hit
+
+    def _stacked_seed_cdf(self, reqs: Sequence[SearchRequest], tech: TechParams):
+        """(S, n_cells) device stack of the requests' seed CDFs, cached on
+        their fingerprints."""
+        key = (tuple(r.ws.fingerprint() for r in reqs), tech, space.grid_token())
+        hit = self._stacked_seed_cdfs.get(key)
+        if hit is None:
+            hit = self._stacked_seed_cdfs[key] = self._to_device(
+                np.stack([self._request_seed_cdf(r) for r in reqs]))
+        return hit
+
     # ------------------------------------------------- segmented execution
     def _ckpt_dir(self, plan: BatchPlan) -> Optional[Path]:
         if self.checkpoint_dir is None:
@@ -982,7 +1294,7 @@ class SearchEngine:
         request when nothing was evaluated)."""
         if gh is None:
             return [None] * len(plan.requests)
-        return [_finalize(_history_result(gh[i], sh[i]), r.ws.names, r.objective,
+        return [_finalize(_history_result(gh[i], sh[i]), r.ws.names, _objective_label(r),
                           r.top_k, partial=True)
                 for i, r in enumerate(plan.requests)]
 
@@ -1097,7 +1409,7 @@ class SearchEngine:
                 else:
                     for i, r in enumerate(reqs):
                         on_progress(i, _finalize(_history_result(gh[i], sh[i]),
-                                                 r.ws.names, r.objective, r.top_k,
+                                                 r.ws.names, _objective_label(r), r.top_k,
                                                  partial=True))
 
         if ck_dir is not None:
@@ -1106,7 +1418,7 @@ class SearchEngine:
             return PendingLaunch(plan=plan,
                                  thin=self._stage(ga_epilogue_batched(gh, sh, top_k=K)))
         return PendingLaunch(plan=plan, results=[
-            _finalize(_history_result(gh[i], sh[i]), r.ws.names, r.objective, r.top_k)
+            _finalize(_history_result(gh[i], sh[i]), r.ws.names, _objective_label(r), r.top_k)
             for i, r in enumerate(reqs)])
 
 

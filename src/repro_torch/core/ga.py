@@ -38,6 +38,15 @@ for bit, and a checkpointed state restores the same stream on any device.
 The thin epilogue (``ga_epilogue_batched``) reduces a history on the
 device to each search's best unique designs and its convergence curve, so
 a launch brings back (B, K, n) genomes instead of (B, G+1, P, n).
+
+Pareto-front search (NSGA-II, ``run_pareto_batched``) shares the variation
+above and swaps the fitness plumbing: ``eval_fn`` returns (B, P, M)
+objective vectors, survival keeps the 2P candidates' first P in crowded
+order (non-domination rank, then crowding distance, then index: a unique
+total order, ``_crowded_order``), and the tournament compares crowded
+positions.  ``pareto_epilogue_batched`` picks each search's best front
+members, one per decoded grid cell, over its whole history.  The front
+peel syncs the host once every ``PEEL_BLOCK`` fronts, not once a front.
 """
 from __future__ import annotations
 
@@ -48,6 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import space
+from repro_torch.core.objectives import pareto_scalar
 
 SBX_PROB = 0.95
 SBX_ETA = 3.0
@@ -82,6 +92,21 @@ class GAThin(NamedTuple):
     +inf), and the best-so-far score per generation."""
 
     top_genomes: torch.Tensor  # (B, K, n)
+    top_scores: torch.Tensor  # (B, K)
+    n_kept: torch.Tensor  # (B,) int64
+    convergence: torch.Tensor  # (B, G+1)
+
+
+class ParetoThin(NamedTuple):
+    """``GAThin``'s twin for Pareto searches: per search the best
+    ``min(top_k, unique feasible cells)`` front members in crowded order
+    (ascending rank, descending crowding, flat history index), one per
+    decoded grid cell, with their (E, L, A) vectors and their scalar E*L*A
+    proxy (the ``ela`` bits); ``convergence`` is the running best proxy.
+    Rows past ``n_kept`` are padding (genome 0, vector and score +inf)."""
+
+    top_genomes: torch.Tensor  # (B, K, n)
+    top_vectors: torch.Tensor  # (B, K, M)
     top_scores: torch.Tensor  # (B, K)
     n_kept: torch.Tensor  # (B,) int64
     convergence: torch.Tensor  # (B, G+1)
@@ -150,6 +175,88 @@ def survivor_indices(scores: torch.Tensor, k: int) -> torch.Tensor:
     iota = torch.arange(N, device=scores.device, dtype=torch.int64)
     key = order_keys(scores).to(torch.int64) * (1 << 32) + iota
     return torch.argsort(key, dim=-1)[..., :k]
+
+
+# --------------------------------------------- NSGA-II building blocks
+PEEL_BLOCK = 8  # fronts peeled between two host checks
+
+
+def _dominance_rank(objs: torch.Tensor) -> torch.Tensor:
+    """(B, N, M) objective vectors -> (B, N) int64 non-domination rank (0 =
+    the Pareto front), minimization on every component: the dense O(N^2)
+    dominance mask and front peeling of the JAX package.  A row with a NaN
+    compares False both ways, so it neither dominates nor is dominated;
+    all-+inf infeasible rows tie with each other and are dominated by every
+    feasible one.  The peel runs ``PEEL_BLOCK`` rounds between two host
+    reads of "any row unranked"; a round after the last front assigns
+    nothing, so the ranks are those of a check every round."""
+    B, N, _ = objs.shape
+    a, b = objs[:, :, None, :], objs[:, None, :, :]
+    dom = (a <= b).all(dim=-1) & (a < b).any(dim=-1)  # dom[., i, j]: i dominates j
+    rank = torch.full((B, N), -1, dtype=torch.int64, device=objs.device)
+    r = 0
+    while True:
+        for _ in range(PEEL_BLOCK):
+            unassigned = rank < 0
+            blocked = (dom & unassigned[:, :, None]).any(dim=1)
+            rank = torch.where(unassigned & ~blocked, r, rank)
+            r += 1
+        if r >= N or not bool((rank < 0).any()):
+            return rank
+
+
+def _crowding(objs: torch.Tensor) -> torch.Tensor:
+    """(B, N, M) -> (B, N) float32 crowding distance in sign-folded bit
+    space (``order_keys``), one unique (key, index) sort per objective: the
+    two boundary designs get +inf, interior ones their neighbour gap over
+    the span, summed over the objectives in order.  The fold maps +-inf to
+    finite keys, so all-+inf rows never make inf - inf."""
+    B, N, M = objs.shape
+    total = torch.zeros((B, N), dtype=torch.float32, device=objs.device)
+    for m in range(M):
+        key = order_keys(objs[..., m])
+        perm = torch.argsort(key, dim=-1, stable=True)
+        kf = torch.gather(key, 1, perm).to(torch.float32)
+        span = (kf[:, -1] - kf[:, 0])[:, None]
+        prev = torch.cat([kf[:, :1], kf[:, :-1]], dim=1)
+        nxt = torch.cat([kf[:, 1:], kf[:, -1:]], dim=1)
+        d = torch.where(span > 0, (nxt - prev) / span, 0.0)
+        d[:, 0] = math.inf
+        d[:, N - 1] = math.inf
+        total.scatter_add_(1, perm, d)
+    return total
+
+
+def _crowded_order_keys(objs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The survival keys (rank, -crowding bits) (B, N) each: crowding is
+    non-negative and never NaN, so its negated bit pattern sorts it
+    descending."""
+    rank = _dominance_rank(objs)
+    ckey = -_crowding(objs).view(torch.int32)
+    return rank, ckey
+
+
+def _crowded_order(rank: torch.Tensor, ckey: torch.Tensor) -> torch.Tensor:
+    """(B, N) permutation sorting by (rank, ckey, index), NSGA-II's crowded
+    comparison as one unique total order: the pair packed into one int64,
+    the index by a stable sort."""
+    key = rank * (1 << 32) + (ckey.to(torch.int64) + (1 << 31))
+    return torch.argsort(key, dim=-1, stable=True)
+
+
+def _inverse(perm: torch.Tensor) -> torch.Tensor:
+    """(B, N) permutation -> its inverse: position of each index."""
+    pos = torch.empty_like(perm)
+    pos.scatter_(1, perm, torch.arange(perm.shape[1], device=perm.device)
+                 .expand_as(perm).contiguous())
+    return pos
+
+
+def _crowded_positions(objs: torch.Tensor) -> torch.Tensor:
+    """(B, P, M) -> (B, P) float32 crowded position (0 = best) of each
+    design, without reordering: the tournament key of the initial
+    population (survival emits later ones in crowded order)."""
+    return _inverse(_crowded_order(*_crowded_order_keys(objs))).to(torch.float32)
 
 
 def variation(pop: torch.Tensor, scores: torch.Tensor, u: torch.Tensor, *,
@@ -227,6 +334,24 @@ def make_gen_step(eval_fn: Callable, ctx, *, sbx_prob=SBX_PROB,
     if whole is not None:
         return lambda pop, scores, u: whole(pop, scores, u, ctx, **kw)
     return lambda pop, scores, u: plain_gen_step(pop, scores, u, eval_fn, ctx, **kw)
+
+
+def pareto_gen_step(pop, objs, sel, u, eval_fn, ctx, *, sbx_prob=SBX_PROB,
+                    sbx_eta=SBX_ETA, mut_eta=MUT_ETA):
+    """One NSGA-II generation: the shared variation with the crowded
+    position ``sel`` (B, P) as the tournament key, then the first P of
+    the 2P candidates in crowded order.  Returns ``(new_pop, new_objs,
+    new_sel, children, child_objs)``; survivors come in crowded order, so
+    the next tournament key is the position itself."""
+    B, P, _ = pop.shape
+    children = variation(pop, sel, u, sbx_prob=sbx_prob, sbx_eta=sbx_eta,
+                         mut_eta=mut_eta)
+    child_objs = eval_fn(children, ctx)
+    allg = torch.cat([pop, children], dim=1)
+    allo = torch.cat([objs, child_objs], dim=1)
+    idx = _crowded_order(*_crowded_order_keys(allo))[:, :P]
+    new_sel = torch.arange(P, device=pop.device, dtype=torch.float32).expand(B, P)
+    return _rows(allg, idx), _rows(allo, idx), new_sel, children, child_objs
 
 
 def draw_u_blocks(generators: Sequence[torch.Generator], generations: int,
@@ -362,6 +487,26 @@ def _cell_codes(genomes: torch.Tensor) -> torch.Tensor:
 _SENTINEL = torch.iinfo(torch.int64).max
 
 
+def _unique_best(flat_g: torch.Tensor, key: torch.Tensor, top_k: int):
+    """Per search, the ``top_k`` smallest ``key``s (B, N), one per decoded
+    grid cell (its smallest key), best first; keys at the sentinel are
+    dropped.  ``key`` must be unique below the sentinel.  Sorting by key
+    and then, stably, by cell code puts each cell's best first in its run;
+    those firsts, sorted by key again, are the selection.  Returns the
+    selected flat indices (B, K) and which of them are kept (B, K)."""
+    codes = _cell_codes(flat_g)
+    by_key = torch.argsort(key, dim=1)
+    by_cell = torch.gather(by_key, 1, torch.argsort(
+        torch.gather(codes, 1, by_key), dim=1, stable=True))
+    c = torch.gather(codes, 1, by_cell)
+    first = torch.ones_like(c, dtype=torch.bool)
+    first[:, 1:] = c[:, 1:] != c[:, :-1]
+    cand = torch.where(first, torch.gather(key, 1, by_cell), _SENTINEL)
+    K = min(int(top_k), key.shape[1])
+    sel_key, sel = torch.sort(cand, dim=1, stable=True)
+    return torch.gather(by_cell, 1, sel[:, :K]), sel_key[:, :K] < _SENTINEL
+
+
 def ga_epilogue_batched(genomes_hist: torch.Tensor, scores_hist: torch.Tensor,
                         *, top_k: int) -> GAThin:
     """The thin epilogue over (B, G+1, P, n) / (B, G+1, P) histories, on
@@ -374,10 +519,8 @@ def ga_epilogue_batched(genomes_hist: torch.Tensor, scores_hist: torch.Tensor,
     index``, whose ascending order is numpy's stable argsort of the scores
     (both zero signs fold to 0), or the sentinel when its score is not
     finite (a cell's non-finite occurrences sort after its finite ones on
-    the host, so dropping them first keeps the same occurrence).  Sorting
-    by key and then, stably, by cell code puts each cell's best
-    occurrence first in its run; those firsts, sorted by key again, are
-    the selection in the host's order."""
+    the host, so dropping them first keeps the same occurrence); then
+    ``_unique_best`` picks in the host's order."""
     B, G1, P, n = genomes_hist.shape
     N = G1 * P
     flat_g = genomes_hist.reshape(B, N, n)
@@ -385,19 +528,7 @@ def ga_epilogue_batched(genomes_hist: torch.Tensor, scores_hist: torch.Tensor,
     iota = torch.arange(N, device=flat_s.device, dtype=torch.int64)
     key = order_keys(flat_s).to(torch.int64) * (1 << 32) + iota
     key = torch.where(torch.isfinite(flat_s), key, _SENTINEL)
-    codes = _cell_codes(flat_g)
-    by_key = torch.argsort(key, dim=1)  # keys are unique below the sentinel
-    by_cell = torch.gather(by_key, 1, torch.argsort(
-        torch.gather(codes, 1, by_key), dim=1, stable=True))
-    c = torch.gather(codes, 1, by_cell)
-    first = torch.ones_like(c, dtype=torch.bool)
-    first[:, 1:] = c[:, 1:] != c[:, :-1]
-    cand = torch.where(first, torch.gather(key, 1, by_cell), _SENTINEL)
-    K = min(int(top_k), N)
-    sel_key, sel = torch.sort(cand, dim=1, stable=True)
-    sel_key, sel = sel_key[:, :K], sel[:, :K]
-    keep = sel_key < _SENTINEL
-    j = torch.gather(by_cell, 1, sel)
+    j, keep = _unique_best(flat_g, key, top_k)
     top_g = torch.where(keep[..., None], _rows(flat_g, j), 0.0)
     top_s = torch.where(keep, torch.gather(flat_s, 1, j), math.inf)
     conv = torch.cummin(scores_hist.amin(dim=2), dim=1).values
@@ -411,6 +542,83 @@ def run_ga_batched_thin(eval_fn: Callable, *, top_k: int, **kw) -> GAThin:
     which itself never leaves the device."""
     res = run_ga_batched(eval_fn, **kw)
     return ga_epilogue_batched(res.genomes, res.scores, top_k=top_k)
+
+
+# ---------------------------------------------------- Pareto runs
+def _pareto_core(eval_fn: Callable, init_genomes: torch.Tensor, u: torch.Tensor,
+                 ctx: Any, **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Pareto twin of ``run_ga_batched``'s loop: same stream, same
+    variation, NSGA-II survival.  Returns the evaluated history
+    ``(genomes (B, G+1, P, n), objs (B, G+1, P, M))``."""
+    pop = init_genomes.to(torch.float32).clone()
+    objs = eval_fn(pop, ctx)
+    sel = _crowded_positions(objs)
+    hg, ho = [pop], [objs]
+    for g in range(u.shape[0]):
+        pop, objs, sel, children, child_objs = pareto_gen_step(
+            pop, objs, sel, u[g], eval_fn, ctx, **kw)
+        hg.append(children)
+        ho.append(child_objs)
+    return torch.stack(hg, dim=1), torch.stack(ho, dim=1)
+
+
+def pareto_epilogue_batched(genomes_hist: torch.Tensor, objs_hist: torch.Tensor,
+                            *, top_k: int) -> ParetoThin:
+    """Per search, the ``top_k`` best front members over the whole
+    (B, G+1, P, n) / (B, G+1, P, M) history, on its device: crowded order
+    (non-domination rank over all evaluated designs, crowding within a
+    rank, flat index) with non-finite rows dropped, one per decoded grid
+    cell (the cell's best-placed design), and the running best E*L*A.
+    With ``top_k`` large enough the picks cover the whole first front,
+    then spill into rank 1, 2, ..."""
+    B, G1, P, n = genomes_hist.shape
+    M = objs_hist.shape[-1]
+    N = G1 * P
+    flat_g = genomes_hist.reshape(B, N, n)
+    flat_o = objs_hist.reshape(B, N, M)
+    flat_s = pareto_scalar(flat_o)
+    pos = _inverse(_crowded_order(*_crowded_order_keys(flat_o)))
+    key = torch.where(torch.isfinite(flat_o).all(dim=-1), pos, _SENTINEL)
+    j, keep = _unique_best(flat_g, key, top_k)
+    top_g = torch.where(keep[..., None], _rows(flat_g, j), 0.0)
+    top_v = torch.where(keep[..., None], _rows(flat_o, j), math.inf)
+    top_s = torch.where(keep, torch.gather(flat_s, 1, j), math.inf)
+    conv = torch.cummin(flat_s.reshape(B, G1, P).amin(dim=2), dim=1).values
+    return ParetoThin(top_genomes=top_g, top_vectors=top_v, top_scores=top_s,
+                      n_kept=keep.sum(dim=1), convergence=conv)
+
+
+def run_pareto_batched(
+    eval_fn: Callable,
+    *,
+    pop_size: int,
+    generations: int,
+    init_genomes: torch.Tensor,
+    top_k: int,
+    ctx: Any = None,
+    u_blocks: Optional[torch.Tensor] = None,
+    generators: Optional[Sequence[torch.Generator]] = None,
+    history: bool = False,
+    sbx_prob: float = SBX_PROB,
+    sbx_eta: float = SBX_ETA,
+    mut_eta: float = MUT_ETA,
+):
+    """B independent NSGA-II searches, front extraction on the device.
+    ``eval_fn(genomes, ctx)`` returns (B, P, M) minimization vectors
+    (``objectives.make_pareto_objective``); randomness as in
+    ``run_ga_batched``.  Returns the batched ``ParetoThin``, or with
+    ``history=True`` ``(genomes_hist, objs_hist, thin)``: the same front
+    either way."""
+    B, P, n = init_genomes.shape
+    if P != int(pop_size):
+        raise ValueError(f"init_genomes holds {P} genomes, pop_size={pop_size}")
+    G = int(generations)
+    u = _stream(u_blocks, generators, G, B, block_layout(P, n).tot,
+                init_genomes.device)
+    gh, oh = _pareto_core(eval_fn, init_genomes, u, ctx, sbx_prob=sbx_prob,
+                          sbx_eta=sbx_eta, mut_eta=mut_eta)
+    thin = pareto_epilogue_batched(gh, oh, top_k=top_k)
+    return (gh, oh, thin) if history else thin
 
 
 def _add_batch(tree):

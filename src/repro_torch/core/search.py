@@ -9,8 +9,8 @@ and hands them to a ``core.engine.SearchEngine`` on the requested device.
 ``separate_search``      the baseline: one GA per single workload, all W
                            as one batched GA (``batched=False`` runs them
                            one by one; both give identical results).
-``batched_search``       B independent GAs (any mix of workload sets and
-                           seeds) as one batched GA.
+``batched_search``       B independent GAs (any mix of workload sets,
+                           seeds and objective weights) as one batched GA.
 ``joint_search_batched`` multi-seed joint search on top of it.
 ``rescore_designs``      re-evaluate any designs on any workload set or
                            objective (the paper's "failed designs").
@@ -19,6 +19,9 @@ Seeds are integers.  A search's randomness (its seeded population and
 its uniform blocks) comes from generators seeded by that integer, so a
 search gives the same result alone or in a batch.  ``init_genomes`` and
 ``u_blocks`` replace the seeded population and the drawn blocks.
+``objective="pareto"`` runs NSGA-II front search (the result holds the
+``pareto_k`` best front members and their (E, L, A) vectors), and
+``obj_weights`` the exponent-weighted objective.
 """
 from __future__ import annotations
 
@@ -68,6 +71,8 @@ def run_search(
     pop_size: int = 40,
     generations: int = 10,
     top_k: int = 10,
+    pareto_k: int = 10,
+    obj_weights: Optional[Sequence[float]] = None,
     init_genomes=None,
     u_blocks=None,
     tech: TechParams = TECH,
@@ -79,8 +84,9 @@ def run_search(
     req = SearchRequest(
         ws=ws, objective=objective, area_constr=float(area_constr),
         seed=int(seed), backend=backend, pop_size=int(pop_size),
-        generations=int(generations), top_k=int(top_k), tech=tech,
-        init_genomes=init_genomes, u_blocks=u_blocks,
+        generations=int(generations), top_k=int(top_k), pareto_k=int(pareto_k),
+        obj_weights=None if obj_weights is None else tuple(float(w) for w in obj_weights),
+        tech=tech, init_genomes=init_genomes, u_blocks=u_blocks,
     )
     return _engine(engine, device).run([req])[0]
 
@@ -96,10 +102,12 @@ def batched_search(
     *,
     names: Optional[Sequence] = None,
     objective: str = "ela",
+    obj_weights=None,
     area_constr: float = 150.0,
     pop_size: int = 40,
     generations: int = 10,
     top_k: int = 10,
+    pareto_k: int = 10,
     init_genomes=None,
     u_blocks=None,
     tech: TechParams = TECH,
@@ -108,8 +116,9 @@ def batched_search(
     engine: Optional[SearchEngine] = None,
 ) -> List[SearchResult]:
     """B independent searches: ``seeds`` (B,), ``feats`` (B, W, L, 6),
-    ``mask`` (B, W, L), optional ``init_genomes`` (B, P, n) and
-    ``u_blocks`` (B, G, tot).  Element b gives the same result as
+    ``mask`` (B, W, L), optional ``init_genomes`` (B, P, n),
+    ``u_blocks`` (B, G, tot) and ``obj_weights`` (B, 3), each element's
+    exponent weights.  Element b gives the same result as
     ``run_search(seeds[b], ...)`` on its own workload set."""
     feats = torch.as_tensor(np.asarray(feats, np.float32))
     mask = torch.as_tensor(np.asarray(mask, bool))
@@ -120,16 +129,21 @@ def batched_search(
         names_b = [tuple(names)] * B
     else:
         names_b = [tuple(n) for n in names]
+    if obj_weights is not None:
+        obj_weights = np.asarray(obj_weights, np.float64)
     reqs = [
         SearchRequest(
             ws=WorkloadSet(names=names_b[b], feats=feats[b], mask=mask[b]),
             objective=objective,
+            obj_weights=(None if obj_weights is None
+                         else tuple(float(w) for w in obj_weights[b])),
             area_constr=float(area_constr),
             seed=int(seeds[b]),
             backend=backend,
             pop_size=int(pop_size),
             generations=int(generations),
             top_k=int(top_k),
+            pareto_k=int(pareto_k),
             tech=tech,
             init_genomes=None if init_genomes is None else init_genomes[b],
             u_blocks=None if u_blocks is None else u_blocks[b],

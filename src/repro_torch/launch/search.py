@@ -13,6 +13,21 @@ per-workload baselines, whose winners are re-scored on the whole set.
 ``table`` (factorized grid tables; every generation on the card is one
 ``ga_gen_step`` kernel launch).  ``--device`` defaults to ``cuda``.
 
+``--objective pareto`` runs NSGA-II front search: each seed's result holds
+the ``--pareto-k`` best front members in crowded order with their (E, L,
+A) vectors (with ``--separate``, the winners are re-scored on the whole set
+under the scalar proxy E*L*A, the ``ela`` objective).
+
+``--lm-workloads`` adds LM architectures (``configs``) exported as IMC
+workloads (``workloads/lm.py``, ``--mode decode|prefill``, ``--seq`` tokens
+for prefill) to the CNNs of ``--workloads``.  LM weights fill all but a few
+of the grid's capacity cells, so the rejection seeder rarely finds a
+population for them, and the CLI then stops with "could not seed", as the
+JAX package's does (``--lm-workloads llama3.2-1b,mixtral-8x7b --mode
+decode`` stops there in both).  Seed such mixes through the API, with
+``SearchEngine(direct_seed=True)`` on the table backend or by deep
+oversampling, as ``src/repro_torch/examples/lm_hw_cosearch.py`` does.
+
 ``--serve N`` runs the DSE service instead: N heterogeneous requests
 (workload subsets x objectives x seeds over the selected set,
 ``serve.dse.paper_request_mix``) are queued and drained, slot-packed,
@@ -48,23 +63,29 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch.configs.base import get_config
 from repro_torch.core.engine import SearchEngine
 from repro_torch.core.search import (
     joint_search_batched,
     rescore_designs,
     separate_search,
 )
-from repro_torch.core.objectives import OBJECTIVES
+from repro_torch.core.objectives import OBJECTIVES, PARETO
 from repro_torch.device import resolve_device
 from repro_torch.serve.cache import ResultCache
 from repro_torch.serve.dse import AsyncDSEService, DSEService, RetryPolicy, paper_request_mix
 from repro_torch.workloads.cnn import PAPER_WORKLOADS, cnn_workload
+from repro_torch.workloads.lm import lm_workload
 from repro_torch.workloads.pack import WorkloadSet, pack_workloads
 
 
 def build_workloads(args) -> WorkloadSet:
-    names = [n for n in args.workloads.split(",") if n] or list(PAPER_WORKLOADS)
-    return pack_workloads([(n, cnn_workload(n)) for n in names])
+    """The CNNs of ``--workloads`` and the LM configs of ``--lm-workloads``;
+    the paper's four CNNs when both are empty."""
+    named = [(n, cnn_workload(n)) for n in args.workloads.split(",") if n]
+    named += [(n, lm_workload(get_config(n), mode=args.mode, seq=args.seq))
+              for n in args.lm_workloads.split(",") if n]
+    return pack_workloads(named or [(n, cnn_workload(n)) for n in PAPER_WORKLOADS])
 
 
 def _fmt(v, spec: str = ".2f") -> str:
@@ -203,7 +224,19 @@ def serve(args, ws: WorkloadSet, dev) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--workloads", default="", help="CNN names, comma-sep")
-    ap.add_argument("--objective", default="ela", choices=list(OBJECTIVES))
+    ap.add_argument("--lm-workloads", default="",
+                    help="LM config names (configs/), comma-sep, as IMC workloads")
+    ap.add_argument("--mode", default="decode", choices=["decode", "prefill"],
+                    help="--lm-workloads: per-token decode or a whole prefill")
+    ap.add_argument("--seq", type=int, default=256,
+                    help="--lm-workloads --mode prefill: tokens per prefill")
+    ap.add_argument(
+        "--objective", default="ela", choices=list(OBJECTIVES) + [PARETO],
+        help="scalar objective (ela/edp/e/l) or 'pareto' for NSGA-II front "
+             "search: each result holds the --pareto-k best non-dominated "
+             "designs in crowded order with their (E, L, A) vectors")
+    ap.add_argument("--pareto-k", type=int, default=10, metavar="K",
+                    help="--objective pareto: front members to return")
     ap.add_argument(
         "--backend", default="dense", choices=["dense", "kernel", "table"],
         help="cost-model evaluator: plain PyTorch, the imc_eval kernel, or "
@@ -282,8 +315,11 @@ def main(argv=None) -> int:
         return serve(args, ws, dev)
 
     kw = dict(objective=args.objective, area_constr=args.area,
-              pop_size=args.pop, generations=args.gens,
+              pop_size=args.pop, generations=args.gens, pareto_k=args.pareto_k,
               backend=args.backend, device=dev, engine=build_engine(args, dev))
+    # separate winners are re-scored on the whole set under a scalar
+    # objective: the Pareto family's is its E*L*A proxy, the ela objective
+    rescore_obj = "ela" if args.objective == PARETO else args.objective
     t0 = time.perf_counter()
     ress = joint_search_batched(list(range(args.seeds)), ws, **kw)
     dt_all = time.perf_counter() - t0
@@ -306,6 +342,14 @@ def main(argv=None) -> int:
             "convergence": [float(c) for c in res.convergence],
             "wall_s": dt_all / args.seeds,
         }
+        if res.objective_vectors is not None:
+            entry["pareto_front"] = [
+                {"E_pj": float(v[0]), "L_ns": float(v[1]), "A_mm2": float(v[2]),
+                 "design": d}
+                for v, d in zip(res.objective_vectors, res.top_designs)]
+            for j, v in enumerate(res.objective_vectors):
+                print(f"         front[{j}]: E={v[0]:.4g}pJ L={v[1]:.4g}ns "
+                      f"A={v[2]:.4g}mm2")
         if args.separate:
             sep = separate_search(seed + 1000, ws, **kw)
             cross = {}
@@ -313,7 +357,7 @@ def main(argv=None) -> int:
                 best_on_all = None
                 if len(r.top_genomes):
                     s_all, _ = rescore_designs(
-                        r.top_genomes, ws, objective=args.objective,
+                        r.top_genomes, ws, objective=rescore_obj,
                         area_constr=args.area, device=dev)
                     failed = float(np.mean(~np.isfinite(s_all)))
                     fin = s_all[np.isfinite(s_all)]

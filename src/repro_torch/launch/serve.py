@@ -89,7 +89,9 @@ def serve_burst(cfg: ModelConfig, params: dict, requests: Sequence[Request], *,
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", default="llama3.2-1b", choices=list_configs())
+    ap.add_argument("--config", default="llama3.2-1b",
+                    choices=[n for n in list_configs()
+                             if not transformer.unsupported(get_config(n))])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=2048)

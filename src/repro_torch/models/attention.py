@@ -82,6 +82,42 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
 
 
+def _decode_scores(qf: torch.Tensor, k_cache: torch.Tensor) -> torch.Tensor:
+    """(B, KV, G, Sq, S) float32 scores of ``qf`` (B, Sq, KV, G, D) against the
+    cache (B, S, KV, D), both in the cache's dtype.  On CUDA with a 16-bit
+    cache: one ``bmm`` per sequence with float32 accumulation and a float32
+    result (``out_dtype``), reading the cache in place (its (KV, D, S) view
+    is a strided batch cuBLAS takes as is); elsewhere the widened einsum."""
+    if not _half_on_cuda(k_cache):
+        return torch.einsum("bqkgd,bskd->bkgqs", qf.float(), k_cache.float())
+    B, S, KV, D = k_cache.shape
+    Sq, G = qf.shape[1], qf.shape[3]
+    q = qf.permute(0, 2, 3, 1, 4).reshape(B, KV, G * Sq, D)
+    s = torch.empty((B, KV, G * Sq, S), dtype=torch.float32, device=k_cache.device)
+    for b in range(B):
+        torch.bmm(q[b], k_cache[b].permute(1, 2, 0), out_dtype=torch.float32, out=s[b])
+    return s.view(B, KV, G, Sq, S)
+
+
+def _decode_values(p: torch.Tensor, v_cache: torch.Tensor) -> torch.Tensor:
+    """(B, KV, G, Sq, D) float32 of the probabilities ``p`` (B, KV, G, Sq, S),
+    already in the cache's dtype, against v (B, S, KV, D), as
+    ``_decode_scores`` reads k."""
+    if not _half_on_cuda(v_cache):
+        return torch.einsum("bkgqs,bskd->bkgqd", p.float(), v_cache.float())
+    B, S, KV, D = v_cache.shape
+    G, Sq = p.shape[2], p.shape[3]
+    pr = p.reshape(B, KV, G * Sq, S)
+    out = torch.empty((B, KV, G * Sq, D), dtype=torch.float32, device=v_cache.device)
+    for b in range(B):
+        torch.bmm(pr[b], v_cache[b].permute(1, 0, 2), out_dtype=torch.float32, out=out[b])
+    return out.view(B, KV, G, Sq, D)
+
+
+def _half_on_cuda(cache: torch.Tensor) -> bool:
+    return cache.is_cuda and cache.dtype in (torch.bfloat16, torch.float16)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, *,
                      window: int = 0, valid_len=None) -> torch.Tensor:
     """Single-token decode: q (B, 1, H, D) against a full cache (B, S, KV, D).
@@ -89,16 +125,16 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     ``valid_len`` (int or (B,)) masks cache rows ``>= valid_len``;
     ``window`` masks a linear-layout cache to its trailing window.  As in
     the JAX package the query is rounded to the cache's dtype and the
-    probabilities to v's dtype, and both products accumulate in float32:
-    the cache stays stored in its own dtype, and the rows each product
-    reads are widened on the fly (exact for bf16), which is what
-    ``preferred_element_type=float32`` computes.
+    probabilities to v's dtype, and both products accumulate in float32
+    (``preferred_element_type=float32``) with the cache read in its own
+    dtype: on the card a bf16 cache is never copied; on the CPU, the plain
+    version, the rows are widened to float32 (exact for bf16).
     """
     B, Sq, H, D = q.shape
     _, S, KV, _ = k_cache.shape
     G = H // KV
     qf = (q * D ** -0.5).to(k_cache.dtype).reshape(B, Sq, KV, G, D)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qf.float(), k_cache.float())
+    s = _decode_scores(qf, k_cache)
     pos = torch.arange(S, device=q.device)
     if window > 0:
         ok = pos >= (S - window)  # query sits at position S-1
@@ -108,5 +144,5 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
         ok = pos[None, :] < vl[:, None]  # (B, S)
         s = torch.where(ok[:, None, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bkgqd", p.to(v_cache.dtype).float(), v_cache.float())
+    out = _decode_values(p.to(v_cache.dtype), v_cache)
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)

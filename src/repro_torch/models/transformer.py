@@ -42,17 +42,24 @@ PyTree = Any
 ACT_DTYPE = torch.bfloat16
 
 
+def unsupported(cfg: ModelConfig) -> str:
+    """Why the port cannot serve ``cfg`` yet, or "" when it can."""
+    if cfg.n_experts:
+        return f"{cfg.name}: MoE layers (family {cfg.family!r}) are not ported yet"
+    if cfg.is_encdec:
+        return (f"{cfg.name}: encoder / cross-attention (family {cfg.family!r}) "
+                "is not ported yet")
+    if cfg.rope_type == "mrope" or cfg.vision_tokens:
+        return (f"{cfg.name}: mrope / vision inputs (family {cfg.family!r}) are "
+                "not ported yet")
+    return ""
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the families whose layers are not ported yet."""
-    if cfg.n_experts:
-        raise NotImplementedError(f"{cfg.name}: MoE layers (family {cfg.family!r}) "
-                                  "are not ported yet")
-    if cfg.is_encdec:
-        raise NotImplementedError(f"{cfg.name}: encoder / cross-attention (family "
-                                  f"{cfg.family!r}) is not ported yet")
-    if cfg.rope_type == "mrope" or cfg.vision_tokens:
-        raise NotImplementedError(f"{cfg.name}: mrope / vision inputs (family "
-                                  f"{cfg.family!r}) are not ported yet")
+    why = unsupported(cfg)
+    if why:
+        raise NotImplementedError(why)
 
 
 # ======================================================================

@@ -4,7 +4,8 @@ The cheapest search is the one not run: ``request_key`` is a sha256 over
 everything that decides a request's result bits
 
     (cost-model version, grid token, workload fingerprint, objective,
-     area constraint, backend, pop size, generations, top_k, tech,
+     exponent weights, area constraint, backend, pop size, generations,
+     top_k, pareto_k, tech,
      the random stream: its device's generator, the seed, and any given
      initial population or uniform blocks)
 
@@ -25,7 +26,8 @@ a memory eviction never touches the disk).
 Only full results are cached: ``partial=True`` snapshots are views of an
 unfinished search.  Full results without a history (``ga=None``, the
 pipelined engine's) are cached too; ``valid=False`` full results as well,
-since searching again cannot make them feasible.
+since searching again cannot make them feasible.  Pareto results carry
+their members' (E, L, A) vectors through both tiers.
 """
 from __future__ import annotations
 
@@ -57,7 +59,8 @@ def request_key(req: SearchRequest, stream: str) -> str:
     h.update(req.ws.fingerprint().encode())
     h.update(repr((
         req.objective, req.obj_weights, float(req.area_constr), req.backend,
-        int(req.pop_size), int(req.generations), int(req.top_k), req.tech,
+        int(req.pop_size), int(req.generations), int(req.top_k), int(req.pareto_k),
+        req.tech,
     )).encode())
     h.update(stream.encode())
     hash_stream(h, req)
@@ -65,27 +68,31 @@ def request_key(req: SearchRequest, stream: str) -> str:
 
 
 def _encode(res: SearchResult) -> list:
-    """A result as ``checkpoint.store`` leaves, always the same eight: the
+    """A result as ``checkpoint.store`` leaves, always the same nine: the
     four history fields (empty for a result without one), the top scores,
-    genomes and convergence, and the other fields as a JSON byte array."""
+    genomes and convergence, the Pareto members' objective vectors (empty
+    for the scalar families), and the other fields as a JSON byte array."""
     thin = res.ga is None
+    vecs = res.objective_vectors
     meta = {
         "workload_names": list(res.workload_names),
         "objective": res.objective,
         "valid": bool(res.valid),
         "generations": int(res.generations),
         "thin": thin,
+        "vectors": vecs is not None,
     }
     history = [_EMPTY] * 4 if thin else [np.asarray(f) for f in res.ga]
     return history + [
         np.asarray(res.top_scores), np.asarray(res.top_genomes),
         np.asarray(res.convergence),
+        _EMPTY if vecs is None else np.asarray(vecs),
         np.frombuffer(json.dumps(meta).encode(), np.uint8),
     ]
 
 
 def _decode(leaves: list) -> SearchResult:
-    g, s, bg, bs, ts, tg, cv, blob = leaves
+    g, s, bg, bs, ts, tg, cv, ov, blob = leaves
     meta = json.loads(bytes(np.asarray(blob).tobytes()).decode())
     ga = None if meta["thin"] else GAResult(genomes=g, scores=s, best_genome=bg,
                                             best_score=bs)
@@ -103,6 +110,7 @@ def _decode(leaves: list) -> SearchResult:
         valid=bool(meta["valid"]),
         partial=False,
         generations=int(meta["generations"]),
+        objective_vectors=ov if meta["vectors"] else None,
     )
 
 

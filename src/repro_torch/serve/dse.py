@@ -725,10 +725,11 @@ class DSEService:
     def _stream_pipelined(self) -> Iterator[Tuple[int, SearchResult]]:
         """Double-buffered drain: dispatch plan i+1, THEN harvest plan i,
         so the host-side finalize of one launch overlaps device compute
-        of the next.  Seeding plan i+1 reads the device once a round, so
-        that dispatch also waits for plan i's GA still queued (the engine
-        class says why); the overlap is plan i's finalize against plan
-        i+1's GA.  At most one launch is in flight beyond the one
+        of the next.  Seeding plan i+1 reads the device once a round, on
+        the engine's seeding stream, so on CUDA that dispatch need not wait
+        for plan i's GA still queued (the engine class says why); the
+        overlap is plan i's GA and finalize against plan i+1's seeding and
+        GA.  At most one launch is in flight beyond the one
         being harvested; any exception rolls the in-flight launch's
         requests back into the queue before propagating."""
         prev = None  # (plan, rids, t0, pending, td) still in flight

@@ -432,3 +432,225 @@ def test_engine_runs_through_kernels_on_card(cuda, name, counter):
         lk, _ = transformer.prefill(cfg, params, toks, impl="kernel")
         lp, _ = transformer.prefill(cfg, params, toks, impl="plain")
     assert float((lk.float() - lp.float()).abs().max()) <= 0.1
+
+
+# ------------------------------------- objectives, NSGA-II, direct seeding
+def _same_inputs(P, G, B, seed):
+    g = torch.Generator().manual_seed(seed)
+    init = torch.rand((B, P, space.N_GENES), generator=g)
+    u = torch.rand((B, G, ga.block_layout(P, space.N_GENES).tot), generator=g)
+    return init, u
+
+
+@pytest.mark.parametrize("area", [150.0, 1e9])
+@pytest.mark.parametrize("backend", ["table", "kernel"])
+def test_pareto_and_weighted_searches_on_card_equal_cpu(cuda, ws, backend, area):
+    """Given the same populations and blocks, the Pareto and weighted
+    searches on the card give the CPU's fronts and bests: the same decoded
+    designs, in the same order, with vectors and scores within rtol 1e-5
+    (the dense and table cost models round alike on both devices up to the
+    order of their sums).  At the paper's 150 mm^2 some seeds fail on area
+    alone, so the tails' area term marks rows +inf; 1e9 never binds."""
+    from repro_torch.core.engine import SearchEngine
+
+    P, G, B = 16, 3, 3
+    _, u = _same_inputs(P, G, B, 5)
+    # populations that fit the set (the paper's seeding rule, CPU streams)
+    init = torch.stack([search.seed_population(b, ws, P, device="cpu") for b in range(B)])
+    if area < 1e9:
+        r = evaluate_designs_arrays(space.decode(init.reshape(-1, space.N_GENES)), ws.feats,
+                                    ws.mask)
+        assert bool((r.area_mm2 > area).any()) and bool((r.area_mm2 <= area).any())
+    feats = ws.feats[None].expand(B, -1, -1, -1)
+    mask = ws.mask[None].expand(B, -1, -1)
+    common = dict(pop_size=P, generations=G, init_genomes=init.numpy(), u_blocks=u.numpy(),
+                  backend=backend, area_constr=area)
+    runs = {}
+    for dev in ("cpu", cuda):
+        eng = SearchEngine(device=dev)
+        runs[str(dev)] = (
+            search.batched_search([0, 1, 2], feats, mask, objective="pareto", pareto_k=6,
+                                  engine=eng, **common),
+            search.batched_search([0, 1, 2], feats, mask,
+                                  obj_weights=[(1.0, 1.0, 0.0), (0.5, 2.0, 1.5), (1, 1, 1)],
+                                  engine=eng, **common))
+    assert any(r.valid for res in runs["cpu"] for r in res)
+    for cpu_res, card_res in zip(runs["cpu"], runs[str(cuda)]):
+        for a, b in zip(cpu_res, card_res):
+            assert a.objective == b.objective and a.valid == b.valid
+            np.testing.assert_array_equal(space.decode_indices_np(a.top_genomes),
+                                          space.decode_indices_np(b.top_genomes))
+            np.testing.assert_allclose(b.top_scores, a.top_scores, rtol=1e-5)
+            if a.objective_vectors is not None:
+                np.testing.assert_allclose(b.objective_vectors, a.objective_vectors,
+                                           rtol=1e-5)
+
+
+def test_direct_seed_on_card_equals_cpu(cuda, ws):
+    """The direct seeder fed the same uniforms and CDFs: the same genomes,
+    bit for bit, on both devices; every seed fits and is V/f-valid."""
+    from repro_torch.core import engine as eng_mod
+    from repro_torch.core.engine import SearchEngine, SearchRequest
+
+    reqs = [SearchRequest(ws=ws.subset(s), backend="table") for s in ([0], [1, 2], [0, 1, 2, 3])]
+    u = torch.rand((3, 40, space.N_GENES + 2), generator=torch.Generator().manual_seed(2))
+    cdf = SearchEngine(device="cpu")._stacked_seed_cdf(reqs, reqs[0].tech)
+    cpu_pools, cpu_counts = eng_mod._seed_direct(u, cdf, reqs[0].tech)
+    card = SearchEngine(device=cuda)
+    pools, counts = eng_mod._seed_direct(u.to(cuda), card._stacked_seed_cdf(reqs, reqs[0].tech),
+                                         reqs[0].tech)
+    assert torch.equal(pools.cpu(), cpu_pools) and torch.equal(counts.cpu(), cpu_counts)
+    direct = SearchEngine(device=cuda, direct_seed=True).run(
+        [SearchRequest(ws=r.ws, backend="table", pop_size=40, generations=2, seed=i)
+         for i, r in enumerate(reqs)])
+    for r, d in zip(reqs, direct):
+        wi = eng_mod.largest_workload_index(r.ws)
+        g0 = torch.from_numpy(d.ga.genomes[0]).to(cuda)
+        ev = evaluate_designs_arrays(space.decode(g0), r.ws.feats[wi][None].to(cuda),
+                                     r.ws.mask[wi][None].to(cuda))
+        assert bool(ev.fits.all()) and bool(ev.valid.all())
+
+
+def test_seeding_stream_keeps_the_pools(cuda, ws):
+    """The rejection seeder on the engine's seeding stream draws the pools
+    it draws on the current stream, and a later GA on the current stream
+    reads them complete."""
+    from repro_torch.core import engine as eng_mod
+    from repro_torch.core.engine import SearchEngine, plan_batch
+    from repro_torch.serve.dse import paper_request_mix
+
+    reqs = paper_request_mix(ws, 9, pop_size=40, generations=2)
+    plan = plan_batch(reqs)[0]
+    eng = SearchEngine(device=cuda)
+    feats, mask = eng._packed(plan.requests, plan.pad_w, plan.pad_l)
+    torch.cuda.synchronize()
+
+    def gens():
+        return [eng_mod._slot_generators(r.seed, cuda)[0] for r in plan.requests]
+
+    on_stream = eng_mod._seed_pools(gens(), feats, mask, 40, tech=plan.requests[0].tech,
+                                    stream=eng._seed_stream)
+    plain = eng_mod._seed_pools(gens(), feats, mask, 40, tech=plan.requests[0].tech)
+    for a, b in zip(on_stream, plain):
+        assert torch.equal(a, b)
+    res = eng.run(reqs)
+    alone = [SearchEngine(device=cuda).run([r])[0] for r in reqs[:3]]
+    for a, b in zip(res[:3], alone):
+        np.testing.assert_array_equal(a.ga.genomes, b.ga.genomes)
+
+
+def test_dispatch_does_not_wait_for_work_queued_before_it(cuda, ws):
+    """A pipelined dispatch behind ~0.5 s of device work queued on the
+    current stream returns before that work ends: the seeder's reads wait
+    on its own stream only.  Its results equal a dispatch on an idle card."""
+    from repro_torch.core.engine import SearchEngine, plan_batch
+    from repro_torch.serve.dse import paper_request_mix
+
+    plan = plan_batch(paper_request_mix(ws, 9, pop_size=40, generations=3))[0]
+    eng = SearchEngine(device=cuda, pipelined=True)
+    idle = eng.harvest(eng.dispatch(plan))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1_000_000_000)
+    slept = torch.cuda.Event()
+    slept.record()
+    pend = eng.dispatch(plan)
+    assert not slept.query()
+    for a, b in zip(idle, eng.harvest(pend)):
+        np.testing.assert_array_equal(a.top_genomes, b.top_genomes)
+        np.testing.assert_array_equal(a.top_scores, b.top_scores)
+
+
+# --------------------------------------------------- decode attention, C.4
+@pytest.mark.parametrize("B,S,H,KV,D,valid", [(4, 2048, 32, 8, 64, (2048, 700, 1, 1500)),
+                                              (1, 96, 8, 8, 128, None),
+                                              (2, 33, 4, 1, 16, (33, 5))])
+def test_decode_attention_bf16_path_matches_widened(cuda, B, S, H, KV, D, valid):
+    """The bf16 products with float32 accumulation against the widened
+    float32 einsum on the same card tensors: scores and values rtol 1e-5,
+    the bf16 output within one bf16 rounding (2e-2 of its scale)."""
+    from repro_torch.models import attention as attn
+
+    g = _gen(cuda, 3)
+    q = torch.randn((B, 1, H, D), generator=g, device=cuda).to(torch.bfloat16)
+    k = torch.randn((B, S, KV, D), generator=g, device=cuda).to(torch.bfloat16)
+    v = torch.randn((B, S, KV, D), generator=g, device=cuda).to(torch.bfloat16)
+    qf = (q * D ** -0.5).to(k.dtype).reshape(B, 1, KV, H // KV, D)
+    s = attn._decode_scores(qf, k)
+    s_w = torch.einsum("bqkgd,bskd->bkgqs", qf.float(), k.float())
+    torch.testing.assert_close(s, s_w, rtol=1e-5, atol=1e-5)
+    p = torch.softmax(s_w, dim=-1).to(v.dtype)
+    o = attn._decode_values(p, v)
+    o_w = torch.einsum("bkgqs,bskd->bkgqd", p.float(), v.float())
+    torch.testing.assert_close(o, o_w, rtol=1e-5, atol=1e-5)
+    out = attn.decode_attention(q, k, v, valid_len=None if valid is None
+                                else torch.tensor(valid, device=cuda))
+    ref = attn.decode_attention(q.cpu(), k.cpu(), v.cpu(), valid_len=None if valid is None
+                                else torch.tensor(valid))
+    scale = float(ref.float().abs().max())
+    assert float((out.cpu().float() - ref.float()).abs().max()) <= 2e-2 * max(1.0, scale)
+
+
+def _drop_own_term(real):
+    """An ``ssd_chunked`` with one fault: a strict causal mask, so each
+    position loses its own term ``(C_t . B_t) dt_t x_t``."""
+    def scan(x, dt, A, Bm, Cm, h0=None, *, chunk=128):
+        y, h = real(x, dt, A, Bm, Cm, h0, chunk=chunk)
+        own = (Cm.float() * Bm.float()).sum(-1)[..., None] * dt.float()[..., None] * x.float()
+        return (y.float() - own).to(y.dtype), h
+    return scan
+
+
+def _drop_last_chunk_inter(real):
+    """An ``ssd_chunked`` with one fault: the last chunk's y loses its
+    inter-chunk term (it is scanned again from a zero state)."""
+    def scan(x, dt, A, Bm, Cm, h0=None, *, chunk=128):
+        y, h = real(x, dt, A, Bm, Cm, h0, chunk=chunk)
+        lo = x.shape[1] - min(chunk, x.shape[1])
+        y_last, _ = real(x[:, lo:], dt[:, lo:], A, Bm[:, lo:], Cm[:, lo:], None, chunk=chunk)
+        return torch.cat([y[:, :lo], y_last], dim=1), h
+    return scan
+
+
+def test_mamba_float64_gap_check_catches_a_faulty_scan(cuda, monkeypatch):
+    """At mamba2-780m's full width (48 layers, random weights), every scan
+    call of a kernel-path prefill, held on its own inputs against the scan
+    in float64, lies at most one bf16 ulp (2^-7 of the call's largest |y|)
+    further than the plain scan, the margin ``chip_smoke.py`` states; a
+    scan whose last chunk drops its inter-chunk term, and one whose causal
+    mask drops each position's own term, do not."""
+    import types
+
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import mamba
+
+    margin = 2.0 ** -7
+    cfg = get_config("mamba2-780m")
+    params = build_params(cfg, 0, cuda)
+    toks = torch.randint(0, cfg.vocab_size, (1, 512), generator=_gen(cuda, 4), device=cuda)
+
+    def f64(t):
+        return None if t is None else t.double()
+
+    def extra_gap(make):
+        """The largest (kernel gap - plain gap) over the prefill's calls."""
+        gaps = []
+
+        def scan(x, dt, A, Bm, Cm, h0=None, *, chunk=128):
+            y, h = make(ssd_ops.ssd_chunked)(x, dt, A, Bm, Cm, h0, chunk=chunk)
+            yp, _ = sref.ssd_chunked(x, dt, A, Bm, Cm, h0, chunk=chunk)
+            y64, _ = sref.ssd_chunked(f64(x), f64(dt), f64(A), f64(Bm), f64(Cm), f64(h0),
+                                      chunk=chunk, compute_dtype=torch.float64)
+            scale = y64.abs().max()
+            gaps.append(float(((y.double() - y64).abs().max()
+                               - (yp.double() - y64).abs().max()) / scale))
+            return y, h
+
+        monkeypatch.setattr(mamba, "ssd_ops", types.SimpleNamespace(ssd_chunked=scan))
+        with torch.inference_mode():
+            transformer.prefill(cfg, params, toks, impl="kernel")
+        assert len(gaps) == cfg.n_layers
+        return max(gaps)
+
+    assert extra_gap(lambda real: real) <= margin
+    for fault in (_drop_last_chunk_inter, _drop_own_term):
+        assert extra_gap(fault) > margin, fault.__name__

@@ -125,12 +125,17 @@ def test_signature_groups_and_left_out_options(pair):
     assert t1.signature() == t4.signature()
     assert d1.signature() != d4.signature()
     assert dataclasses.replace(t1, priority=9, deadline_s=1.0).signature() == t1.signature()
-    for bad in (dict(objective="pareto"), dict(obj_weights=(1.0, 1.0, 1.0))):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            dataclasses.replace(t1, **bad).signature()
-    for bad in (dict(mesh=object()), dict(fused=True), dict(direct_seed=True)):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            SearchEngine(device=CPU, **bad)
+    # the Pareto and weighted families plan into groups of their own
+    pareto = dataclasses.replace(t1, objective="pareto").signature()
+    weighted = dataclasses.replace(t1, obj_weights=(1.0, 1.0, 1.0)).signature()
+    assert len({pareto, weighted, t1.signature()}) == 3
+    assert pareto[-1] == ("pareto",) and weighted[-1] == ("weighted", 150.0)
+    for knob in (dict(fused=True), dict(fused=False), dict(direct_seed=True)):
+        eng = SearchEngine(device=CPU, **knob)
+        assert (eng.fused, eng.direct_seed) == (knob.get("fused"), "direct_seed" in knob)
+    # only meshes are still refused, pointing at the roadmap
+    with pytest.raises(ValueError, match="ROADMAP"):
+        SearchEngine(device=CPU, mesh=object())
     with pytest.raises(ValueError, match="ROADMAP"):
         dse.DSEService(device=CPU, mesh=object())
 
