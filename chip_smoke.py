@@ -36,13 +36,21 @@ first fault exits non-zero and prints no result:
      beside the steps the PR 13 wrappers took instead, at both shapes
      (logged; ``host_split_us`` in the timings line);
   5. flash_attention against ``attention_reference`` on the card: llama's
-     prefill (B=1, H=32, KV=8, D=64, bf16, S = 128, 1024, 2048) and edges
+     prefill (B=1, H=32, KV=8, D=64, bf16, S = 128, 1024, 2048), the other
+     models' prefill shapes in bf16 (mixtral H=32, KV=8, D=128, S=1024,
+     window 4096; qwen3-moe H=64, KV=4, D=128, S=1024; qwen2-vl H=12,
+     KV=2, D=128, S=2048; whisper's non-causal encoder and cross-attention,
+     H=KV=16, D=64, Sq=Skv=1024, and Sq=512 against Skv=1024; and over
+     frame counts that are no multiple of the 128-row KV block, whisper's
+     own 1500 and 200, Sq=Skv and Sq=200 against Skv=1500, as the models
+     call it with ``ragged_kv=True``) and edges
      (ragged Sq and Skv, window 96, q_offset, D=80, 128 and 16,
      non-causal, rows with no valid key) within 3e-2 in bf16 (the
      tensor-core kernel; as ``tests/test_kernels.py``), the JAX kernel
      sweep and the same edges in float32 (the CUDA-core kernel) within
-     2e-5; timed at the three llama shapes beside the plain version and
-     ``scaled_dot_product_attention`` (timed only, never on the path);
+     2e-5; timed at the three llama shapes and mixtral's beside the plain
+     version and ``scaled_dot_product_attention`` (timed only, never on the
+     path);
   6. ssd_scan against ``ref.ssd_chunked`` on the card: mamba2's prefill
      (B=1, H=48, P=64, N=128, S = 96, 128, 1024, 2048) and the JAX kernel
      sweep in float32, y and h within 1e-4 of the output's scale (max(1,
@@ -51,7 +59,8 @@ first fault exits non-zero and prints no result:
      model's dtype; the same shapes, an initial state and B=2; y, rounded
      to bf16 by both, within 1e-2 of its scale, h within 1e-4); timed
      beside the plain version (device time summed over the four kernels of
-     a call, and each kernel's share logged);
+     a call, and each kernel's share logged); and jamba's Mamba layers
+     (B=1, H=128, P=64, N=16, S=1024, bf16, timed);
   7. the search path through ``repro_torch.launch.search.main`` (8 seeds,
      pop 40, 10 generations, with separate baselines), once with
      ``--backend kernel`` and once with ``--backend table``: every launch
@@ -103,35 +112,55 @@ first fault exits non-zero and prints no result:
      through ``SearchEngine(direct_seed=True)`` (B2), and the mix of
      ``repro_torch.examples.lm_hw_cosearch`` through that example on
      ``kernel`` (B1), each best re-scoring to itself;
- 10. the LM serving path at full width, once per model (``llama3.2-1b``,
-     then ``mamba2-780m``, the first freed before the second loads): 8
-     requests from seed 0 (prompts of 128-1024 tokens, 16-32 new tokens)
-     through ``Engine`` with 4 slots and max_len 2048, random weights
-     from seed 0.  Every launch count is set to 0 just before the burst;
-     every request must get its max_new tokens, flash_attention must
-     launch 16 times per prefill (llama) or ssd_scan 48 times (mamba) and
-     no other kernel at all.  Then the kernel path's prefill logits
-     against the plain path's (same weights, plain attention / SSD called
-     directly) within 0.05; for mamba, every ssd_scan call of a kernel-path
-     prefill held on its own inputs against the scan in float64 (its y at
-     most ``SSD_Y_MARGIN`` of the call's largest |y| further than the plain
-     scan's), a check shown to reject a scan whose last chunk lost its
-     inter-chunk term and one that drops each position's own term; the
-     logits' gap to the plain path with its SSD in float64 (logged); the
-     greedy tokens of a
-     plain-path burst (logged), TTFT and decode tokens/s, and one burst
-     under the profiler (for llama with the time of float GEMVs and
-     direct copies, which decode attention's widened cache made before);
+ 10. the LM serving path at full width, once per model, each freed before
+     the next loads, random weights from seed 0, peak device memory under
+     ``MEM_LIMIT`` (70 GB) and logged.  ``llama3.2-1b`` (16 layers),
+     ``mamba2-780m`` (48), ``mixtral-8x7b`` (8 of 32 layers),
+     ``qwen3-moe-235b-a22b`` (4 of 94) and ``jamba-v0.1-52b`` (one period,
+     8 of 32): 8 requests from seed 0 (prompts of 128-1024 tokens, 16-32
+     new tokens) through ``Engine`` with 4 slots and max_len 2048.  Every
+     launch count is set to 0 just before the burst; every request must
+     get its max_new tokens, and each prefill must launch flash_attention
+     16 (llama), 8 (mixtral), 4 (qwen3-moe) or 1 (jamba) times and
+     ssd_scan 48 (mamba) or 7 (jamba) times, no other kernel at all.  Then
+     the kernel path's prefill logits against the plain path's (same
+     weights, plain attention / SSD called directly) within 0.05; for the
+     MoE models under the plain path's routing (replayed layer by layer:
+     a bf16 ulp between the paths moves tokens across router near-ties
+     and the capacity boundary), with each path's own routing, the
+     entries it moves and the dropped (token, k) entries logged, and every
+     token that changes experts between the paths free-running required
+     to be within twice its router probabilities' shift of a tie; for
+     mamba and jamba,
+     every ssd_scan call of a kernel-path prefill held on its own inputs
+     against the scan in float64 (its y at most ``SSD_Y_MARGIN`` of the
+     call's largest |y| further than the plain scan's), a check shown to
+     reject a scan whose last chunk lost its inter-chunk term and one that
+     drops each position's own term; the logits' gap to the plain path
+     with its SSD in float64 (logged); the greedy tokens of a plain-path
+     burst (logged), TTFT and decode tokens/s, and one burst under the
+     profiler for llama, mamba and mixtral (float GEMVs and direct copies,
+     GEMMs, index_put).  ``whisper-medium`` (24 + 24 layers) and
+     ``qwen2-vl-2b`` (28), which ``Engine`` does not serve: prompts of 128,
+     256, 512 and 1024 tokens with frames of their own length (whisper),
+     or two of 2048 with 1024 vision embeddings and their mrope streams
+     (qwen2-vl), from ``launch.cells.make_inputs``, each prefilled alone
+     through ``serve.steps.make_prefill_step`` and decoded 16 greedy steps
+     through ``make_decode_step``, launch counts set to 0 just before:
+     flash_attention 72 (24 encoder, 24 causal, 24 cross-attention) or 28
+     times per prefill and no other kernel; kernel vs plain prefill logits
+     within 0.05;
  11. one JSON line ``{"kernels": [...]}``: launches on the main paths
      (``launches_by_path``: the search CLI, the service and phase 9b's
-     paths),
+     paths; for flash_attention and ssd_scan each model of phase 10),
      max error, kernel and plain times per call (CUDA events, after a
      warm-up, in turns plain/kernel/kernel/plain; at small sizes they
      include the host's launch overhead), the same work's device time
      from the profiler (``device_ms``, ``plain_device_ms``), the bound
      for this run's inputs and, for flash_attention, the SDPA time; B1 and
      B2 also at the separate search's and the service's shapes
-     (``separate_ms``, ``service_ms``, ...);
+     (``separate_ms``, ``service_ms``, ...), B3 at mixtral's prefill shape
+     (``mixtral_shape``) and B4 at jamba's (``jamba_shape``);
  12. the last line: ``{"ok": true, "device": {...}}``.
 
 Timings at every shape and the traces are printed as one
@@ -1584,6 +1613,21 @@ B3_CASES = [
     ("s128", 1, 128, 128, 32, 8, 64, True, 0, 0, "bf16", True),
     ("s1024", 1, 1024, 1024, 32, 8, 64, True, 0, 0, "bf16", True),
     ("s2048", 1, 2048, 2048, 32, 8, 64, True, 0, 0, "bf16", True),
+    # the other models' prefill shapes: mixtral (window 4096), qwen3-moe,
+    # qwen2-vl (1024 vision + 1024 text), whisper's encoder and
+    # cross-attention (non-causal MHA), and a cross-attention of fewer
+    # queries than frames
+    ("mixtral_s1024", 1, 1024, 1024, 32, 8, 128, True, 4096, 0, "bf16", True),
+    ("qwen3moe_s1024", 1, 1024, 1024, 64, 4, 128, True, 0, 0, "bf16", False),
+    ("qwen2vl_s2048", 1, 2048, 2048, 12, 2, 128, True, 0, 0, "bf16", False),
+    ("whisper_enc_s1024", 1, 1024, 1024, 16, 16, 64, False, 0, 0, "bf16", False),
+    ("whisper_xattn_s1024", 1, 1024, 1024, 16, 16, 64, False, 0, 0, "bf16", False),
+    ("whisper_xattn_sq512", 1, 512, 1024, 16, 16, 64, False, 0, 0, "bf16", False),
+    # whisper over frame counts that are no multiple of the 128-row KV
+    # block (its own 1500, and 200): the models' ragged_kv=True calls
+    ("whisper_enc_s1500", 1, 1500, 1500, 16, 16, 64, False, 0, 0, "bf16", False),
+    ("whisper_enc_s200", 1, 200, 200, 16, 16, 64, False, 0, 0, "bf16", False),
+    ("whisper_xattn_sq200_skv1500", 1, 200, 1500, 16, 16, 64, False, 0, 0, "bf16", False),
     ("ragged_sq100", 2, 100, 128, 4, 2, 64, True, 0, 0, "bf16", False),
     ("ragged_s1000", 1, 1000, 1000, 32, 8, 64, True, 0, 0, "bf16", False),
     ("window96", 1, 256, 256, 4, 2, 64, True, 96, 0, "bf16", False),
@@ -1624,7 +1668,7 @@ def phase_b3(torch, dev, timings):
         v = torch.randn((B, Skv, KV, D), generator=gen, device=dev).to(dtype)
         kw = dict(causal=causal, window=window, q_offset=q_offset)
         before = flash_attention.launches
-        o = flash_attention(q, k, v, **kw)
+        o = flash_attention(q, k, v, ragged_kv=True, **kw)
         r = attention_reference(q, k, v, **kw)
         torch.cuda.synchronize()
         check(flash_attention.launches == before + 1, f"B3 {label}: launch not counted")
@@ -1644,7 +1688,7 @@ def phase_b3(torch, dev, timings):
             attention_reference(q, k, v, **kw)
 
         def kernel_fn(q=q, k=k, v=v, kw=kw):
-            flash_attention(q, k, v, **kw)
+            flash_attention(q, k, v, ragged_kv=True, **kw)
 
         qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
@@ -1712,6 +1756,8 @@ B4_CASES = [
     ("bf16_sweep3", 1, 512, 4, 64, 128, 128, "bf16", False, False),
     ("bf16_h0", 1, 1024, 48, 64, 128, 128, "bf16", True, False),
     ("bf16_b2", 2, 1024, 48, 64, 128, 128, "bf16", False, False),
+    # jamba's Mamba layers: H=128, P=64, N=16
+    ("jamba_bf16_s1024", 1, 1024, 128, 64, 16, 128, "bf16", False, True),
 ]
 
 
@@ -1775,8 +1821,25 @@ def phase_b4(torch, dev, timings):
     return errs
 
 
-# model -> (its prefill kernel, layers that run it)
-LM_PATHS = {"llama3.2-1b": ("flash_attention", 16), "mamba2-780m": ("ssd_scan", 48)}
+# model -> (layers run on the card, {kernel: launches per prefill}), served
+# as a burst through Engine; depth is cut only where one card forces it
+# (bf16 weights: mixtral 8 of 32 layers 23.7 GB, qwen3-moe 4 of 94 22.4 GB,
+# jamba one period, 8 of 32, 26.5 GB)
+LM_PATHS = {"llama3.2-1b": (16, {"flash_attention": 16}),
+            "mamba2-780m": (48, {"ssd_scan": 48}),
+            "mixtral-8x7b": (8, {"flash_attention": 8}),
+            "qwen3-moe-235b-a22b": (4, {"flash_attention": 4}),
+            "jamba-v0.1-52b": (8, {"flash_attention": 1, "ssd_scan": 7})}
+# model -> (prompt lengths, flash_attention launches per prefill), each
+# prompt prefilled alone (B = 1) through serve.steps with its own frames
+# or vision inputs, then DECODE_STEPS decode steps; at full depth
+# (whisper: 24 encoder + 24 decoder layers, each with self- and
+# cross-attention; qwen2-vl: 28 layers, 1024 vision + 1024 text tokens)
+STEP_PATHS = {"whisper-medium": ((128, 256, 512, 1024), 72),
+              "qwen2-vl-2b": ((2048, 2048), 28)}
+DECODE_STEPS = 16
+TRACED = ("llama3.2-1b", "mamba2-780m", "mixtral-8x7b")
+MEM_LIMIT = 70e9
 LM_LOGIT_TOL = 0.05
 # mamba: each ssd_chunked call of a kernel-path prefill is held, on its own
 # inputs, against the scan in float64, by max |y - y64| over the call's
@@ -1868,23 +1931,113 @@ def _drop_own_term(real):
     return scan
 
 
-def phase_lm(torch, dev, name, card, timings):
-    """The LM serving path at full width: a burst of 8 requests through
-    ``Engine`` (4 slots, max_len 2048), random weights from seed 0.  Every
-    request gets its max_new tokens; the model's prefill kernel launches
-    once per layer per prefill, the other kernels never.  Then the
-    kernel path's prefill logits against the plain path's (same weights,
-    plain attention / SSD called directly) within LM_LOGIT_TOL; for mamba
-    both against the plain path with its SSD in float64 (logged), and each
-    scan call's y against the scan in float64 within SSD_Y_MARGIN of the
-    plain scan's gap, also with two faulty scans that it must reject; the
-    greedy tokens of a plain-path burst (logged), and one traced burst."""
+def _model_cfg(name, depth=None):
+    import dataclasses
+
     from repro_torch.configs.base import get_config
+
+    cfg = get_config(name)
+    if depth is not None and depth < cfg.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    return cfg
+
+
+def _with_routes(fn, replay=None):
+    """Run ``fn`` with ``moe_route`` wrapped: each MoE layer's routing is
+    recorded, or, with ``replay`` (a recorded list), handed back in order
+    in place of the layer's own.  Returns (fn's result, the routings)."""
+    from repro_torch.models import moe
+
+    real, routes = moe.moe_route, []
+
+    def route(x, router, **kw):
+        r = real(x, router, **kw) if replay is None else replay[len(routes)]
+        routes.append(r)
+        return r
+    moe.moe_route = route
+    try:
+        out = fn()
+    finally:
+        moe.moe_route = real
+    check(replay is None or len(routes) == len(replay), "MoE routings not all replayed")
+    return out, routes
+
+
+def _moved_past_margin(torch, routes_k, routes_p):
+    """(token, k) choices of the kernel path's routing that a near-tie
+    cannot explain.  Per MoE layer and token, with D the largest change of
+    any router probability between the two paths, a token whose plain-path
+    top-(k+1) probabilities are all more than 2 D apart must keep its
+    ranked top-k experts: no probability moved far enough to reorder them.
+    Returns (tokens that moved all the same, the largest D of each layer)."""
+    bad, shifts = 0, []
+    for a, b in zip(routes_k, routes_p):
+        k = b.topi.shape[-1]
+        top = torch.sort(b.probs, dim=-1, descending=True).values[..., :k + 1]
+        margin = (top[..., :-1] - top[..., 1:]).amin(-1)
+        shift = (a.probs - b.probs).abs().amax(-1)
+        moved = (a.topi != b.topi).any(-1)
+        bad += int((moved & (margin > 2 * shift)).sum())
+        shifts.append(float(shift.max()))
+    return bad, shifts
+
+
+def _check_launches(name, launches, want):
+    for k, n in want.items():
+        check(launches[k] == n, f"{name}: {k} launched {launches[k]} times, want {n}")
+    others = {k: n for k, n in launches.items() if k not in want and n}
+    check(not others, f"{name}: other kernels launched on its path: {others}")
+
+
+def _check_memory(torch, name):
+    peak = torch.cuda.max_memory_allocated()
+    check(peak < MEM_LIMIT, f"{name}: peak device memory {peak / 1e9:.2f} GB >= "
+          f"{MEM_LIMIT / 1e9:.0f} GB")
+    return peak
+
+
+def _trace_summary(per, kernel_prefixes, wall):
+    busy = sum(ms for ms, _ in per.values()) / 1e3
+    mine = {k: sum(ms for n, (ms, _) in per.items() if KERNEL_PREFIX[k] in n) / 1e3
+            for k in kernel_prefixes}
+    top = sorted(per.items(), key=lambda kv: -kv[1][0])[:8]
+
+    def total(*words):
+        hit = [(ms, c) for n, (ms, c) in per.items() if any(w in n for w in words)]
+        return [sum(ms for ms, _ in hit), sum(c for _, c in hit)]
+    return {"wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
+            "kernel_s": mine, "kernel_share_of_busy": {k: v / busy for k, v in mine.items()},
+            "device_activities": sum(c for _, c in per.values()),
+            "top": [{"name": n[:120], "ms": ms, "count": c} for n, (ms, c) in top],
+            # decode attention widened the cache here before: float GEMVs and
+            # direct copies; the MoE layers' expert GEMMs and dispatch scatter
+            "gemmSN": total("gemmSN"), "direct_copy": total("direct_copy"),
+            # cuBLAS's GEMMs show as "nvjet_*" or "*gemm*"
+            "gemm": total("gemm", "nvjet"), "index_put": total("index_put")}
+
+
+def phase_lm(torch, dev, name, card, timings):
+    """One model's serving path at full width: a burst of 8 requests through
+    ``Engine`` (4 slots, max_len 2048), random weights from seed 0, the
+    depth of ``LM_PATHS``.  Every request gets its max_new tokens; each
+    kernel of the model launches its count per prefill, the other kernels
+    never.  Then the kernel path's prefill logits against the plain path's
+    (same weights, plain attention / SSD called directly) within
+    LM_LOGIT_TOL, for MoE models under the plain path's routing (each
+    path's own routing, the entries it moves and the dropped entries
+    logged; a token that moves although its router margin exceeds twice
+    its probabilities' shift fails, ``_moved_past_margin``); for the
+    models with SSD layers both against the plain path with its SSD in
+    float64 (logged), and each scan call's y against the scan in float64
+    within SSD_Y_MARGIN of the plain scan's gap, also with two faulty scans
+    that it must reject; the greedy tokens of a plain-path burst (logged),
+    peak device memory under MEM_LIMIT, and one traced burst (``TRACED``)."""
     from repro_torch.launch.serve import build_params, make_burst, serve_burst
     from repro_torch.models import transformer
 
-    cfg = get_config(name)
-    kname, per_prefill = LM_PATHS[name]
+    depth, per = LM_PATHS[name]
+    cfg = _model_cfg(name, depth)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = build_params(cfg, 0, dev)
     torch.cuda.synchronize()
@@ -1900,30 +2053,64 @@ def phase_lm(torch, dev, name, card, timings):
               f"{r.max_new} tokens")
         check(all(0 <= t < cfg.vocab_size for t in r.out), f"{name}: token out of range")
     check(st["prefills"] == 8, f"{name}: {st['prefills']} prefills")
-    check(launches[kname] == per_prefill * st["prefills"],
-          f"{name}: {kname} launched {launches[kname]} times, want "
-          f"{per_prefill} x {st['prefills']}")
-    others = {k: n for k, n in launches.items() if k != kname and n}
-    check(not others, f"{name}: other kernels launched on its path: {others}")
+    _check_launches(name, launches, {k: n * st["prefills"] for k, n in per.items()})
 
     # the kernel path against the plain path, prefill logits, one prompt of
     # each length
     firsts = {}
     for r in done:
         firsts.setdefault(len(r.prompt), r)
-    errs, top1, f64_gap = {}, 0, {}
+    errs, top1, f64_gap, drops = {}, 0, {}, {}
     with torch.inference_mode():
         for n, r in sorted(firsts.items()):
             toks = torch.as_tensor(r.prompt[None].astype("int64"), device=dev)
-            lk, _ = transformer.prefill(cfg, params, toks, impl="kernel")
-            lp, _ = transformer.prefill(cfg, params, toks, impl="plain")
+
+            def kernel(toks=toks):
+                return transformer.prefill(cfg, params, toks, impl="kernel")[0]
+
+            lp, routes_p = _with_routes(
+                lambda: transformer.prefill(cfg, params, toks, impl="plain")[0])
+            lk, routes_k = _with_routes(kernel)
+            if cfg.n_experts:
+                # a bf16 ulp between the two paths moves tokens across router
+                # near-ties and, where queues overflow, across the capacity
+                # boundary: logged; the check runs the kernel path under the
+                # plain path's routing
+                free = float((lk.float() - lp.float()).abs().max())
+                lk, _ = _with_routes(kernel, replay=routes_p)
+                drops[n] = {
+                    "dropped": sum(int((~r.keep).sum()) for r in routes_k),
+                    "entries": sum(r.keep.numel() for r in routes_k),
+                    "capacity": routes_k[0].capacity,
+                    "per_layer": [int((~r.keep).sum()) for r in routes_k],
+                    "experts_moved": sum(int((a.topi != b.topi).sum())
+                                         for a, b in zip(routes_k, routes_p)),
+                    "kept_changed": sum(int((a.keep != b.keep).sum())
+                                        for a, b in zip(routes_k, routes_p)),
+                    "own_routing_logit_diff": free}
+                bad, shifts = _moved_past_margin(torch, routes_k, routes_p)
+                drops[n]["prob_shift_by_layer"] = shifts
+                check(bad == 0, f"{name} prefill S={n}: {bad} tokens changed experts "
+                      f"between the kernel and plain paths with a router margin above "
+                      f"twice the shift of their probabilities")
             check(bool(torch.isfinite(lk).all()), f"{name}: prefill logits not finite")
             errs[n] = float((lk.float() - lp.float()).abs().max())
             top1 += int(torch.equal(lk.argmax(-1), lp.argmax(-1)))
             scale = float(lp.float().abs().max())
+            msg = ""
+            if n in drops:
+                d = drops[n]
+                msg = (f" under the plain path's routing; with its own routing "
+                       f"{d['own_routing_logit_diff']:.4g} ({d['experts_moved']} (token, k) "
+                       f"entries on another expert, {d['kept_changed']} kept / dropped "
+                       f"otherwise; every moved token within twice its router "
+                       f"probabilities' shift of a tie, largest shift by layer "
+                       f"{[float(f'{x:.3g}') for x in d['prob_shift_by_layer']]}); "
+                       f"MoE entries dropped at capacity C={d['capacity']}: "
+                       f"{d['dropped']} of {d['entries']} (per layer {d['per_layer']})")
             log(f"{name} prefill S={n}: kernel vs plain logits max abs diff "
-                f"{errs[n]:.4g} (max |logit| {scale:.4g})")
-            if kname == "ssd_scan":
+                f"{errs[n]:.4g} (max |logit| {scale:.4g}){msg}")
+            if "ssd_scan" in per:
                 l64 = _prefill_ssd_float64(torch, cfg, params, toks).float()
                 f64_gap[n] = {"plain": float((lp.float() - l64).abs().max()),
                               "kernel": float((lk.float() - l64).abs().max())}
@@ -1934,7 +2121,7 @@ def phase_lm(torch, dev, name, card, timings):
     check(err <= LM_LOGIT_TOL, f"{name}: kernel vs plain prefill logits differ by "
           f"{err} > {LM_LOGIT_TOL}")
     scan_gap = None
-    if kname == "ssd_scan":
+    if "ssd_scan" in per:
         # every scan call against float64 on its own inputs (the kernel
         # wrapper monkeypatched), then the same with faulty scans, which the
         # check must reject: one that drops the last chunk's inter-chunk
@@ -1954,7 +2141,7 @@ def phase_lm(torch, dev, name, card, timings):
                     transformer.prefill(cfg, params, toks, impl="kernel")
             finally:
                 mamba.ssd_ops = saved
-            check(len(gaps) == per_prefill, f"{name}: {len(gaps)} scan calls held")
+            check(len(gaps) == per["ssd_scan"], f"{name}: {len(gaps)} scan calls held")
             return {"extra": max(k - p for k, p in gaps), "plain": max(p for _, p in gaps),
                     "kernel": max(k for k, _ in gaps)}
 
@@ -1990,34 +2177,27 @@ def phase_lm(torch, dev, name, card, timings):
             prefix += 1
     total = sum(len(r.out) for r in done)
 
-    # one burst more, traced
-    prof, wall = _profiled(torch, lambda: serve_burst(
-        cfg, params, make_burst(cfg, 8, 0), slots=4, max_len=2048))
-    per = device_kernels(prof)
-    trace = {"wall_s": wall, "device": "not measured"}
-    if per:
-        busy = sum(ms for ms, _ in per.values()) / 1e3
-        mine = sum(ms for n, (ms, _) in per.items() if KERNEL_PREFIX[kname] in n) / 1e3
-        top = sorted(per.items(), key=lambda kv: -kv[1][0])[:6]
-        trace = {"wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
-                 "kernel_s": mine, "kernel_share_of_busy": mine / busy,
-                 "device_activities": sum(c for _, c in per.values()),
-                 "top": [{"name": n[:120], "ms": ms, "count": c} for n, (ms, c) in top],
-                 # decode attention widened the cache here before: float GEMVs
-                 # and direct copies
-                 "gemmSN": [sum(ms for n, (ms, _) in per.items() if "gemmSN" in n),
-                            sum(c for n, (_, c) in per.items() if "gemmSN" in n)],
-                 "direct_copy": [sum(ms for n, (ms, _) in per.items() if "direct_copy" in n),
-                                 sum(c for n, (_, c) in per.items() if "direct_copy" in n)]}
+    trace = {"device": "not measured"}
+    if name in TRACED:  # one burst more, traced
+        prof, wall = _profiled(torch, lambda: serve_burst(
+            cfg, params, make_burst(cfg, 8, 0), slots=4, max_len=2048))
+        per_act = device_kernels(prof)
+        trace = {"wall_s": wall, "device": "not measured"}
+        if per_act:
+            trace = _trace_summary(per_act, per, wall)
+    peak = _check_memory(torch, name)
     timings[f"serve/{name}"] = dict(
-        card=card, params=cfg.param_count(), init_s=init_s, launches=launches[kname],
+        card=card, layers=cfg.n_layers, params=cfg.param_count(), init_s=init_s,
+        launches={k: launches[k] for k in per}, peak_memory_bytes=peak,
         stats=st, plain_stats=st_p, logit_err=errs, logit_gap_ssd_float64=f64_gap,
-        top1_agree=f"{top1}/{len(errs)}",
+        moe_drops=drops, top1_agree=f"{top1}/{len(errs)}",
         greedy_same=same, greedy_prefix=prefix, tokens=total, trace=trace,
         ssd_y_gap_float64=scan_gap)
-    log(f"{name} ({cfg.param_count() / 1e9:.2f} B params, init {init_s:.2f}s) on {card}: "
+    log(f"{name} ({cfg.n_layers} layers, {cfg.param_count() / 1e9:.2f} B params, init "
+        f"{init_s:.2f}s, peak device memory {peak / 1e9:.2f} GB) on {card}: "
         f"{st['requests']} requests, {st['tokens']} tokens, {st['prefills']} prefills "
-        f"({launches[kname]} {kname} launches), {st['decode_steps']} decode steps; "
+        f"({', '.join(f'{launches[k]} {k}' for k in per)} launches), {st['decode_steps']} "
+        f"decode steps; "
         f"TTFT mean {st['ttft_mean_s'] * 1e3:.1f} ms (max {st['ttft_max_s'] * 1e3:.1f}), "
         f"prefill {st['prefill_s'] / st['prefills'] * 1e3:.2f} ms each, decode "
         f"{st['decode_tokens_per_s']:.1f} tokens/s, {st['wall_s']:.3f}s in all; plain "
@@ -2025,18 +2205,107 @@ def phase_lm(torch, dev, name, card, timings):
         f"{st_p['prefill_s'] / st_p['prefills'] * 1e3:.2f} ms each; greedy tokens equal "
         f"{same}/{total} ({prefix} before the first difference in each request); "
         f"prefill top-1 equal {top1}/{len(errs)}")
-    if per:
-        log(f"{name} trace (profiled): {wall:.3f}s host clock, device busy "
+    if "device_busy_s" in trace:
+        log(f"{name} trace (profiled): {trace['wall_s']:.3f}s host clock, device busy "
             f"{trace['device_busy_s'] * 1e3:.2f} ms (idle share {trace['idle_share']:.4f}), "
-            f"{kname} {trace['kernel_s'] * 1e3:.2f} ms ({trace['kernel_share_of_busy']:.3f} "
-            f"of busy); float GEMV gemmSN {trace['gemmSN'][0]:.2f} ms x{trace['gemmSN'][1]}, "
-            f"direct copies {trace['direct_copy'][0]:.2f} ms x{trace['direct_copy'][1]}; top: " + "; ".join(f"{t['name'][:60]} {t['ms']:.2f} ms x{t['count']}"
-                                            for t in trace["top"][:3]))
-    else:
+            + ", ".join(f"{k} {v * 1e3:.2f} ms ({trace['kernel_share_of_busy'][k]:.3f} of "
+                        f"busy)" for k, v in trace["kernel_s"].items())
+            + f"; float GEMV gemmSN {trace['gemmSN'][0]:.2f} ms x{trace['gemmSN'][1]}, "
+            f"direct copies {trace['direct_copy'][0]:.2f} ms x{trace['direct_copy'][1]}, "
+            f"GEMMs {trace['gemm'][0]:.2f} ms x{trace['gemm'][1]}, index_put "
+            f"{trace['index_put'][0]:.2f} ms x{trace['index_put'][1]}; top: "
+            + "; ".join(f"{t['name'][:60]} {t['ms']:.2f} ms x{t['count']}"
+                        for t in trace["top"][:5]))
+    elif name in TRACED:
         log(f"{name} trace: device time not measured")
     del params
     torch.cuda.empty_cache()
-    return launches[kname]
+    return {k: launches[k] for k in per}
+
+
+def phase_lm_steps(torch, dev, name, card, timings):
+    """whisper / qwen2-vl, which ``Engine`` does not serve (their requests
+    need frames or vision inputs): each prompt of ``STEP_PATHS`` prefilled
+    alone through ``serve.steps.make_prefill_step`` with inputs from
+    ``launch.cells.make_inputs`` (frames of the prompt's length; 1024
+    vision embeddings and their mrope streams), then DECODE_STEPS greedy
+    steps of ``make_decode_step``, full depth, random weights from seed 0.
+    flash_attention launches its count per prefill and no other kernel
+    launches; every token in range; the kernel path's prefill logits
+    within LM_LOGIT_TOL of the plain path's; peak memory logged."""
+    from repro_torch.launch.cells import make_inputs
+    from repro_torch.launch.serve import build_params
+    from repro_torch.models import transformer
+    from repro_torch.serve.steps import greedy_sample, make_decode_step, make_prefill_step
+
+    lengths, per = STEP_PATHS[name]
+    cfg = _model_cfg(name)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = build_params(cfg, 0, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = _gen(torch, dev, 5)
+    batches = [make_inputs(cfg, "prefill", 1, n, gen) for n in lengths]
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    outs, prefill_s, decode_s = [], [], []
+    with torch.inference_mode():
+        for n, batch in zip(lengths, batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill(params, batch)
+            check(bool(torch.isfinite(logits).all()), f"{name}: prefill logits not finite")
+            cache = transformer.pad_cache(cfg, cache, n + DECODE_STEPS)
+            tok = greedy_sample(logits)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = [int(tok[0, 0])]
+            for i in range(DECODE_STEPS):
+                logits, cache = decode(params, cache, {
+                    "token": tok.long(), "pos": torch.full((1,), n + i, device=dev)})
+                tok = greedy_sample(logits)
+                out.append(int(tok[0, 0]))
+            t2 = time.perf_counter()
+            check(all(0 <= t < cfg.vocab_size for t in out), f"{name}: token out of range")
+            outs.append(out)
+            prefill_s.append(t1 - t0)
+            decode_s.append((t2 - t1) / DECODE_STEPS)
+    launches = {k: c.launches for k, c in counters.items()}
+    _check_launches(name, launches, {"flash_attention": per * len(lengths)})
+
+    errs, top1 = {}, 0
+    with torch.inference_mode():
+        for i, (n, batch) in enumerate(zip(lengths, batches)):
+            extra = {k: v for k, v in batch.items() if k != "tokens"}
+            lk, _ = transformer.prefill(cfg, params, batch["tokens"], impl="kernel", **extra)
+            lp, _ = transformer.prefill(cfg, params, batch["tokens"], impl="plain", **extra)
+            errs[f"{i}:S={n}"] = float((lk.float() - lp.float()).abs().max())
+            top1 += int(torch.equal(lk.argmax(-1), lp.argmax(-1)))
+            log(f"{name} prefill S={n} ({', '.join(extra)}): kernel vs plain logits max abs "
+                f"diff {errs[f'{i}:S={n}']:.4g} (max |logit| {float(lp.float().abs().max()):.4g})")
+    err = max(errs.values())
+    check(err <= LM_LOGIT_TOL, f"{name}: kernel vs plain prefill logits differ by "
+          f"{err} > {LM_LOGIT_TOL}")
+    peak = _check_memory(torch, name)
+    timings[f"serve/{name}"] = dict(
+        card=card, layers=cfg.n_layers, encoder_layers=cfg.encoder_layers,
+        params=cfg.param_count(), init_s=init_s, launches={"flash_attention": per * len(lengths)},
+        peak_memory_bytes=peak, prompts=list(lengths), prefill_s=prefill_s,
+        decode_step_s=decode_s, logit_err=errs, top1_agree=f"{top1}/{len(errs)}",
+        tokens=outs)
+    log(f"{name} ({cfg.n_layers} layers{f' + {cfg.encoder_layers} encoder' if cfg.is_encdec else ''}"
+        f", {cfg.param_count() / 1e9:.2f} B params, init {init_s:.2f}s, peak device memory "
+        f"{peak / 1e9:.2f} GB) on {card}: {len(lengths)} prompts of {list(lengths)} tokens, "
+        f"{launches['flash_attention']} flash_attention launches; prefill "
+        + ", ".join(f"{t * 1e3:.2f}" for t in prefill_s) + " ms; decode "
+        + ", ".join(f"{t * 1e3:.2f}" for t in decode_s) + f" ms per step; prefill top-1 "
+        f"equal {top1}/{len(errs)}; greedy tokens {[o[:6] for o in outs]}")
+    del params
+    torch.cuda.empty_cache()
+    return {"flash_attention": launches["flash_attention"]}
 
 
 def run() -> dict:
@@ -2072,8 +2341,10 @@ def run() -> dict:
     fam = phase_families(torch, dev, card, timings)
     fam_b1 = {k: v["imc_eval"] for k, v in fam.items() if v["imc_eval"]}
     fam_b2 = {k: v["ga_gen_step"] for k, v in fam.items() if v["ga_gen_step"]}
-    b3_launches = phase_lm(torch, dev, "llama3.2-1b", card, timings)
-    b4_launches = phase_lm(torch, dev, "mamba2-780m", card, timings)
+    lm = {name: phase_lm(torch, dev, name, card, timings) for name in LM_PATHS}
+    lm.update({name: phase_lm_steps(torch, dev, name, card, timings) for name in STEP_PATHS})
+    lm_b3 = {k: v["flash_attention"] for k, v in lm.items() if "flash_attention" in v}
+    lm_b4 = {k: v["ssd_scan"] for k, v in lm.items() if "ssd_scan" in v}
 
     log("timings " + json.dumps(timings))
 
@@ -2082,6 +2353,10 @@ def run() -> dict:
     v1, v2 = timings["imc_eval/service"], timings["ga_gen_step/service"]
     # B3 and B4 at the longest prompt of the main path, in the model's dtype
     t3, t4 = timings["flash_attention/s1024"], timings["ssd_scan/bf16_s1024"]
+    # ... and at mixtral's and jamba's prefill shapes
+    m3, j4 = timings["flash_attention/mixtral_s1024"], timings["ssd_scan/jamba_bf16_s1024"]
+    times = ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms", "plain_device_ms",
+             "max_abs_err")
     kernels = [
         {"name": "imc_eval", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/imc_eval.cu",
@@ -2113,19 +2388,24 @@ def run() -> dict:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:33",
-         "launches": b3_launches, "max_abs_err": b3_err["s1024"],
+         "launches": sum(lm_b3.values()), "launches_by_path": lm_b3,
+         "max_abs_err": b3_err["s1024"],
          "ms": t3["ms"], "plain_ms": t3["plain_ms"], "bound_ms": t3["bound_ms"],
          "bound_by": t3["bound_by"], "library_ms": t3["library_ms"],
          "device_ms": t3["device_ms"], "plain_device_ms": t3["plain_device_ms"],
-         "library_device_ms": t3["library_device_ms"]},
+         "library_device_ms": t3["library_device_ms"],
+         "mixtral_shape": {k: m3[k] for k in times + ("library_ms", "library_device_ms")}},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/kernel.py:33",
-         "launches": b4_launches, "max_abs_err": b4_err["bf16_s1024"][0],
+         "launches": sum(lm_b4.values()), "launches_by_path": lm_b4,
+         "max_abs_err": b4_err["bf16_s1024"][0],
          "max_abs_err_f32": b4_err["s1024"][0], "device_kernels_per_call": len(t4["device_parts"]),
          "ms": t4["ms"], "plain_ms": t4["plain_ms"], "bound_ms": t4["bound_ms"],
          "bound_by": t4["bound_by"], "library_ms": None,
-         "device_ms": t4["device_ms"], "plain_device_ms": t4["plain_device_ms"]},
+         "device_ms": t4["device_ms"], "plain_device_ms": t4["plain_device_ms"],
+         "jamba_shape": {**{k: j4[k] for k in times if k != "max_abs_err"},
+                         "max_abs_err": j4["max_abs_err_y"], "library_ms": None}},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -6,10 +6,8 @@ of (mixer, ffn) sub-layer kinds.  Dense transformers have period 1 =
 own gating).  The fields are the JAX package's, so a configuration carried
 across compares field by field.  The registry holds all ten of the JAX
 package's configurations: every one exports its layers as an IMC workload
-(``workloads/lm.py``), and LM serving takes the dense-attention and Mamba-2
-families (``models.transformer.check_supported`` refuses the others;
-``param_count`` leaves out the encoder-decoder terms).  The dry-run shape cells of
-the JAX package have no counterpart here.
+(``workloads/lm.py``) and runs in ``models.transformer``.  The dry-run
+shape cells of the JAX package have no counterpart here.
 """
 from __future__ import annotations
 
@@ -121,8 +119,7 @@ class ModelConfig:
         return self.n_layers // self.period
 
     def param_count(self) -> int:
-        """Analytic parameter count (embedding + blocks + head), for the
-        families this port serves (dense attention + MLP, Mamba-2)."""
+        """Analytic parameter count (embedding + blocks + head)."""
         d, hd = self.d_model, self.head_dim_
         n = self.vocab_size * d
         if not self.tie_embeddings:
@@ -139,6 +136,10 @@ class ModelConfig:
         per_layer = {"attn": attn, "mamba": mamba, "mlp": mlp, "moe": moe, "none": 0}
         for mixer, ffn in self.layer_plan():
             n += (per_layer[mixer] + per_layer[ffn] + 2 * d) * self.n_blocks
+        if self.is_encdec:
+            # encoder self-attn + mlp, plus decoder cross-attn
+            n += self.encoder_layers * (attn + mlp + 2 * d)
+            n += self.n_layers * (attn + d)
         return n
 
     def reduced(self, **overrides) -> "ModelConfig":

@@ -113,14 +113,25 @@ def lm_params_from_numpy(cfg: ModelConfig, tree, device="cuda"):
 
 def lm_cache_from_numpy(cfg: ModelConfig, tree, device="cuda"):
     """The port's decode cache from the JAX package's (a list over the
-    period's slots of ``{"k", "v"}`` or ``{"conv", "ssm"}`` arrays stacked
-    over blocks), each leaf in its own dtype on ``device``.  The batch and
-    cache length are read from the arrays."""
+    period's slots of ``{"k", "v"}`` (plus ``{"xk", "xv"}`` for enc-dec)
+    or ``{"conv", "ssm"}`` arrays stacked over blocks), each leaf in its
+    own dtype on ``device``.  The batch, the cache length and the cross-KV
+    length (the encoder frames') are read from the arrays."""
     if not isinstance(tree, (list, tuple)) or not tree:
         raise ValueError("cache: want a list over the layer plan's slots")
     batch = np.asarray(next(iter(tree[0].values()))).shape[1]
-    length = next((np.asarray(s["k"]).shape[2] for s in tree if "k" in s), 1)
-    template = transformer.cache_template(cfg, batch, length)
+
+    def length(key):
+        return next((np.asarray(s[key]).shape[2] for s in tree if key in s), 1)
+
+    self_len, cross_len = length("k"), length("xk")
+    template = transformer.cache_template(cfg, batch, self_len)
+    if cfg.is_encdec:
+        cross = transformer.cache_template(cfg, batch, cross_len)
+        for slot, xslot in zip(template, cross):
+            for k in ("xk", "xv"):
+                if k in slot:
+                    slot[k] = xslot[k]
     template = [{k: (shape, tensor_from_numpy(tree[i][k], "cpu").dtype)
                  for k, (shape, _) in slot.items()} for i, slot in enumerate(template)]
     return _tree_from_numpy(template, list(tree), device, "cache")

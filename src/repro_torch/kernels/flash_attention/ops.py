@@ -9,9 +9,11 @@
 
 ``flash_attention.launches`` counts kernel launches (never plain runs).
 Like the JAX package's wrapper, a non-causal call whose Skv is not a
-multiple of its 128-row KV block is refused; the kernel itself masks a
-ragged tail by position, but the limit is kept so both packages accept
-the same calls.
+multiple of its 128-row KV block is refused, so both wrappers accept the
+same calls.  The kernel itself masks a ragged last KV tile by position,
+and ``ragged_kv=True`` lifts the limit: the models pass it, because the
+JAX package's non-causal model calls (whisper's encoder and
+cross-attention) run its jnp path, which takes any Skv up to 1024.
 """
 from __future__ import annotations
 
@@ -44,12 +46,13 @@ def flash_attention(
     causal: bool = True,
     window: int = 0,
     q_offset: int = 0,
+    ragged_kv: bool = False,
 ) -> torch.Tensor:
     """Attention output (B, Sq, H, D) in q's dtype."""
     B, Sq, H, D = q.shape
     _, Skv, KV, _ = k.shape
     bk = min(128, max(Skv, 8))
-    if Skv % bk != 0 and not causal:
+    if Skv % bk != 0 and not causal and not ragged_kv:
         raise ValueError("non-causal flash_attention requires Skv to be a "
                          "multiple of the 128-row KV block")
     dev = q.device

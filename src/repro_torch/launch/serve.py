@@ -3,16 +3,19 @@ engine (the port's counterpart of ``examples/serve_demo.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --config llama3.2-1b
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
-        --config mamba2-780m
+        --config mixtral-8x7b
 
 Weights are random, drawn from ``--seed`` on the device (no weights ship
 with the repo).  The burst is ``--requests`` prompts with lengths drawn
 from {128, 256, 512, 1024} tokens (each length once per four requests) and 16-32 new tokens each, also from
-``--seed``; those lengths are ones both attention (S <= 1024 or a multiple
-of 1024) and the SSD scan (S <= 128 or a multiple of 128) accept.  On the
-card every prefill runs the flash_attention (llama) or ssd_scan (mamba)
-kernel once per layer.  Prints the requests served, tokens, time to first
-token (TTFT) and decode tokens/s, naming the device.
+``--seed``; those lengths are ones the attention kernel (any S), the
+plain attention (S <= 1024 or a multiple of 1024) and the SSD scan (S <=
+128 or a multiple of 128) all accept.  On the
+card every prefill runs the flash_attention kernel once per attention
+layer and the ssd_scan kernel once per Mamba layer.  ``--config`` offers
+every model ``Engine`` serves: all but the enc-dec and VLM ones, whose
+requests need frames or vision inputs.  Prints the requests served,
+tokens, time to first token (TTFT) and decode tokens/s, naming the device.
 """
 from __future__ import annotations
 
@@ -35,11 +38,18 @@ MAX_NEW = (16, 32)
 
 def build_params(cfg: ModelConfig, seed: int, device) -> dict:
     """Serving parameters: float32 masters drawn from ``seed`` on the
-    device, with the weights the model casts to bf16 cast once."""
+    device, with the weights the model casts to bf16 cast once, leaf by
+    leaf (``transformer.init_compute_params``)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return transformer.compute_params(transformer.init(cfg, gen, device=dev))
+    return transformer.init_compute_params(cfg, gen, device=dev)
+
+
+def served_configs() -> List[str]:
+    """The configs ``Engine`` serves (requests of tokens alone)."""
+    return [n for n in list_configs()
+            if not (get_config(n).is_encdec or get_config(n).vision_tokens)]
 
 
 def make_burst(cfg: ModelConfig, n: int, seed: int) -> List[Request]:
@@ -89,9 +99,7 @@ def serve_burst(cfg: ModelConfig, params: dict, requests: Sequence[Request], *,
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", default="llama3.2-1b",
-                    choices=[n for n in list_configs()
-                             if not transformer.unsupported(get_config(n))])
+    ap.add_argument("--config", default="llama3.2-1b", choices=served_configs())
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=2048)

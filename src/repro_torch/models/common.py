@@ -34,11 +34,14 @@ def tree_map(f: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
 
 def init_params(template: PyTree, generator: torch.Generator,
                 dtype: torch.dtype = torch.float32,
-                device: Optional[torch.device] = None) -> PyTree:
+                device: Optional[torch.device] = None,
+                cast: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None) -> PyTree:
     """Real tensors for a template: N(0, scale / sqrt(fan_in)) with fan_in
     the second-to-last dim (the last for vectors), zeros for scale 0 and
     ones for scale -1.  Leaves are drawn in the template's sorted order
-    from ``generator``, which must live on ``device``."""
+    from ``generator``, which must live on ``device``.  ``cast(key, leaf)``,
+    when given, maps each leaf (by its dict key) before the next is drawn,
+    so a cast copy never waits beside the whole float32 tree."""
     dev = generator.device if device is None else torch.device(device)
 
     def one(d: ParamDecl) -> torch.Tensor:
@@ -49,9 +52,17 @@ def init_params(template: PyTree, generator: torch.Generator,
         fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
         std = d.scale / (fan_in ** 0.5)
         x = torch.randn(d.shape, generator=generator, dtype=torch.float32, device=dev)
-        return (x * std).to(dtype)
+        return x.mul_(std).to(dtype)
 
-    return tree_map(one, template)
+    def walk(tree, key=None):
+        if isinstance(tree, dict):
+            return {k: walk(tree[k], k) for k in sorted(tree)}
+        if isinstance(tree, (list, tuple)):
+            return [walk(t, key) for t in tree]
+        leaf = one(tree)
+        return leaf if cast is None else cast(key, leaf)
+
+    return walk(template)
 
 
 # --------------------------------------------------------------------- norms
@@ -78,6 +89,47 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = x[..., : d // 2], x[..., d // 2:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def mrope_sections(head_dim: int) -> Tuple[int, int, int]:
+    """(t, h, w) half-dim sections; qwen2-vl uses (16, 24, 24) for D=128."""
+    half = head_dim // 2
+    t = half // 4
+    rem = half - t
+    return (t, rem // 2, rem - rem // 2)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Multimodal RoPE (qwen2-vl): positions (3, ..., S) for the (t, h, w)
+    axes, each rotating its own section of the head dim."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = rope_freqs(d, theta, x.device)  # (half,)
+    sec_id = torch.cat([torch.full((s,), i, dtype=torch.long, device=x.device)
+                        for i, s in enumerate(mrope_sections(d))])  # (half,)
+    # per frequency, its (t|h|w) position stream: (..., S, half)
+    pos = torch.movedim(positions.float()[sec_id], 0, -1)
+    ang = pos[..., None, :] * freqs  # (..., S, 1, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoid_rows(pos: torch.Tensor, d_model: int) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings of positions ``pos``
+    (any shape) -> (*pos.shape, d_model), float32."""
+    half = d_model // 2
+    log_base = torch.log(torch.tensor(10_000.0, device=pos.device))  # float32, as jnp
+    freq = torch.exp(-log_base * torch.arange(half, dtype=torch.float32, device=pos.device)
+                     / (half - 1))
+    ang = pos.float()[..., None] * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sinusoid_positions(seq: int, d_model: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings (seq, d_model), float32."""
+    return sinusoid_rows(torch.arange(seq, dtype=torch.float32, device=device), d_model)
 
 
 # ------------------------------------------------------------------ MLP acts

@@ -1,5 +1,6 @@
-"""LM assembly for the families the port serves so far (the port's
-``src/repro/models/transformer.py``, its dense-attention and Mamba-2 subset).
+"""LM assembly for every model family (the port's
+``src/repro/models/transformer.py``): dense, MoE, SSM, hybrid,
+encoder-decoder and VLM.
 
 * ``ModelConfig.layer_plan()`` gives the repeating *period* of (mixer, ffn)
   sub-layer kinds; the parameters of each in-period slot are stacked over
@@ -7,21 +8,26 @@
 * Entry points: ``forward`` (full sequence), ``prefill`` (full sequence
   returning a decode cache), ``decode_step`` (one token per sequence with
   the carried cache, updated in place: the JAX package donates it).
-* ``impl="kernel"`` (the default) runs attention and the SSD scan through
-  the kernel wrappers (``kernels/flash_attention``, ``kernels/ssd_scan``):
-  the CUDA kernels on the card, their plain versions on the CPU.
-  ``impl="plain"`` calls the plain chunked versions directly on any device
-  (the JAX package's ``attn_impl="jnp"``).
+* ``impl="kernel"`` (the default) runs every full-sequence attention call
+  (causal self-attention, and whisper's non-causal encoder self-attention
+  and prefill cross-attention) and the SSD scan through the kernel
+  wrappers (``kernels/flash_attention``, ``kernels/ssd_scan``): the CUDA
+  kernels on the card, their plain versions on the CPU.  ``impl="plain"``
+  calls the plain chunked versions directly on any device (the JAX
+  package's ``attn_impl="jnp"``, which its encoder and cross-attention
+  always take).  Decode attention is plain PyTorch on both.
+* MoE layers (``models/moe.py``), whisper's encoder and cross-attention
+  (cross-KV kept in the cache as ``xk`` / ``xv``), mrope position streams
+  and a vision-embedding prefix (qwen2-vl) follow the JAX package.
 
 Activations are bf16 (the embedding is cast to bf16), every weight is cast
-to the activation dtype where it is used, norms and the SSD run in float32.
-``compute_params`` makes those casts once, for serving.  MoE, cross-attention
-(enc-dec), mrope and vision inputs raise ``NotImplementedError``.
+to the activation dtype where it is used, norms, the router and the SSD
+run in float32.  ``compute_params`` makes those casts once, for serving.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -29,37 +35,21 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (
     ParamDecl,
+    apply_mrope,
     apply_rope,
     glu_act,
     init_params,
     rms_norm,
+    sinusoid_positions,
+    sinusoid_rows,
     tree_map,
 )
 
 PyTree = Any
 ACT_DTYPE = torch.bfloat16
-
-
-def unsupported(cfg: ModelConfig) -> str:
-    """Why the port cannot serve ``cfg`` yet, or "" when it can."""
-    if cfg.n_experts:
-        return f"{cfg.name}: MoE layers (family {cfg.family!r}) are not ported yet"
-    if cfg.is_encdec:
-        return (f"{cfg.name}: encoder / cross-attention (family {cfg.family!r}) "
-                "is not ported yet")
-    if cfg.rope_type == "mrope" or cfg.vision_tokens:
-        return (f"{cfg.name}: mrope / vision inputs (family {cfg.family!r}) are "
-                "not ported yet")
-    return ""
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the families whose layers are not ported yet."""
-    why = unsupported(cfg)
-    if why:
-        raise NotImplementedError(why)
 
 
 # ======================================================================
@@ -83,6 +73,18 @@ def _attn_decl(cfg: ModelConfig) -> Dict[str, ParamDecl]:
     return decl
 
 
+def _xattn_decl(cfg: ModelConfig) -> Dict[str, ParamDecl]:
+    """Cross-attention (whisper decoder); KV projected from encoder states."""
+    d, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    return {
+        "norm_w": ParamDecl((d,), -1.0),
+        "wq": ParamDecl((d, H * Dh)),
+        "wk": ParamDecl((d, KV * Dh)),
+        "wv": ParamDecl((d, KV * Dh)),
+        "wo": ParamDecl((H * Dh, d)),
+    }
+
+
 def _mlp_decl(cfg: ModelConfig) -> Dict[str, ParamDecl]:
     d, f = cfg.d_model, cfg.d_ff
     return {
@@ -90,6 +92,17 @@ def _mlp_decl(cfg: ModelConfig) -> Dict[str, ParamDecl]:
         "w_gate": ParamDecl((d, f)),
         "w_up": ParamDecl((d, f)),
         "w_down": ParamDecl((f, d)),
+    }
+
+
+def _moe_decl(cfg: ModelConfig) -> Dict[str, ParamDecl]:
+    d, f, E = cfg.d_model, cfg.moe_d_ff_, cfg.n_experts
+    return {
+        "norm_w": ParamDecl((d,), -1.0),
+        "router": ParamDecl((d, E)),
+        "w_gate": ParamDecl((E, d, f)),
+        "w_up": ParamDecl((E, d, f)),
+        "w_down": ParamDecl((E, f, d)),
     }
 
 
@@ -109,25 +122,39 @@ def _mamba_decl(cfg: ModelConfig) -> Dict[str, ParamDecl]:
     }
 
 
-_SLOT_DECL = {"attn": _attn_decl, "mamba": _mamba_decl, "mlp": _mlp_decl}
+_SLOT_DECL = {"attn": _attn_decl, "mamba": _mamba_decl, "mlp": _mlp_decl, "moe": _moe_decl}
+
+
+def _stack(tree: PyTree, n: int) -> PyTree:
+    """Add a leading stacked-layers dim to every ParamDecl."""
+    return tree_map(lambda dl: ParamDecl((n,) + dl.shape, dl.scale), tree)
 
 
 def param_template(cfg: ModelConfig) -> PyTree:
-    check_supported(cfg)
-    d, V, nb = cfg.d_model, cfg.vocab_size, cfg.n_blocks
+    d, V = cfg.d_model, cfg.vocab_size
     blocks = []
     for mixer, ffn in cfg.layer_plan():
         slot: Dict[str, Any] = {"mixer": _SLOT_DECL[mixer](cfg)}
+        if cfg.is_encdec:
+            slot["xattn"] = _xattn_decl(cfg)
         if ffn != "none":
             slot["ffn"] = _SLOT_DECL[ffn](cfg)
-        blocks.append(tree_map(lambda dl: ParamDecl((nb,) + dl.shape, dl.scale), slot))
+        blocks.append(slot)
     t: Dict[str, Any] = {
         "embed": ParamDecl((V, d)),
-        "blocks": blocks,
+        "blocks": _stack(blocks, cfg.n_blocks),
         "final_norm": ParamDecl((d,), -1.0),
     }
     if not cfg.tie_embeddings:
         t["lm_head"] = ParamDecl((d, V))
+    if cfg.is_encdec:
+        # stub frontend: precomputed frame embeddings -> linear projection
+        t["encoder"] = {
+            "frames_proj": ParamDecl((d, d)),
+            "blocks": _stack([{"mixer": _attn_decl(cfg), "ffn": _mlp_decl(cfg)}],
+                             cfg.encoder_layers),
+            "final_norm": ParamDecl((d,), -1.0),
+        }
     return t
 
 
@@ -138,24 +165,40 @@ def init(cfg: ModelConfig, generator: torch.Generator, dtype=torch.float32,
     return init_params(param_template(cfg), generator, dtype, device)
 
 
-# weights the model casts to the activation dtype wherever it uses them
+# weights the model casts to the activation dtype wherever it uses them (the
+# MoE router is not one: it runs in float32)
 _CAST_AT_USE = frozenset({"embed", "lm_head", "wq", "wk", "wv", "wo", "bq", "bk",
                           "bv", "w_gate", "w_up", "w_down", "w_in", "conv_w",
-                          "conv_b", "w_out", "D"})
+                          "conv_b", "w_out", "D", "frames_proj"})
+
+
+def _cast_at_use(dtype):
+    return lambda name, leaf: leaf.to(dtype) if name in _CAST_AT_USE else leaf
 
 
 def compute_params(params: PyTree, dtype=ACT_DTYPE) -> PyTree:
     """A copy for serving with every weight that is cast to the activation
-    dtype at each use cast once, here; norm weights, ``A_log`` and
-    ``dt_bias`` keep their float32 masters.  The model computes the same
-    numbers from either tree."""
+    dtype at each use cast once, here; norm weights, the router, ``A_log``
+    and ``dt_bias`` keep their float32 masters.  The model computes the
+    same numbers from either tree."""
+    cast = _cast_at_use(dtype)
+
     def walk(tree, name=None):
         if isinstance(tree, dict):
             return {k: walk(v, k) for k, v in tree.items()}
         if isinstance(tree, list):
             return [walk(v, name) for v in tree]
-        return tree.to(dtype) if name in _CAST_AT_USE else tree
+        return cast(name, tree)
     return walk(params)
+
+
+def init_compute_params(cfg: ModelConfig, generator: torch.Generator, device=None,
+                        dtype=ACT_DTYPE) -> PyTree:
+    """``compute_params(init(cfg, generator, device=device))`` bit for bit,
+    each leaf cast as soon as it is drawn: the peak is the cast tree plus
+    one float32 leaf, not the whole float32 tree beside its copy."""
+    return init_params(param_template(cfg), generator, torch.float32, device,
+                       cast=_cast_at_use(dtype))
 
 
 def layer(tree: PyTree, i: int) -> PyTree:
@@ -184,41 +227,82 @@ def _qkv(cfg, p, h):
     return _split_heads(q, H, Dh), _split_heads(k, KV, Dh), _split_heads(v, KV, Dh)
 
 
-def _rope(cfg, q, k, positions):
+def _rope(cfg, q, k, positions, mrope_pos):
     if cfg.rope_type == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.rope_type == "mrope":
+        q = apply_mrope(q, mrope_pos, cfg.rope_theta)
+        k = apply_mrope(k, mrope_pos, cfg.rope_theta)
     return q, k
 
 
-def attn_full(cfg, p, x, *, positions, causal=True, impl="kernel"):
+def _attention(q, k, v, *, causal, window, impl):
+    """Full-sequence attention: the kernel wrapper, or the plain chunked
+    version with ``impl="plain"``.  The plain version takes Skv <= 1024 or
+    a multiple of 1024, as the JAX package's jnp path; the kernel takes any
+    Skv, also for whisper's non-causal encoder and cross-attention over any
+    number of frames (it masks a ragged last KV tile)."""
+    if impl == "plain":
+        return attn_lib.flash_attention(q, k, v, causal=causal, window=window,
+                                        chunk=min(1024, k.shape[1]))
+    return fa_ops.flash_attention(q, k, v, causal=causal, window=window, ragged_kv=True)
+
+
+def attn_full(cfg, p, x, *, positions, mrope_pos=None, causal=True, impl="kernel"):
     """Full-sequence self-attention sublayer.  Returns (out, (k, v))."""
     B, S, d = x.shape
     h = rms_norm(x, p["norm_w"], cfg.norm_eps)
     q, k, v = _qkv(cfg, p, h)
-    q, k = _rope(cfg, q, k, positions)
-    if impl == "plain":
-        o = attn_lib.flash_attention(q, k, v, causal=causal, window=cfg.sliding_window,
-                                     chunk=min(1024, S))
-    else:
-        o = fa_ops.flash_attention(q, k, v, causal=causal, window=cfg.sliding_window)
+    q, k = _rope(cfg, q, k, positions, mrope_pos)
+    o = _attention(q, k, v, causal=causal, window=cfg.sliding_window, impl=impl)
     out = o.reshape(B, S, -1) @ p["wo"].to(o.dtype)
     return x + out, (k, v)
 
 
-def attn_decode(cfg, p, x, cache, *, pos):
+def xattn_full(cfg, p, x, enc_kv, *, impl="kernel"):
+    """Cross-attention (non-causal) with precomputed encoder (k, v)."""
+    B, S, d = x.shape
+    k, v = enc_kv
+    h = rms_norm(x, p["norm_w"], cfg.norm_eps)
+    q = _split_heads(h @ p["wq"].to(h.dtype), cfg.n_heads, cfg.head_dim_)
+    o = _attention(q, k, v, causal=False, window=0, impl=impl)
+    return x + o.reshape(B, S, -1) @ p["wo"].to(o.dtype)
+
+
+def xattn_decode(cfg, p, x, enc_kv):
+    B, S1, d = x.shape
+    k, v = enc_kv
+    h = rms_norm(x, p["norm_w"], cfg.norm_eps)
+    q = _split_heads(h @ p["wq"].to(h.dtype), cfg.n_heads, cfg.head_dim_)
+    o = attn_lib.decode_attention(q, k, v)
+    return x + o.reshape(B, S1, -1) @ p["wo"].to(o.dtype)
+
+
+def _build_xkv(cfg, p, enc_out):
+    """Project encoder output to (k, v) for one decoder layer."""
+    KV, Dh = cfg.n_kv_heads, cfg.head_dim_
+    k = _split_heads(enc_out @ p["wk"].to(enc_out.dtype), KV, Dh)
+    v = _split_heads(enc_out @ p["wv"].to(enc_out.dtype), KV, Dh)
+    return k, v
+
+
+def attn_decode(cfg, p, x, cache, *, pos, mrope_pos=None):
     """Single-token self-attention against a ring/linear KV cache.
 
     cache: {"k","v"}: (B, C, KV, Dh), written in place at row ``pos % C``
     of each sequence.  ``pos``: (B,) absolute position of each sequence's
     new token (every slot decodes at its own position); rows past each
-    sequence's length are masked by its valid length.
+    sequence's length are masked by its valid length.  With mrope and no
+    ``mrope_pos`` (3, B, 1), the three streams all take ``pos``.
     """
     B, S1, d = x.shape
     C = cache["k"].shape[1]
     h = rms_norm(x, p["norm_w"], cfg.norm_eps)
     q, k, v = _qkv(cfg, p, h)
-    q, k = _rope(cfg, q, k, pos[:, None])
+    if cfg.rope_type == "mrope" and mrope_pos is None:
+        mrope_pos = pos.expand(3, B)[..., None]
+    q, k = _rope(cfg, q, k, pos[:, None], mrope_pos)
     rows = torch.arange(B, device=x.device)
     widx = torch.remainder(pos, C)
     cache["k"][rows, widx] = k[:, 0].to(cache["k"].dtype)
@@ -234,6 +318,27 @@ def mlp_sublayer(cfg, p, x):
     g = h @ p["w_gate"].to(h.dtype)
     u = h @ p["w_up"].to(h.dtype)
     return x + glu_act(cfg.mlp_act, g, u) @ p["w_down"].to(h.dtype)
+
+
+def moe_sublayer(cfg, p, x, *, with_aux=True):
+    """Returns (x + MoE FFN output, the layer's aux load-balance loss, or
+    None with ``with_aux=False``)."""
+    h = rms_norm(x, p["norm_w"], cfg.norm_eps)
+    y, aux = moe_lib.moe_ffn(h, p["router"], p["w_gate"], p["w_up"], p["w_down"],
+                             topk=cfg.topk, capacity_factor=cfg.capacity_factor,
+                             act=cfg.mlp_act, with_aux=with_aux)
+    return x + y, aux
+
+
+def _ffn(cfg, kind, p, x, aux):
+    """The slot's FFN sublayer ("mlp", "moe" or "none"); adds a MoE layer's
+    aux loss to ``aux``, or computes none when ``aux`` is None (decode)."""
+    if kind == "mlp":
+        return mlp_sublayer(cfg, p, x), aux
+    if kind == "moe":
+        x, a = moe_sublayer(cfg, p, x, with_aux=aux is not None)
+        return x, None if aux is None else aux + a
+    return x, aux
 
 
 def mamba_full(cfg, p, x, *, return_cache=False, impl="kernel"):
@@ -255,19 +360,24 @@ def mamba_decode_sub(cfg, p, x, cache):
 
 def cache_template(cfg: ModelConfig, batch: int, cache_len: int, dtype=ACT_DTYPE
                    ) -> List[Dict[str, Tuple[Tuple[int, ...], torch.dtype]]]:
-    """(shape, dtype) of every decode-cache leaf, stacked over blocks."""
-    check_supported(cfg)
+    """(shape, dtype) of every decode-cache leaf, stacked over blocks.  An
+    enc-dec attention slot also holds the cross-KV (``xk``, ``xv``) of
+    ``cache_len`` encoder frames."""
     KV, Dh, nb = cfg.n_kv_heads, cfg.head_dim_, cfg.n_blocks
     C = cache_len if cfg.sliding_window == 0 else min(cache_len, cfg.sliding_window)
     slots = []
     for mixer, _ in cfg.layer_plan():
         if mixer == "attn":
-            slots.append({"k": ((nb, batch, C, KV, Dh), dtype),
-                          "v": ((nb, batch, C, KV, Dh), dtype)})
+            slot = {"k": ((nb, batch, C, KV, Dh), dtype),
+                    "v": ((nb, batch, C, KV, Dh), dtype)}
+            if cfg.is_encdec:
+                slot["xk"] = ((nb, batch, cache_len, KV, Dh), dtype)
+                slot["xv"] = ((nb, batch, cache_len, KV, Dh), dtype)
         else:
             d_inner, G, N, H, Pd, conv_ch, _ = mamba_lib._dims(cfg)
-            slots.append({"conv": ((nb, batch, cfg.ssm_conv - 1, conv_ch), dtype),
-                          "ssm": ((nb, batch, H, N, Pd), torch.float32)})
+            slot = {"conv": ((nb, batch, cfg.ssm_conv - 1, conv_ch), dtype),
+                    "ssm": ((nb, batch, H, N, Pd), torch.float32)}
+        slots.append(slot)
     return slots
 
 
@@ -282,7 +392,8 @@ def pad_cache(cfg: ModelConfig, cache: PyTree, capacity: int) -> PyTree:
 
     Linear-layout caches zero-pad at the tail (position p stays at index
     p; decode's valid length masks the unwritten rows).  Sliding-window
-    ring caches at full window size are returned unchanged.
+    ring caches at full window size are returned unchanged.  Cross-KV
+    (``xk``, ``xv``) keeps the encoder's length.
     """
     target = min(capacity, cfg.sliding_window) if cfg.sliding_window else capacity
 
@@ -296,14 +407,48 @@ def pad_cache(cfg: ModelConfig, cache: PyTree, capacity: int) -> PyTree:
 
 
 # ======================================================================
+# encoder (whisper)
+# ======================================================================
+
+
+def encode(cfg: ModelConfig, params: PyTree, frames: torch.Tensor, *,
+           impl: str = "kernel") -> torch.Tensor:
+    """frames: (B, S, d_model) stubbed frontend embeddings -> encoder states
+    (non-causal self-attention + MLP per layer, then the final norm)."""
+    enc = params["encoder"]
+    B, S, d = frames.shape
+    x = frames @ enc["frames_proj"].to(frames.dtype)
+    x = x + sinusoid_positions(S, d, frames.device).to(x.dtype)
+    positions = torch.arange(S, device=frames.device)
+    for i in range(cfg.encoder_layers):
+        sp = layer(enc["blocks"][0], i)
+        x, _ = attn_full(cfg, sp["mixer"], x, positions=positions, causal=False, impl=impl)
+        x = mlp_sublayer(cfg, sp["ffn"], x)
+    return rms_norm(x, enc["final_norm"], cfg.norm_eps)
+
+
+# ======================================================================
 # entry points
 # ======================================================================
 
 
-def _embed(cfg, params, tokens):
+def _embed_tokens(cfg, params, tokens):
     x = params["embed"].to(ACT_DTYPE)[tokens]
     if cfg.scale_embeds:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    return x
+
+
+def _embed(cfg, params, tokens, vision_embeds=None):
+    """The full sequence's embeddings: tokens, the vision prefix, and the
+    sinusoid positions of an enc-dec decoder."""
+    x = _embed_tokens(cfg, params, tokens)
+    if cfg.vision_tokens and vision_embeds is not None:
+        # VLM: image patch embeddings occupy the first vision-token slots
+        VT = vision_embeds.shape[1]
+        x = torch.cat([vision_embeds.to(x.dtype), x[:, VT:]], dim=1)
+    if cfg.is_encdec and cfg.rope_type == "none":
+        x = x + sinusoid_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)
     return x
 
 
@@ -317,34 +462,47 @@ def _logits(cfg, params, x):
 
 
 def forward(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor, *,
+            vision_embeds: Optional[torch.Tensor] = None,
+            mrope_pos: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None,
             impl: str = "kernel") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward.  Returns (logits (B, S, V), moe_aux_loss)."""
-    check_supported(cfg)
+    """Full-sequence forward.  Returns (logits (B, S, V), the MoE aux loss
+    summed over layers, a float32 scalar)."""
     B, S = tokens.shape
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, vision_embeds)
     positions = torch.arange(S, device=tokens.device)
+    enc_out = encode(cfg, params, frames, impl=impl) if cfg.is_encdec else None
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     plan = cfg.layer_plan()
     for blk in range(cfg.n_blocks):
         for i, (mixer, ffn) in enumerate(plan):
             sp = layer(params["blocks"][i], blk)
             if mixer == "attn":
-                x, _ = attn_full(cfg, sp["mixer"], x, positions=positions, impl=impl)
+                x, _ = attn_full(cfg, sp["mixer"], x, positions=positions,
+                                 mrope_pos=mrope_pos, impl=impl)
+                if cfg.is_encdec:
+                    xkv = _build_xkv(cfg, sp["xattn"], enc_out)
+                    x = xattn_full(cfg, sp["xattn"], x, xkv, impl=impl)
             else:
                 x, _ = mamba_full(cfg, sp["mixer"], x, impl=impl)
-            if ffn == "mlp":
-                x = mlp_sublayer(cfg, sp["ffn"], x)
-    return _logits(cfg, params, x), torch.zeros((), device=tokens.device)
+            x, aux = _ffn(cfg, ffn, sp.get("ffn"), x, aux)
+    return _logits(cfg, params, x), aux
 
 
 def prefill(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor, *,
+            vision_embeds: Optional[torch.Tensor] = None,
+            mrope_pos: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None,
             impl: str = "kernel", cache_dtype=ACT_DTYPE) -> Tuple[torch.Tensor, PyTree]:
     """Process the whole prompt; returns (last-token logits (B, 1, V), the
     decode cache).  The cache length equals the prompt length
-    (ring-truncated to the sliding window when the arch uses one)."""
-    check_supported(cfg)
+    (ring-truncated to the sliding window when the arch uses one); enc-dec
+    archs encode ``frames`` and keep each layer's cross-KV in the cache."""
     B, S = tokens.shape
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, vision_embeds)
     positions = torch.arange(S, device=tokens.device)
+    enc_out = encode(cfg, params, frames, impl=impl) if cfg.is_encdec else None
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     plan = cfg.layer_plan()
     W = cfg.sliding_window
     per_layer: List[List[Dict[str, torch.Tensor]]] = [[] for _ in plan]
@@ -352,7 +510,8 @@ def prefill(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor, *,
         for i, (mixer, ffn) in enumerate(plan):
             sp = layer(params["blocks"][i], blk)
             if mixer == "attn":
-                x, (k, v) = attn_full(cfg, sp["mixer"], x, positions=positions, impl=impl)
+                x, (k, v) = attn_full(cfg, sp["mixer"], x, positions=positions,
+                                      mrope_pos=mrope_pos, impl=impl)
                 if W and S > W:
                     # keep the trailing window, rolled so that absolute
                     # position p lives at index p % W (ring layout)
@@ -360,11 +519,15 @@ def prefill(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor, *,
                     k = torch.roll(k[:, -W:], shift, dims=1)
                     v = torch.roll(v[:, -W:], shift, dims=1)
                 slot_cache = {"k": k.to(cache_dtype), "v": v.to(cache_dtype)}
+                if cfg.is_encdec:
+                    xk, xv = _build_xkv(cfg, sp["xattn"], enc_out)
+                    x = xattn_full(cfg, sp["xattn"], x, (xk, xv), impl=impl)
+                    slot_cache["xk"] = xk.to(cache_dtype)
+                    slot_cache["xv"] = xv.to(cache_dtype)
             else:
                 x, mc = mamba_full(cfg, sp["mixer"], x, return_cache=True, impl=impl)
                 slot_cache = {"conv": mc.conv.to(cache_dtype), "ssm": mc.ssm}
-            if ffn == "mlp":
-                x = mlp_sublayer(cfg, sp["ffn"], x)
+            x, aux = _ffn(cfg, ffn, sp.get("ffn"), x, aux)
             per_layer[i].append(slot_cache)
     cache = [{k: torch.stack([c[k] for c in cs]) for k in cs[0]} for cs in per_layer]
     return _logits(cfg, params, x[:, -1:]), cache
@@ -374,11 +537,14 @@ def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree, token: torch.Te
                 pos) -> Tuple[torch.Tensor, PyTree]:
     """One decode step.  token: (B, 1) integer; pos: int or (B,) absolute
     positions.  Returns (logits (B, 1, V), the cache), the cache updated
-    in place."""
-    check_supported(cfg)
+    in place.  mrope models rotate all three streams by ``pos``; enc-dec
+    models attend to the cross-KV in the cache."""
     B = token.shape[0]
     pos = torch.as_tensor(pos, device=token.device).to(torch.int64).expand(B)
-    x = _embed(cfg, params, token)
+    x = _embed_tokens(cfg, params, token)
+    if cfg.is_encdec and cfg.rope_type == "none":
+        # sinusoid positions: add each sequence's pos-th row
+        x = x + sinusoid_rows(pos, cfg.d_model).to(x.dtype)[:, None, :]
     plan = cfg.layer_plan()
     for blk in range(cfg.n_blocks):
         for i, (mixer, ffn) in enumerate(plan):
@@ -386,11 +552,12 @@ def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree, token: torch.Te
             ci = layer(cache[i], blk)
             if mixer == "attn":
                 x, _ = attn_decode(cfg, sp["mixer"], x, ci, pos=pos)
+                if cfg.is_encdec:
+                    x = xattn_decode(cfg, sp["xattn"], x, (ci["xk"], ci["xv"]))
             else:
                 mc = mamba_lib.MambaCache(conv=ci["conv"], ssm=ci["ssm"])
                 x, mc = mamba_decode_sub(cfg, sp["mixer"], x, mc)
                 ci["conv"].copy_(mc.conv)
                 ci["ssm"].copy_(mc.ssm)
-            if ffn == "mlp":
-                x = mlp_sublayer(cfg, sp["ffn"], x)
+            x, _ = _ffn(cfg, ffn, sp.get("ffn"), x, None)
     return _logits(cfg, params, x), cache

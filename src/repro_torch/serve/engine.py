@@ -7,7 +7,10 @@ spliced into a free slot; finished sequences free their slot at once.  The
 decode step always runs the full ``slots x 1`` batch, each slot at its own
 position; dead slots write throwaway rows into their own cache lines.
 Plain eager PyTorch under ``torch.inference_mode()``; on the card the
-prefill runs the flash_attention / ssd_scan kernels.
+prefill runs the flash_attention / ssd_scan kernels.  Requests carry
+tokens only, as in the JAX package, so the engine serves every family but
+the enc-dec (frames) and VLM (vision inputs) ones, which run through
+``serve.steps`` directly.
 """
 from __future__ import annotations
 
@@ -41,6 +44,11 @@ class Engine:
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 4, max_len: int = 512,
                  impl: str = "kernel"):
+        if cfg.is_encdec or cfg.vision_tokens:
+            raise ValueError(
+                f"{cfg.name}: Engine requests carry tokens only; the {cfg.family} "
+                "family needs frames or vision inputs: drive serve.steps' "
+                "make_prefill_step / make_decode_step directly")
         self.cfg = cfg
         self.params = params
         self.slots = slots

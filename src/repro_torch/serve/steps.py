@@ -14,8 +14,13 @@ PyTree = Any
 
 
 def make_prefill_step(cfg: ModelConfig, *, impl: str = "kernel") -> Callable:
+    """``batch``: ``tokens`` (B, S), and ``vision_embeds`` / ``mrope_pos``
+    (VLM) or ``frames`` (enc-dec) where the model takes them."""
     def prefill_step(params, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, PyTree]:
-        return transformer.prefill(cfg, params, batch["tokens"], impl=impl)
+        return transformer.prefill(cfg, params, batch["tokens"],
+                                   vision_embeds=batch.get("vision_embeds"),
+                                   mrope_pos=batch.get("mrope_pos"),
+                                   frames=batch.get("frames"), impl=impl)
 
     return prefill_step
 

@@ -350,6 +350,92 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Skv, H, KV, D, window
     assert float((o.float() - r.float()).abs().max()) <= tol
 
 
+# the prefill shapes of the MoE, VLM and enc-dec models: mixtral (window
+# 4096), qwen3-moe, qwen2-vl, whisper's encoder and cross-attention
+# (non-causal MHA), and a cross-attention of fewer queries than frames
+@pytest.mark.parametrize("Sq,Skv,H,KV,D,causal,window", [
+    (1024, 1024, 32, 8, 128, True, 4096),
+    (1024, 1024, 64, 4, 128, True, 0),
+    (2048, 2048, 12, 2, 128, True, 0),
+    (1024, 1024, 16, 16, 64, False, 0),
+    (512, 1024, 16, 16, 64, False, 0),
+])
+def test_flash_attention_kernel_at_model_shapes(cuda, Sq, Skv, H, KV, D, causal, window):
+    gen = _gen(cuda, Sq + H)
+    q, k, v = (torch.randn((1, n, h, D), generator=gen, device=cuda).to(torch.bfloat16)
+               for n, h in ((Sq, H), (Skv, KV), (Skv, KV)))
+    kw = dict(causal=causal, window=window)
+    before = flash_attention.launches
+    o = flash_attention(q, k, v, **kw)
+    assert flash_attention.launches == before + 1
+    r = attention_reference(q, k, v, **kw)
+    assert float((o.float() - r.float()).abs().max()) <= 3e-2
+
+
+@pytest.mark.parametrize("Sq,Skv", [(200, 200), (1500, 1500), (200, 1500)])
+def test_flash_attention_kernel_at_ragged_frame_counts(cuda, Sq, Skv):
+    """whisper's non-causal encoder and cross-attention over frame counts
+    that are not a multiple of the 128-row KV block (200, and whisper's
+    1500): the models pass ``ragged_kv=True`` and the kernel masks the
+    ragged last tile."""
+    gen = _gen(cuda, Sq + Skv)
+    q, k, v = (torch.randn((1, n, 16, 64), generator=gen, device=cuda).to(torch.bfloat16)
+               for n in (Sq, Skv, Skv))
+    before = flash_attention.launches
+    o = flash_attention(q, k, v, causal=False, ragged_kv=True)
+    assert flash_attention.launches == before + 1
+    r = attention_reference(q, k, v, causal=False)
+    assert float((o.float() - r.float()).abs().max()) <= 3e-2
+
+
+@pytest.mark.parametrize("capacity_factor", [None, 0.5])
+def test_moe_route_on_card_equals_cpu_at_qwen3_moe_shape(cuda, capacity_factor):
+    """qwen3-moe's routing (E=128, top-8, S=1024, d=4096) at its own
+    capacity factor (C=80) and at 0.5 (many drops): the same experts, queue
+    positions and kept set on the card as on the CPU.  x and the router
+    hold small integers (the router's times 2^-6), so the float32 router
+    logits are exact on both devices, and ~270 tokens tie somewhere in
+    their top 9: the two stable sorts must break those ties alike."""
+    from repro_torch.models import moe
+
+    cfg = get_config("qwen3-moe-235b-a22b")
+    cf = cfg.capacity_factor if capacity_factor is None else capacity_factor
+    S, d, E, k = 1024, cfg.d_model, cfg.n_experts, cfg.topk
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randint(-2, 3, (1, S, d), generator=gen).to(torch.bfloat16)
+    r = torch.randint(-2, 3, (d, E), generator=gen).float() * 2.0 ** -6
+    rc = moe.moe_route(x, r, topk=k, capacity_factor=cf)
+    rg = moe.moe_route(x.to(cuda), r.to(cuda), topk=k, capacity_factor=cf)
+    assert rg.capacity == rc.capacity == moe.moe_capacity(S, E, k, cf)
+    for f in ("topi", "pos", "keep"):
+        assert torch.equal(getattr(rg, f).cpu(), getattr(rc, f)), f
+    assert int((~rc.keep).sum()) > 0
+
+
+@pytest.mark.parametrize("capacity_factor", [8.0, 1.25, 0.3])
+def test_moe_ffn_on_card_equals_cpu(cuda, capacity_factor):
+    """The same bf16 inputs on the card and on the CPU: the same experts
+    and kept entries, outputs within two bf16 ulps of their scale (cuBLAS
+    and the CPU sum the expert products in other orders)."""
+    from repro_torch.models import moe
+
+    gen = torch.Generator().manual_seed(int(capacity_factor * 10))
+    B, S, d, E, f, k = 2, 256, 64, 8, 128, 2
+    x = torch.randn((B, S, d), generator=gen).to(torch.bfloat16)
+    r = torch.randn((d, E), generator=gen)
+    wg, wu = ((torch.randn((E, d, f), generator=gen) * 0.1).to(torch.bfloat16) for _ in range(2))
+    wd = (torch.randn((E, f, d), generator=gen) * 0.1).to(torch.bfloat16)
+    kw = dict(topk=k, capacity_factor=capacity_factor)
+    rc = moe.moe_route(x, r, **kw)
+    rg = moe.moe_route(x.to(cuda), r.to(cuda), **kw)
+    assert torch.equal(rg.topi.cpu(), rc.topi) and torch.equal(rg.keep.cpu(), rc.keep)
+    yc, ac = moe.moe_ffn(x, r, wg, wu, wd, **kw)
+    yg, ag = moe.moe_ffn(*(t.to(cuda) for t in (x, r, wg, wu, wd)), **kw)
+    scale = max(float(yc.float().abs().max()), 1.0)
+    assert float((yg.cpu().float() - yc.float()).abs().max()) <= 2.0 ** -7 * scale
+    assert abs(float(ag) - float(ac)) <= 1e-5
+
+
 def test_flash_attention_kernel_refuses(cuda):
     q = torch.zeros((1, 64, 4, 16), device=cuda)
     k = torch.zeros((1, 200, 2, 16), device=cuda)
@@ -376,6 +462,7 @@ def test_flash_attention_kernel_refuses(cuda):
     (2, 100, 3, 24, 40, 128, torch.bfloat16),
     (1, 60, 2, 12, 20, 128, torch.bfloat16),
     (1, 256, 2, 80, 160, 128, torch.bfloat16),
+    (1, 1024, 128, 64, 16, 128, torch.bfloat16),  # jamba's Mamba layers (N=16)
 ])
 def test_ssd_scan_kernel_matches_plain(cuda, B, S, H, P, N, chunk, dtype):
     _check_ssd(cuda, B, S, H, P, N, chunk, dtype)

@@ -177,7 +177,12 @@ def _per_request(log, order):
 
 
 def test_engine_burst_matches_reference_package(model):
-    jcfg, tcfg, params, tparams = model
+    _burst_matches_reference_package(*model)
+
+
+def _burst_matches_reference_package(jcfg, tcfg, params, tparams):
+    """A 5-request burst through both engines (the rule in the module
+    docstring)."""
     lengths, max_new = [8, 16, 8, 24, 16], [6, 9, 5, 7, 8]
     prompts = [_tokens(jcfg, 1, n, seed=10 + i)[0] for i, n in enumerate(lengths)]
     jeng = JEngine(jcfg, params, slots=2, max_len=48)
@@ -228,15 +233,6 @@ def test_compute_params_give_the_same_numbers(model):
     a, _ = tt.prefill(tcfg, tparams, toks)
     b, _ = tt.prefill(tcfg, tt.compute_params(tparams), toks)
     assert torch.equal(a, b)
-
-
-def test_unported_families_raise():
-    moe = tget("llama3.2-1b").reduced(n_experts=4, topk=2, family="moe")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tt.param_template(moe)
-    encdec = tget("llama3.2-1b").reduced(encoder_layers=2, family="encdec")
-    with pytest.raises(NotImplementedError, match="encoder"):
-        tt.init_cache(encdec, 1, 8)
 
 
 @pytest.mark.parametrize("config", CONFIGS)
