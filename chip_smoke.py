@@ -150,9 +150,26 @@ first fault exits non-zero and prints no result:
      flash_attention 72 (24 encoder, 24 causal, 24 cross-attention) or 28
      times per prefill and no other kernel; kernel vs plain prefill logits
      within 0.05;
+ 10b. the training path: ``llama3.2-1b`` (16 layers, 10 steps, a checkpoint
+     every 5) and ``mamba2-780m`` (48 layers, 4 steps, every 2) at full
+     width through ``repro_torch.launch.train.main`` (``--seq 1024 --batch
+     4``, remat, random weights from seed 0, the synthetic data pipeline),
+     every launch count set to 0 just before: no kernel launches (the step
+     runs the plain attention and SSD: no kernel has a backward pass), every
+     loss and grad norm finite, the last loss below the first, peak device
+     memory under ``MEM_LIMIT``; the final checkpoint removed, the same
+     command again must resume from the first and repeat the first run's
+     losses within ``RESUME_LOSS_TOL``; one step with remat and, for llama,
+     one without (ms, tokens/s, peak memory) and one traced step (device busy, idle
+     share, top device work); then one step of reduced ``llama3.2-1b``,
+     ``mamba2-780m`` and ``mixtral-8x7b`` (MoE aux loss, zeroed routers) on
+     the card against the same step on the CPU from the same weights,
+     moments and batch: loss, grad norm, each leaf's gradient and update
+     within ``TRAIN_*`` tolerances;
  11. one JSON line ``{"kernels": [...]}``: launches on the main paths
      (``launches_by_path``: the search CLI, the service and phase 9b's
-     paths; for flash_attention and ssd_scan each model of phase 10),
+     paths; for flash_attention and ssd_scan each model of phase 10; the
+     training path, ``train``, 0 for each),
      max error, kernel and plain times per call (CUDA events, after a
      warm-up, in turns plain/kernel/kernel/plain; at small sizes they
      include the host's launch overhead), the same work's device time
@@ -2308,6 +2325,259 @@ def phase_lm_steps(torch, dev, name, card, timings):
     return {"flash_attention": launches["flash_attention"]}
 
 
+# ------------------------------------------------------------ training path
+# model -> (steps, --ckpt-every, a step without remat too) of phase 10b's
+# full-width runs through launch.train.main (full depth: llama 16 layers,
+# mamba 48), each restarted from its first checkpoint.  mamba's step without
+# remat needs more than the card's 80 GB at B=4, S=1024 (it stopped out of
+# memory in a chip run): the plain SSD keeps its (B, chunks, Q, Q, H)
+# float32 intermediates for 48 layers
+TRAIN_PATHS = {"llama3.2-1b": (10, 5, True), "mamba2-780m": (4, 2, False)}
+TRAIN_SEQ, TRAIN_BATCH = 1024, 4
+# the reduced configurations of the card-vs-CPU step
+TRAIN_REDUCED = ("llama3.2-1b", "mamba2-780m", "mixtral-8x7b")
+# a resumed run against the uninterrupted one, per step's loss (~11 at the
+# start): both replay the same batches from the same restored state; only a
+# reordered float32 sum (an atomic on the card) could move a loss, by ulps
+RESUME_LOSS_TOL = 1e-3
+# card against CPU, one step from the same state (tests/test_torch_train.py
+# states the same bounds for the port against the JAX package on the CPU):
+# bf16 activations round on the card's GEMMs as in another framework, which
+# moves the loss by ~1e-4 relative, each leaf's gradient by a few percent of
+# its L2 norm, and each leaf's AdamW update more (an element whose gradient
+# is as small as that noise can change the sign of its update)
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_GNORM_RTOL = 1e-2
+TRAIN_GRAD_REL_L2 = 0.1
+TRAIN_UPDATE_REL_L2 = 0.3
+_STEP_LINE = re.compile(r"^\[train\] step\s+(\d+) loss (\S+) gnorm (\S+) lr (\S+) \((\S+)s\)$")
+
+
+def _train_log(out: str) -> dict:
+    """{step: (loss, grad norm, lr, seconds since the start)} of a
+    ``launch.train.main`` run's log."""
+    steps = {}
+    for ln in out.splitlines():
+        m = _STEP_LINE.match(ln)
+        if m:
+            steps[int(m.group(1))] = tuple(float(m.group(i)) for i in (2, 3, 4, 5))
+    return steps
+
+
+def _train_step_timed(torch, dev, cfg, remat, params, opt, batch):
+    """One train step of ``make_train_step(remat=remat)``: (ms, peak device
+    memory over the step, metrics).  Updates params and opt in place."""
+    from repro_torch.train.step import make_train_step
+
+    step = make_train_step(cfg, total_steps=100, warmup_steps=5, remat=remat)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt, m = step(params, opt, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return ms, torch.cuda.max_memory_allocated(), m
+
+
+def phase_train(torch, dev, name, card, timings):
+    """Phase 10b, one model at full width and depth: ``launch.train.main``
+    (``--seq 1024 --batch 4``, remat, ``--log-every 1``, checkpoints every
+    ``TRAIN_PATHS`` steps into a temporary directory), every launch count
+    set to 0 just before: no kernel launches; every loss and grad norm
+    finite; the last loss below the first; peak device memory under
+    MEM_LIMIT.  Then the final checkpoint is removed and the same command
+    run again: it must resume from the first checkpoint and give the first
+    run's losses within RESUME_LOSS_TOL.  Then one step with remat and, for
+    llama, one without (ms, tokens/s, peak memory) and one traced step
+    (device busy, idle share, top device work)."""
+    import shutil
+
+    from repro_torch.checkpoint import store
+    from repro_torch.data.pipeline import make_batch_fn, to_device
+    from repro_torch.launch import train
+
+    steps, every, remat_off = TRAIN_PATHS[name]
+    cfg = _model_cfg(name)
+    counters = _counters()
+    argv = ["--arch", name, "--seq", str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH),
+            "--steps", str(steps), "--ckpt-every", str(every), "--log-every", "1"]
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        argv += ["--ckpt-dir", tmp]
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        rc, out = _captured(train.main, argv)
+        wall = time.perf_counter() - t0
+        peak = _check_memory(torch, f"{name} training")
+        check(rc == 0, f"{name}: launch.train.main exited {rc}")
+        log_a = _train_log(out)
+        check(sorted(log_a) == list(range(steps)), f"{name}: logged steps {sorted(log_a)}")
+        losses = [log_a[s][0] for s in range(steps)]
+        gnorms = [log_a[s][1] for s in range(steps)]
+        check(all(math.isfinite(x) for x in losses + gnorms),
+              f"{name}: losses {losses}, grad norms {gnorms}")
+        check(losses[-1] < losses[0], f"{name}: loss {losses[0]} -> {losses[-1]}, not down")
+        check("(DOWN)" in out, f"{name}: no DOWN line")
+        check(store.committed_steps(tmp) and sorted(store.committed_steps(tmp)) ==
+              list(range(every, steps, every)) + [steps],
+              f"{name}: checkpoints {sorted(store.committed_steps(tmp))}")
+        # a crash after the first checkpoint: only it is left, and the same
+        # command resumes from it
+        for s in store.committed_steps(tmp):
+            if s != every:
+                shutil.rmtree(Path(tmp) / f"step_{s:09d}")
+        torch.cuda.reset_peak_memory_stats()
+        rc, out_b = _captured(train.main, argv)
+        peak_resume = _check_memory(torch, f"{name} resumed training")
+        check(rc == 0, f"{name}: the resumed run exited {rc}")
+        check(f"auto-resumed from step {every}" in out_b, f"{name}: did not resume at {every}")
+        log_b = _train_log(out_b)
+        check(sorted(log_b) == list(range(every, steps)),
+              f"{name}: resumed run logged {sorted(log_b)}")
+        resume_diff = max(abs(log_b[s][0] - log_a[s][0]) for s in log_b)
+        check(resume_diff <= RESUME_LOSS_TOL, f"{name}: resumed losses differ by "
+              f"{resume_diff} > {RESUME_LOSS_TOL}")
+    launches = {k: c.launches for k, c in counters.items()}
+    check(not any(launches.values()), f"{name}: kernels launched while training: {launches}")
+    times = [log_a[s][3] for s in range(steps)]
+    step_s = sorted(b - a for a, b in zip(times, times[1:]))
+
+    # one step each with remat on and off, at the run's shapes, then one traced
+    params, opt = train.build_state(cfg, dev, 0)
+    batch = to_device(make_batch_fn(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)(0), dev)
+    _train_step_timed(torch, dev, cfg, True, params, opt, batch)  # warm-up
+    modes = {}
+    for remat in (True, False) if remat_off else (True,):
+        ms, pk, m = _train_step_timed(torch, dev, cfg, remat, params, opt, batch)
+        check(math.isfinite(float(m["loss"])), f"{name}: remat={remat} loss not finite")
+        modes["on" if remat else "off"] = {
+            "ms": ms, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
+            "peak_memory_bytes": pk}
+    for c in counters.values():
+        c.launches = 0
+    prof, twall = _profiled(torch, lambda: _train_step_timed(torch, dev, cfg, True, params,
+                                                             opt, batch))
+    check(not any(c.launches for c in counters.values()), f"{name}: traced step launched kernels")
+    per_act = device_kernels(prof)
+    trace = _trace_summary(per_act, (), twall) if per_act else {"device": "not measured"}
+    del params, opt, batch
+    torch.cuda.empty_cache()
+
+    timings[f"train/{name}"] = dict(
+        card=card, layers=cfg.n_layers, params=cfg.param_count(), seq=TRAIN_SEQ,
+        batch=TRAIN_BATCH, steps=steps, wall_s=wall, losses=losses, grad_norms=gnorms,
+        step_s_median=step_s[len(step_s) // 2], peak_memory_bytes=peak,
+        peak_memory_resumed_bytes=peak_resume, resumed_at=every,
+        resumed_losses={s: log_b[s][0] for s in log_b}, resume_loss_diff=resume_diff,
+        remat=modes, launches=launches, trace=trace)
+    log(f"{name} training ({cfg.n_layers} layers, {cfg.param_count() / 1e9:.2f} B params, "
+        f"B={TRAIN_BATCH}, S={TRAIN_SEQ}) on {card}: {steps} steps in {wall:.2f}s through "
+        f"launch.train.main, loss {losses[0]:.6f} -> {losses[-1]:.6f}, grad norms "
+        f"{[round(g, 4) for g in gnorms]}, median step {step_s[len(step_s) // 2] * 1e3:.1f} ms "
+        f"(host clock between log lines), peak device memory {peak / 1e9:.2f} GB; resumed at "
+        f"step {every}: losses within {resume_diff:.3g} of the first run's (peak "
+        f"{peak_resume / 1e9:.2f} GB); no kernel launched ({launches})")
+    log(f"{name} one step on {card}: " + "; ".join(
+        f"remat {k}: {v['ms']:.1f} ms, {v['tokens_per_s']:.0f} tokens/s, peak "
+        f"{v['peak_memory_bytes'] / 1e9:.2f} GB" for k, v in modes.items()))
+    if "device_busy_s" in trace:
+        log(f"{name} traced train step (remat on): {trace['wall_s']:.3f}s host clock, device "
+            f"busy {trace['device_busy_s'] * 1e3:.2f} ms (idle share {trace['idle_share']:.4f}), "
+            f"{trace['device_activities']} device activities, GEMMs {trace['gemm'][0]:.2f} ms "
+            f"x{trace['gemm'][1]}, index_put {trace['index_put'][0]:.2f} ms "
+            f"x{trace['index_put'][1]}; top: " + "; ".join(
+                f"{t['name'][:60]} {t['ms']:.2f} ms x{t['count']}" for t in trace["top"][:6]))
+    else:
+        log(f"{name} traced train step: device time not measured")
+    return launches
+
+
+def _rel_l2(torch, a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm() / torch.clamp_min(b.norm(), 1e-30))
+
+
+def phase_train_card_vs_cpu(torch, dev, card, timings):
+    """One train step of each ``TRAIN_REDUCED`` config on the card against the
+    same step on the CPU: the same float32 weights (from seed 0 on the CPU;
+    mixtral's routers zeroed, so that every probability ties and both
+    devices route alike) and the same batch (the data pipeline's step 0),
+    the moments filled by a step at learning rate 0 on the CPU.  Loss and
+    grad norm within TRAIN_LOSS_RTOL / TRAIN_GNORM_RTOL, each leaf's
+    gradient within TRAIN_GRAD_REL_L2 and its update within
+    TRAIN_UPDATE_REL_L2 (relative L2); no kernel launches."""
+    from repro_torch.data.pipeline import make_batch_fn, to_device
+    from repro_torch.launch.cells import input_specs
+    from repro_torch.models import transformer
+    from repro_torch.models.common import tree_flatten, tree_leaves, tree_unflatten
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.step import loss_fn, make_train_step
+
+    cpu = torch.device("cpu")
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    out = {}
+    for name in TRAIN_REDUCED:
+        cfg = _model_cfg(name).reduced()
+        params = transformer.init(cfg, torch.Generator().manual_seed(0))
+        for slot in params["blocks"]:
+            if "router" in slot.get("ffn", {}):
+                slot["ffn"]["router"].zero_()
+        for p in tree_leaves(params):
+            p.requires_grad_()
+        extras = {k: v for k, v in input_specs(cfg, "train", 4, 64).items()
+                  if k not in ("inputs", "targets")}
+        host = make_batch_fn(cfg.vocab_size, 64, 4, seed=0, extras=extras)(0)
+        kw = dict(peak_lr=1e-3, warmup_steps=2, total_steps=10)
+        params, opt, _ = make_train_step(cfg, **kw)(params, adamw_init(params),
+                                                    to_device(host, cpu))
+
+        def to(tree, d):
+            leaves, td = tree_flatten(tree)
+            return tree_unflatten(td, [x.detach().to(d, copy=True).requires_grad_(x.requires_grad)
+                                       for x in leaves])
+
+        grads = []  # card, CPU
+        for d in (dev, cpu):
+            p = to(params, d)
+            loss, _ = loss_fn(cfg, p, to_device(host, d))
+            grads.append(torch.autograd.grad(loss, tree_leaves(p)))
+        before = [x.detach().clone() for x in tree_leaves(params)]
+        res = []
+        for d in (dev, cpu):
+            p, o = to(params, d), to(opt, d)
+            p, o, m = make_train_step(cfg, **kw)(p, o, to_device(host, d))
+            res.append(([x.detach().cpu() for x in tree_leaves(p)],
+                        {k: float(v) for k, v in m.items()}))
+        (pg, mg), (pc, mc) = res
+        grad_rel = [_rel_l2(torch, a, b) for a, b in zip(*grads)]
+        upd_rel = [_rel_l2(torch, a - x, b - x) for a, b, x in zip(pg, pc, before)]
+        loss_rel = abs(mg["loss"] - mc["loss"]) / abs(mc["loss"])
+        gn_rel = abs(mg["grad_norm"] - mc["grad_norm"]) / mc["grad_norm"]
+        check(all(math.isfinite(v) for v in mg.values()), f"{name} reduced: card metrics {mg}")
+        check(loss_rel <= TRAIN_LOSS_RTOL, f"{name} reduced: card loss {mg['loss']} vs CPU "
+              f"{mc['loss']}")
+        check(gn_rel <= TRAIN_GNORM_RTOL, f"{name} reduced: card grad norm {mg['grad_norm']} "
+              f"vs CPU {mc['grad_norm']}")
+        check(max(grad_rel) <= TRAIN_GRAD_REL_L2, f"{name} reduced: gradient relative L2 "
+              f"{max(grad_rel)} > {TRAIN_GRAD_REL_L2}")
+        check(max(upd_rel) <= TRAIN_UPDATE_REL_L2, f"{name} reduced: update relative L2 "
+              f"{max(upd_rel)} > {TRAIN_UPDATE_REL_L2}")
+        out[name] = {"loss_rel": loss_rel, "grad_norm_rel": gn_rel,
+                     "grad_rel_l2_max": max(grad_rel), "update_rel_l2_max": max(upd_rel),
+                     "moe_aux": (mg["moe_aux"], mc["moe_aux"]), "leaves": len(pg)}
+        log(f"{name} reduced train step, card vs CPU ({card}): loss {mg['loss']:.6f} vs "
+            f"{mc['loss']:.6f} (rel {loss_rel:.3g}), grad norm rel {gn_rel:.3g}, moe aux "
+            f"{mg['moe_aux']:.6g} vs {mc['moe_aux']:.6g}; over {len(pg)} leaves, gradient "
+            f"relative L2 up to {max(grad_rel):.3g}, update up to {max(upd_rel):.3g}")
+    launches = {k: c.launches for k, c in counters.items()}
+    check(not any(launches.values()), f"card-vs-CPU train steps launched kernels: {launches}")
+    timings["train/card_vs_cpu"] = out
+    return launches
+
+
 def run() -> dict:
     import torch
 
@@ -2345,6 +2615,9 @@ def run() -> dict:
     lm.update({name: phase_lm_steps(torch, dev, name, card, timings) for name in STEP_PATHS})
     lm_b3 = {k: v["flash_attention"] for k, v in lm.items() if "flash_attention" in v}
     lm_b4 = {k: v["ssd_scan"] for k, v in lm.items() if "ssd_scan" in v}
+    train_runs = [phase_train(torch, dev, name, card, timings) for name in TRAIN_PATHS]
+    train_runs.append(phase_train_card_vs_cpu(torch, dev, card, timings))
+    train = {k: sum(r[k] for r in train_runs) for k in train_runs[0]}
 
     log("timings " + json.dumps(timings))
 
@@ -2363,7 +2636,8 @@ def run() -> dict:
          "replaces": "src/repro/kernels/imc_eval/kernel.py:47",
          "launches": b1_launches + serve_launches["imc_eval"] + sum(fam_b1.values()),
          "launches_by_path": {"search": b1_launches,
-                              "serve": serve_launches["imc_eval"], **fam_b1},
+                              "serve": serve_launches["imc_eval"], **fam_b1,
+                              "train": train["imc_eval"]},
          "max_abs_err": b1_err[0],
          "max_rel_err": b1_err[1],
          "ms": t1["ms"], "plain_ms": t1["plain_ms"], "bound_ms": t1["bound_ms"],
@@ -2377,7 +2651,8 @@ def run() -> dict:
          "replaces": "src/repro/kernels/ga_gen_step/kernel.py:115",
          "launches": b2_launches + serve_launches["ga_gen_step"] + sum(fam_b2.values()),
          "launches_by_path": {"search": b2_launches,
-                              "serve": serve_launches["ga_gen_step"], **fam_b2},
+                              "serve": serve_launches["ga_gen_step"], **fam_b2,
+                              "train": train["ga_gen_step"]},
          "max_abs_err": 0.0,
          "ms": t2["ms"], "plain_ms": t2["plain_ms"], "bound_ms": t2["bound_ms"],
          "bound_by": t2["bound_by"], "library_ms": None,
@@ -2388,7 +2663,8 @@ def run() -> dict:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:33",
-         "launches": sum(lm_b3.values()), "launches_by_path": lm_b3,
+         "launches": sum(lm_b3.values()),
+         "launches_by_path": {**lm_b3, "train": train["flash_attention"]},
          "max_abs_err": b3_err["s1024"],
          "ms": t3["ms"], "plain_ms": t3["plain_ms"], "bound_ms": t3["bound_ms"],
          "bound_by": t3["bound_by"], "library_ms": t3["library_ms"],
@@ -2398,7 +2674,8 @@ def run() -> dict:
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/kernel.py:33",
-         "launches": sum(lm_b4.values()), "launches_by_path": lm_b4,
+         "launches": sum(lm_b4.values()),
+         "launches_by_path": {**lm_b4, "train": train["ssd_scan"]},
          "max_abs_err": b4_err["bf16_s1024"][0],
          "max_abs_err_f32": b4_err["s1024"][0], "device_kernels_per_call": len(t4["device_parts"]),
          "ms": t4["ms"], "plain_ms": t4["plain_ms"], "bound_ms": t4["bound_ms"],

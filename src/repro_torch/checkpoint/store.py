@@ -13,7 +13,10 @@ committed step; it keeps the newest ``keep`` steps.  ``restore`` loads
 the newest committed step (or the one asked for) as a list of arrays in
 save order.  The callers (the engine's segment checkpoints, the result
 cache's disk tier) give their leaves a fixed order; no tree structure is
-stored.
+stored.  ``save_tree`` / ``restore_tree`` store a tree's leaves in the JAX
+package's leaf order (``models/common.tree_flatten``: dict keys sorted,
+lists and NamedTuples such as ``AdamWState`` in order), so a checkpoint the
+JAX package wrote of the same tree restores into the port and back.
 """
 from __future__ import annotations
 
@@ -22,9 +25,12 @@ import os
 import shutil
 import time
 from pathlib import Path
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Any, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
+
+from repro_torch.models.common import tree_flatten, tree_unflatten
 
 PathLike = Union[str, Path]
 
@@ -90,6 +96,31 @@ def restore(ckpt_dir: PathLike, step: Optional[int] = None
     with open(path / "MANIFEST.json") as f:
         manifest = json.load(f)
     return [np.load(path / f"arr_{e['idx']}.npy") for e in manifest["leaves"]], step
+
+
+def save_tree(ckpt_dir: PathLike, step: int, tree: Any, *, keep: int = 3) -> Path:
+    """``save`` of the tree's leaves in the JAX package's leaf order."""
+    return save(ckpt_dir, step, tree_flatten(tree)[0], keep=keep)
+
+
+def restore_tree(ckpt_dir: PathLike, template: Any, step: Optional[int] = None
+                 ) -> Tuple[Any, int]:
+    """(a tree shaped like ``template``, step) from the newest committed
+    step, or ``step``.  Each leaf takes its template leaf's shape (checked),
+    dtype, device and ``requires_grad``."""
+    arrs, step = restore(ckpt_dir, step)
+    tmpl, treedef = tree_flatten(template)
+    if len(arrs) != len(tmpl):
+        raise ValueError(f"checkpoint step {step} holds {len(arrs)} leaves, the "
+                         f"template {len(tmpl)}")
+    leaves = []
+    for i, (a, t) in enumerate(zip(arrs, tmpl)):
+        if tuple(a.shape) != tuple(t.shape):
+            raise ValueError(f"leaf {i}: shape {tuple(a.shape)} in the checkpoint, "
+                             f"{tuple(t.shape)} in the template")
+        x = torch.from_numpy(a).to(device=t.device, dtype=t.dtype)
+        leaves.append(x.requires_grad_() if t.requires_grad else x)
+    return tree_unflatten(treedef, leaves), step
 
 
 def clear(ckpt_dir: PathLike) -> None:

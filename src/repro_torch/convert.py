@@ -5,8 +5,9 @@ sets, its factorized tables and a GA state (population and scores); those
 of the LMs are their parameter trees and decode caches.  Each function
 takes them as plain dicts, lists or numpy arrays (anything ``np.asarray``
 accepts, the reference's arrays included, bfloat16 ones too), copies them,
-and returns the port's objects on the given device.  Nothing here imports
-the JAX package.
+and returns the port's objects on the given device; a training state (the
+parameters and the AdamW state) also goes back to numpy trees of the JAX
+package's structure, for comparisons.  Nothing here imports the JAX package.
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ from repro_torch.device import resolve_device
 from repro_torch.imc.tables import WorkloadTables
 from repro_torch.imc.tech import TechParams
 from repro_torch.models import transformer
-from repro_torch.models.common import tree_map
+from repro_torch.models.common import tree_flatten, tree_map, tree_unflatten
+from repro_torch.optim import AdamWState
 from repro_torch.workloads.pack import WorkloadSet
 
 ArrayLike = Union[np.ndarray, Sequence]
@@ -109,6 +111,28 @@ def lm_params_from_numpy(cfg: ModelConfig, tree, device="cuda"):
     ``n_blocks``, ``lm_head`` when untied), float32 on ``device``."""
     template = tree_map(lambda d: (d.shape, torch.float32), transformer.param_template(cfg))
     return _tree_from_numpy(template, tree, device, "params")
+
+
+def adamw_state_from_numpy(cfg: ModelConfig, state, device="cuda") -> AdamWState:
+    """The port's ``AdamWState`` from the JAX package's (a ``(step, mu,
+    nu)`` triple, its ``AdamWState`` included, of numpy arrays): the step an
+    int32 0-d tensor, the moments float32 trees of the parameters'
+    structure, on ``device``."""
+    step, mu, nu = state
+    dev = resolve_device(device)
+    return AdamWState(step=torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=dev),
+                      mu=lm_params_from_numpy(cfg, mu, dev),
+                      nu=lm_params_from_numpy(cfg, nu, dev))
+
+
+def tree_to_numpy(tree):
+    """A tree of tensors (the parameters, or an ``AdamWState``) as the same
+    structure of numpy arrays on the host, in each leaf's dtype (bfloat16
+    widened to float32)."""
+    leaves, treedef = tree_flatten(tree)
+    return tree_unflatten(treedef, [
+        (x.detach().float() if x.dtype == torch.bfloat16 else x.detach()).cpu().numpy()
+        for x in leaves])
 
 
 def lm_cache_from_numpy(cfg: ModelConfig, tree, device="cuda"):

@@ -1,5 +1,6 @@
-"""A serving step's inputs for one model (the port's ``input_specs`` and
-``make_inputs`` of ``src/repro/launch/cells.py``).
+"""A serving or training step's inputs for one model (the port's
+``input_specs``, ``make_inputs`` and ``default_accum`` of
+``src/repro/launch/cells.py``).
 
 The stubbed frontends take synthetic inputs, as in the JAX package:
 whisper's conv frontend becomes precomputed frame embeddings (``frames``,
@@ -18,20 +19,37 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 
-KINDS = ("prefill", "decode")
+KINDS = ("train", "prefill", "decode")
+
+# microbatches per train step by architecture, the JAX package's (chosen there
+# for its memory dry-runs); every other architecture takes 2
+ACCUM_BY_ARCH = {
+    "qwen2-72b": 4,
+    "jamba-v0.1-52b": 8,
+    "qwen3-moe-235b-a22b": 8,
+    "gemma-7b": 4,
+    "whisper-medium": 4,
+    "yi-9b": 4,
+}
 
 
 def input_specs(cfg: ModelConfig, kind: str, batch: int, seq: int
                 ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
-    """(shape, dtype) of each input of a ``kind`` step ("prefill": the
-    prompt, ``seq`` tokens; "decode": one new token against a cache of
-    ``seq``)."""
+    """(shape, dtype) of each input of a ``kind`` step ("train": ``seq``
+    input tokens and their ``seq`` targets; "prefill": the prompt, ``seq``
+    tokens; "decode": one new token against a cache of ``seq``).  Train and
+    prefill steps also take the model's extras: vision embeddings and
+    mrope streams, or encoder frames."""
     if kind not in KINDS:
         raise ValueError(f"kind {kind!r}: want one of {KINDS}")
     B, S = batch, seq
     out: Dict[str, Tuple[Tuple[int, ...], torch.dtype]] = {}
-    if kind == "prefill":
+    if kind == "train":
+        out["inputs"] = ((B, S), torch.int64)
+        out["targets"] = ((B, S), torch.int64)
+    elif kind == "prefill":
         out["tokens"] = ((B, S), torch.int64)
+    if kind != "decode":
         if cfg.vision_tokens:
             out["vision_embeds"] = ((B, cfg.vision_tokens, cfg.d_model), torch.bfloat16)
             out["mrope_pos"] = ((3, B, S), torch.int64)
@@ -63,3 +81,11 @@ def make_inputs(cfg: ModelConfig, kind: str, batch: int, seq: int,
             x = torch.randn(shape, generator=generator, dtype=torch.float32, device=dev)
             out[name] = x.to(dtype) * 0.02
     return out
+
+
+def default_accum(cfg: ModelConfig, kind: str) -> int:
+    """Microbatches per step: ``ACCUM_BY_ARCH`` (default 2) for a train step,
+    1 for an inference step."""
+    if kind != "train":
+        return 1
+    return ACCUM_BY_ARCH.get(cfg.name, 2)

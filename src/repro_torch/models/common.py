@@ -32,6 +32,61 @@ def tree_map(f: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
     return f(tree, *rest)
 
 
+_LEAF = object()  # a leaf's place in a treedef
+
+
+def tree_flatten(tree: PyTree) -> Tuple[list, PyTree]:
+    """(leaves, treedef) in the JAX package's leaf order (``jax.tree.flatten``):
+    dict keys sorted, lists, tuples and NamedTuples in order, ``None`` an
+    empty subtree.  The treedef is the tree with every leaf replaced by a
+    marker; ``tree_unflatten`` fills it."""
+    leaves: list = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(t[k]) for k in sorted(t)}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(walk(x) for x in t))
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(x) for x in t)
+        if t is None:
+            return None
+        leaves.append(t)
+        return _LEAF
+
+    return leaves, walk(tree)
+
+
+def tree_unflatten(treedef: PyTree, leaves) -> PyTree:
+    """The tree of ``treedef`` (from ``tree_flatten``) holding ``leaves`` in
+    order; their count must match."""
+    it = iter(leaves)
+    end = object()
+
+    def build(t):
+        if t is _LEAF:
+            leaf = next(it, end)
+            if leaf is end:
+                raise ValueError("fewer leaves than the treedef holds")
+            return leaf
+        if isinstance(t, dict):
+            return {k: build(v) for k, v in t.items()}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(build(x) for x in t))
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(x) for x in t)
+        return t
+
+    out = build(treedef)
+    if next(it, end) is not end:
+        raise ValueError("more leaves than the treedef holds")
+    return out
+
+
+def tree_leaves(tree: PyTree) -> list:
+    return tree_flatten(tree)[0]
+
+
 def init_params(template: PyTree, generator: torch.Generator,
                 dtype: torch.dtype = torch.float32,
                 device: Optional[torch.device] = None,

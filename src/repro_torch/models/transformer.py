@@ -8,6 +8,8 @@ encoder-decoder and VLM.
 * Entry points: ``forward`` (full sequence), ``prefill`` (full sequence
   returning a decode cache), ``decode_step`` (one token per sequence with
   the carried cache, updated in place: the JAX package donates it).
+  Training calls ``forward(..., remat=True, return_hidden=True)`` with
+  ``impl="plain"`` and ``head_weight`` (``train/step.py``).
 * ``impl="kernel"`` (the default) runs every full-sequence attention call
   (causal self-attention, and whisper's non-causal encoder self-attention
   and prefill cross-attention) and the SSD scan through the kernel
@@ -30,6 +32,7 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -454,27 +457,32 @@ def _embed(cfg, params, tokens, vision_embeds=None):
 
 def _logits(cfg, params, x):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    if cfg.tie_embeddings:
-        w = params["embed"].to(x.dtype).T
-    else:
-        w = params["lm_head"].to(x.dtype)
-    return x @ w
+    return x @ head_weight(cfg, params).to(x.dtype)
 
 
 def forward(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor, *,
             vision_embeds: Optional[torch.Tensor] = None,
             mrope_pos: Optional[torch.Tensor] = None,
             frames: Optional[torch.Tensor] = None,
-            impl: str = "kernel") -> Tuple[torch.Tensor, torch.Tensor]:
+            impl: str = "kernel", remat: bool = False,
+            return_hidden: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  Returns (logits (B, S, V), the MoE aux loss
-    summed over layers, a float32 scalar)."""
+    summed over layers, a float32 scalar).
+
+    ``return_hidden=True`` returns the final-norm hidden states (B, S, d)
+    in place of the logits: the training loss then never holds the
+    (B, S, V) logits at once (``train.step``).  ``remat=True`` runs each
+    pass over the layer plan (the body of the JAX package's ``lax.scan``)
+    under ``torch.utils.checkpoint``: the backward pass recomputes it from
+    its inputs and nothing inside is kept (``nothing_saveable``)."""
     B, S = tokens.shape
     x = _embed(cfg, params, tokens, vision_embeds)
     positions = torch.arange(S, device=tokens.device)
     enc_out = encode(cfg, params, frames, impl=impl) if cfg.is_encdec else None
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     plan = cfg.layer_plan()
-    for blk in range(cfg.n_blocks):
+
+    def block(blk, x, aux):
         for i, (mixer, ffn) in enumerate(plan):
             sp = layer(params["blocks"][i], blk)
             if mixer == "attn":
@@ -486,7 +494,22 @@ def forward(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor, *,
             else:
                 x, _ = mamba_full(cfg, sp["mixer"], x, impl=impl)
             x, aux = _ffn(cfg, ffn, sp.get("ffn"), x, aux)
+        return x, aux
+
+    for blk in range(cfg.n_blocks):
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(block, blk, x, aux,
+                                                       use_reentrant=False)
+        else:
+            x, aux = block(blk, x, aux)
+    if return_hidden:
+        return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
     return _logits(cfg, params, x), aux
+
+
+def head_weight(cfg: ModelConfig, params: PyTree) -> torch.Tensor:
+    """(d, V) LM-head weight (the transposed embedding when tied)."""
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
 def prefill(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor, *,

@@ -366,7 +366,7 @@ def test_decode_after_prefill_equals_forward_in_float32(name, cf, monkeypatch):
 def test_make_inputs_match_reference_specs():
     for name, _ in FAMILIES:
         jc, tc = _cfgs(name, None)
-        for kind in ("prefill", "decode"):
+        for kind in ("train", "prefill", "decode"):
             js = jcells.input_specs(jc, ShapeSpec("t", 24, 2, kind))
             ts = tcells.input_specs(tc, kind, 2, 24)
             assert list(ts) == list(js), (name, kind)
@@ -376,7 +376,7 @@ def test_make_inputs_match_reference_specs():
             for k, (shape, dtype) in ts.items():
                 assert tuple(got[k].shape) == shape and got[k].dtype == dtype
     with pytest.raises(ValueError, match="kind"):
-        tcells.input_specs(tc, "train", 1, 8)
+        tcells.input_specs(tc, "score", 1, 8)
 
 
 def test_sliding_window_ring_matches_reference_package():

@@ -741,3 +741,130 @@ def test_mamba_float64_gap_check_catches_a_faulty_scan(cuda, monkeypatch):
     assert extra_gap(lambda real: real) <= margin
     for fault in (_drop_last_chunk_inter, _drop_own_term):
         assert extra_gap(fault) > margin, fault.__name__
+
+
+# ------------------------------------------------------------- training
+# one train step on the card against the CPU (the bounds of chip_smoke.py
+# phase 10b and tests/test_torch_train.py: bf16 activations round on the
+# card's GEMMs as in another framework)
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 1e-3, 1e-2
+TRAIN_GRAD_REL_L2, TRAIN_UPDATE_REL_L2 = 0.1, 0.3
+
+
+def _train_state(cfg, seed=0):
+    """Float32 masters from ``seed`` on the CPU with zeroed routers (every
+    probability ties, so both devices route alike), requiring grad, and a
+    train batch from the data pipeline."""
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.launch.cells import input_specs
+    from repro_torch.models.common import tree_leaves
+
+    params = transformer.init(cfg, torch.Generator().manual_seed(seed))
+    for slot in params["blocks"]:
+        if "router" in slot.get("ffn", {}):
+            slot["ffn"]["router"].zero_()
+    for p in tree_leaves(params):
+        p.requires_grad_()
+    extras = {k: v for k, v in input_specs(cfg, "train", 4, 64).items()
+              if k not in ("inputs", "targets")}
+    return params, make_batch_fn(cfg.vocab_size, 64, 4, seed=seed, extras=extras)(0)
+
+
+def _on(tree, dev):
+    from repro_torch.models.common import tree_flatten, tree_unflatten
+
+    leaves, td = tree_flatten(tree)
+    return tree_unflatten(td, [x.detach().to(dev, copy=True).requires_grad_(x.requires_grad)
+                               for x in leaves])
+
+
+def _rel(a, b):
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("name", ["llama3.2-1b", "mamba2-780m", "mixtral-8x7b"])
+def test_train_step_on_card_equals_cpu(cuda, name):
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.step import loss_fn, make_train_step
+
+    cfg = get_config(name).reduced()
+    params, host = _train_state(cfg)
+    kw = dict(peak_lr=1e-3, warmup_steps=2, total_steps=10)
+    cpu = torch.device("cpu")
+    # step 0 (learning rate 0) on the CPU fills the moments
+    params, opt, _ = make_train_step(cfg, **kw)(params, adamw_init(params),
+                                                to_device(host, cpu))
+    grads = []
+    for d in (cuda, cpu):
+        p = _on(params, d)
+        grads.append(torch.autograd.grad(loss_fn(cfg, p, to_device(host, d))[0],
+                                         tree_leaves(p)))
+    assert max(_rel(a, b) for a, b in zip(*grads)) <= TRAIN_GRAD_REL_L2
+    before = [x.detach().clone() for x in tree_leaves(params)]
+    outs = []
+    for d in (cuda, cpu):
+        p, o, m = make_train_step(cfg, **kw)(_on(params, d), _on(opt, d), to_device(host, d))
+        assert int(o.step) == 2
+        outs.append(([x.detach().cpu() for x in tree_leaves(p)],
+                     {k: float(v) for k, v in m.items()}))
+    (pg, mg), (pc, mc) = outs
+    assert mg["loss"] == pytest.approx(mc["loss"], rel=TRAIN_LOSS_RTOL)
+    assert mg["grad_norm"] == pytest.approx(mc["grad_norm"], rel=TRAIN_GNORM_RTOL)
+    assert mg["lr"] == mc["lr"]
+    assert max(_rel(a - x, b - x) for a, b, x in zip(pg, pc, before)) <= TRAIN_UPDATE_REL_L2
+
+
+def test_train_remat_on_and_off_on_card(cuda):
+    """The same step with and without remat on the card: the forward is the
+    same operations, the backward recomputes them."""
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train.step import loss_fn
+
+    cfg = get_config("llama3.2-1b").reduced()
+    params, host = _train_state(cfg)
+    p = _on(params, cuda)
+    batch = to_device(host, cuda)
+    out = []
+    for remat in (True, False):
+        loss, _ = loss_fn(cfg, p, batch, remat=remat, loss_chunk=16)
+        out.append((loss.detach(), torch.autograd.grad(loss, tree_leaves(p))))
+    assert torch.equal(out[0][0], out[1][0])
+    assert max(_rel(a, b) for a, b in zip(out[0][1], out[1][1])) <= 1e-5
+
+
+@pytest.mark.parametrize("name", ["llama3.2-1b", "mamba2-780m"])
+def test_training_launches_no_kernel(cuda, name):
+    """A train step runs the plain attention and SSD: B1-B4 launch 0 times."""
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.step import make_train_step
+
+    cfg = get_config(name).reduced()
+    params, host = _train_state(cfg)
+    p = _on(params, cuda)
+    counters = (imc_eval_multi, ga_gen_step, flash_attention, ssd_chunked)
+    for c in counters:
+        c.launches = 0
+    step = make_train_step(cfg, total_steps=10)
+    opt = adamw_init(p)
+    for _ in range(2):
+        p, opt, m = step(p, opt, to_device(host, cuda))
+    assert np.isfinite(float(m["loss"]))
+    assert [c.launches for c in counters] == [0, 0, 0, 0]
+
+
+def test_batches_reach_the_card_from_pinned_memory(cuda):
+    from repro_torch.data.pipeline import make_batch_fn, pinned, to_device
+
+    b = make_batch_fn(1000, 32, 2, seed=3, extras={"mrope_pos": ((3, 2, 32), torch.int64)})(4)
+    host = pinned(b)
+    assert all(t.is_pinned() for t in host.values())
+    dev = to_device(host, cuda)
+    torch.cuda.synchronize()
+    assert dev["inputs"].is_cuda and dev["inputs"].dtype == torch.int64
+    for k in b:
+        np.testing.assert_array_equal(dev[k].cpu().numpy(), b[k])

@@ -21,6 +21,14 @@ def test_port_files_found():
     assert len(PORT_FILES) > 20
 
 
+def test_training_modules_are_held():
+    """The training path's modules are among the files held below."""
+    held = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES[:-1]}
+    assert {"optim/__init__.py", "optim/adamw.py", "data/__init__.py", "data/pipeline.py",
+            "train/__init__.py", "train/step.py", "launch/train.py",
+            "examples/train_lm.py"} <= held
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
     text = path.read_text()
