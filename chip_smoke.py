@@ -112,6 +112,21 @@ first fault exits non-zero and prints no result:
      through ``SearchEngine(direct_seed=True)`` (B2), and the mix of
      ``repro_torch.examples.lm_hw_cosearch`` through that example on
      ``kernel`` (B1), each best re-scoring to itself;
+ 9c. the JAX package's threefry streams (``core/prng.py``): ``PRNGKey``
+     over ``THREEFRY_SEEDS``, ``split`` (n = 2, 8, 64), ``uniform`` at the
+     service plan's stream (64 x 10 x 1180) and one seeder round (64 x
+     2560 x 9) on the card equal to the CPU's bit for bit and to jax's
+     words (``THREEFRY_*``), ``gumbel`` within 1e-6 of the CPU's (relative
+     to max(|g|, 1)); the stream draw's ms, device ms, launches and host
+     ms; the search CLI with ``--prng threefry`` per kernel backend, with
+     phase 7's checks and its host clock beside phase 7's; the 8 seeds'
+     generation-0 populations on the card equal to the CPU port's from the
+     same keys, with the rejection seeder (its rounds logged) and the
+     direct seeder; ``--serve 64 --backend table --prng threefry`` (every
+     rid answered, B2 launched plans x generations times and no other
+     kernel, re-scores, 8 requests alone on the threefry streams: the same
+     bits); and ``repro_torch.examples.quickstart`` at the paper's
+     configuration;
  10. the LM serving path at full width, once per model, each freed before
      the next loads, random weights from seed 0, peak device memory under
      ``MEM_LIMIT`` (70 GB) and logged.  ``llama3.2-1b`` (16 layers),
@@ -167,8 +182,9 @@ first fault exits non-zero and prints no result:
      moments and batch: loss, grad norm, each leaf's gradient and update
      within ``TRAIN_*`` tolerances;
  11. one JSON line ``{"kernels": [...]}``: launches on the main paths
-     (``launches_by_path``: the search CLI, the service and phase 9b's
-     paths; for flash_attention and ssd_scan each model of phase 10; the
+     (``launches_by_path``: the search CLI, the service, phase 9b's
+     paths and phase 9c's, ``search_threefry`` and ``serve_threefry``;
+     for flash_attention and ssd_scan each model of phase 10; the
      training path, ``train``, 0 for each),
      max error, kernel and plain times per call (CUDA events, after a
      warm-up, in turns plain/kernel/kernel/plain; at small sizes they
@@ -209,6 +225,20 @@ PEAK_BF16_S = 989e12
 # runs four kernels)
 KERNEL_PREFIX = {"imc_eval": "imc_eval_kernel", "ga_gen_step": "ga_gen_step_kernel",
                  "flash_attention": "flash_attention_", "ssd_scan": "ssd_scan_"}
+
+
+# jax 0.9.0's threefry2x32 (partitionable) from PRNGKey(0): split(key, 2),
+# split(key, 64)[63], and the float32 bits (as uint32) of the first and last
+# words of uniform(key, shape); the threefry phase holds the card's draws
+# to them, tests/test_torch_prng.py holds them to jax
+THREEFRY_SPLIT0 = [[1797259609, 2579123966], [928981903, 3453687069]]
+THREEFRY_SPLIT0_64_LAST = [3315697203, 95651515]
+THREEFRY_UNIFORM0 = {
+    (40, 11): ([1064475214, 1064993846, 1051337244, 1055913296],
+               [1062062034, 1046583704, 1064207798, 1049831736]),
+    (10, 64, 1180): ([1064475214, 1064993846, 1051337244, 1055913296],
+                     [1047018048, 1057477850, 1064730794, 1039857984]),
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -758,8 +788,9 @@ def phase_host_split(torch, dev, paper, timings):
     timings["host_split_us"] = split
 
 
-def phase_main_path(torch, dev, backend, counter):
-    """Drive the CLI once; return (launch count of ``counter``, entries)."""
+def phase_main_path(torch, dev, backend, counter, prng="torch", timings=None):
+    """Drive the CLI once on the ``prng`` streams; return the launch count
+    of ``counter`` (the host clock goes to ``timings``)."""
     from repro_torch.core.objectives import make_objective
     from repro_torch.imc.cost import DesignArrays, evaluate_designs
     from repro_torch.launch.search import main
@@ -769,7 +800,8 @@ def phase_main_path(torch, dev, backend, counter):
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         out = Path(tmp) / f"search_{backend}.json"
         argv = ["--seeds", "8", "--pop", "40", "--gens", "10", "--separate",
-                "--backend", backend, "--device", str(dev), "--out", str(out)]
+                "--backend", backend, "--device", str(dev), "--out", str(out),
+                "--prng", prng]
         counters = _counters()
         for c in counters.values():
             c.launches = 0
@@ -783,6 +815,9 @@ def phase_main_path(torch, dev, backend, counter):
                   if c is not counter and c.launches}
         check(rc == 0, f"main path ({backend}) returned {rc}")
         entries = json.loads(out.read_text())
+    if timings is not None:
+        timings[f"main_path/{backend}/{prng}"] = {"wall_s": dt, "launches": launches}
+    backend = backend if prng == "torch" else f"{backend}, --prng {prng}"
     check(launches > 0, f"main path ({backend}) launched its kernel 0 times")
     check(not others, f"main path ({backend}): other kernels launched: {others}")
     check(len(entries) == 8, f"main path ({backend}): {len(entries)} seed entries")
@@ -911,9 +946,10 @@ def _drain(svc, reqs) -> list:
     return [res[r] for r in rids]
 
 
-def _check_serve_entries(torch, dev, ws, backend, n, entries, label):
+def _check_serve_entries(torch, dev, ws, backend, n, entries, label, prng="torch"):
     """Every rid answered; each best re-scores to itself on the plain dense
-    path (rtol 1e-5); 8 sampled requests run alone give the same bits."""
+    path (rtol 1e-5); 8 sampled requests run alone (on the ``prng``
+    streams) give the same bits."""
     import numpy as np
 
     from repro_torch.core.engine import SearchEngine
@@ -940,7 +976,7 @@ def _check_serve_entries(torch, dev, ws, backend, n, entries, label):
                              generations=SERVE_GENS)
     sample = sorted(int(r) for r in np.random.default_rng(0).choice(n, 8, replace=False))
     for rid in sample:
-        alone = SearchEngine(device=dev).run([reqs[rid]])[0]
+        alone = SearchEngine(device=dev, prng=prng).run([reqs[rid]])[0]
         e = entries[rid]
         check([float(v) for v in alone.top_scores] == e["top_scores"]
               and (alone.top_designs[0] if alone.top_designs else None) == e["best_design"],
@@ -1601,6 +1637,202 @@ def phase_families(torch, dev, card, timings):
         f"per model) re-score to themselves")
     rec["lm"] = dict(table=paths["lm/table"], kernel=got, kernel_wall_s=wall)
     rec["launches"] = paths
+    return paths
+
+
+# ---------------------------------------------------- threefry streams
+THREEFRY_SEEDS = (0, 1, 2**31 - 1, 2**32 + 3, -1)
+# the service's plan (64 slots, 10 generations, P=40: 1180 uniforms a
+# block) and one rejection-seeder round (64 slots x 2560 candidates x 9)
+THREEFRY_SLOTS, THREEFRY_TOT, THREEFRY_CAND = 64, 1180, 40 * 64
+
+
+def _bits_equal(torch, a, b) -> bool:
+    a, b = a.cpu(), b.cpu()
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def _threefry_draws(torch, dev, timings):
+    """The threefry primitives on the card against the CPU, bit for bit,
+    and against jax's constants; the stream draw timed at the service's
+    plan."""
+    from repro_torch.core import prng as tf
+
+    for seed in THREEFRY_SEEDS:
+        k = tf.PRNGKey(seed, device=dev)
+        check(k.tolist() == [0, seed % 2**32] and _bits_equal(torch, k, tf.PRNGKey(seed)),
+              f"threefry: PRNGKey({seed}) on the card {k.tolist()}")
+    k0 = tf.PRNGKey(0, device=dev)
+    check(tf.split(k0).tolist() == THREEFRY_SPLIT0,
+          f"threefry: split(PRNGKey(0)) on the card {tf.split(k0).tolist()}, jax "
+          f"{THREEFRY_SPLIT0}")
+    check(tf.split(k0, 64)[-1].tolist() == THREEFRY_SPLIT0_64_LAST,
+          "threefry: split(PRNGKey(0), 64)[63] differs from jax's")
+    for shape, (head, tail) in THREEFRY_UNIFORM0.items():
+        words = tf.uniform(k0, shape).reshape(-1).view(torch.int32).cpu().tolist()
+        check(words[:len(head)] == head and words[-len(tail):] == tail,
+              f"threefry: uniform(PRNGKey(0), {shape}) differs from jax's words")
+    keys = tf.split(tf.PRNGKey(7), THREEFRY_SLOTS)  # (64, 2) on the host
+    for n in (2, 8, 64):
+        check(_bits_equal(torch, tf.split(keys.to(dev), n), tf.split(keys, n)),
+              f"threefry: split(keys, {n}) on the card differs from the CPU's")
+    k_gen = tf.split(tf.split(keys)[:, 1], SERVE_GENS)  # (64, 10, 2)
+    cases = {"stream (64, 10, 1180)": (k_gen, (THREEFRY_TOT,)),
+             "seeder round (64, 2560, 9)": (keys, (THREEFRY_CAND, 9))}
+    for label, (k, shape) in cases.items():
+        check(_bits_equal(torch, tf.uniform(k.to(dev), shape), tf.uniform(k, shape)),
+              f"threefry: uniform {label} on the card differs from the CPU's")
+    g_card = tf.gumbel(keys[:16].to(dev), (32000,)).cpu()
+    g_cpu = tf.gumbel(keys[:16], (32000,))
+    gap = float(((g_card - g_cpu).abs() / g_cpu.abs().clamp_min(1.0)).max())
+    check(bool(torch.isfinite(g_card).all()) and gap <= 1e-6,
+          f"threefry: gumbel on the card lies {gap} from the CPU's (limit 1e-6)")
+
+    # the plan's stream draw: device ms and launches, host ms to enqueue
+    k_dev = k_gen.to(dev)
+
+    def draw():
+        return tf.uniform(k_dev, (THREEFRY_TOT,))
+
+    draw()
+    ms = cuda_ms(draw, 20)
+    prof, _ = _profiled(torch, lambda: [draw() for _ in range(10)])
+    per = device_kernels(prof, 10)
+    dev_ms = sum(m for m, _ in per.values()) if per else None
+    n_launch = sum(c for _, c in per.values()) / 10 if per else None
+    host = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ks = tf.split(tf.split(keys)[:, 1], SERVE_GENS)
+        tf.uniform(ks.to(dev, non_blocking=True), (THREEFRY_TOT,))
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    timings["threefry/stream"] = {"ms": ms, "device_ms": dev_ms,
+                                  "launches_per_draw": n_launch,
+                                  "host_ms": sorted(host)[len(host) // 2]}
+    log(f"threefry draws: PRNGKey, split (2, 8, 64), the service's stream and a "
+        f"seeder round equal the CPU's bit for bit, jax's constants held, gumbel "
+        f"within {gap:.3g} of the CPU's; the plan's stream (64 x 10 x 1180): "
+        f"{ms:.4f} ms per draw (events), device {_ms(dev_ms)} in "
+        f"{n_launch} launches, host {sorted(host)[len(host) // 2]:.3f} ms (median) "
+        f"to split the keys and enqueue it")
+
+
+def _count_rounds(engine_mod, rounds):
+    """Wrap ``engine._candidate_draws`` so each seeding call appends its
+    number of rounds to ``rounds``; returns the undo."""
+    real = engine_mod._candidate_draws
+
+    def counting(source, n_cand, dev):
+        draw = real(source, n_cand, dev)
+        rounds.append(0)
+
+        def wrapped(open_):
+            rounds[-1] += 1
+            return draw(open_)
+        return wrapped
+
+    engine_mod._candidate_draws = counting
+    return lambda: setattr(engine_mod, "_candidate_draws", real)
+
+
+def phase_threefry(torch, dev, card, timings):
+    """The JAX package's threefry streams on the card: the draws against
+    the CPU, the search CLI with ``--prng threefry`` on both kernel
+    backends (phase 7's checks), each seed's generation-0 population
+    against the CPU port's from the same key (both seeders), a 64-request
+    ``--serve --backend table --prng threefry`` drain, and the quickstart
+    example.  Returns {path: {kernel: launches}}."""
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.core.engine import SearchEngine, SearchRequest, plan_batch
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels.ga_gen_step.ops import ga_gen_step
+    from repro_torch.kernels.imc_eval.ops import imc_eval_multi
+    from repro_torch.serve.dse import paper_request_mix
+
+    rec = timings["threefry"] = {"card": card}
+    _threefry_draws(torch, dev, timings)
+    counters = _counters()
+    paths = {"search_threefry": {}, "serve_threefry": {}}
+    for backend, kname, counter in (("kernel", "imc_eval", imc_eval_multi),
+                                    ("table", "ga_gen_step", ga_gen_step)):
+        n = phase_main_path(torch, dev, backend, counter, prng="threefry", timings=timings)
+        paths["search_threefry"][kname] = n
+    for backend in ("kernel", "table"):
+        t, f = timings[f"main_path/{backend}/torch"], timings[f"main_path/{backend}/threefry"]
+        log(f"host clock of the search CLI --backend {backend}: torch streams "
+            f"{t['wall_s']:.3f}s, threefry {f['wall_s']:.3f}s "
+            f"({f['wall_s'] - t['wall_s']:+.3f}s)")
+
+    # each CLI seed's generation-0 population on the card against the CPU
+    # port's, from the same key, with the rejection and the direct seeder
+    ws = _paper_ws()
+    reqs = [SearchRequest(ws=ws, seed=s, backend="table", pop_size=SERVE_POP,
+                          generations=1) for s in range(PAPER_SEEDS)]
+    rounds = []
+    undo = _count_rounds(engine_mod, rounds)
+    try:
+        for direct in (False, True):
+            pops = [[r.ga.genomes[0] for r in SearchEngine(
+                device=where, prng="threefry", direct_seed=direct).run(reqs)]
+                for where in (dev, torch.device("cpu"))]
+            for s, (a, b) in enumerate(zip(*pops)):
+                check(a.shape == b.shape and (a.view("int32") == b.view("int32")).all(),
+                      f"threefry seed {s}: generation 0 on the card differs from the "
+                      f"CPU's ({'direct' if direct else 'rejection'} seeder)")
+    finally:
+        undo()
+    rec["seeder_rounds"] = rounds
+    log(f"threefry: the {PAPER_SEEDS} CLI seeds' generation-0 populations equal the "
+        f"CPU port's bit for bit, with the rejection and the direct seeder; "
+        f"rejection rounds per seeding call (card, CPU): {rounds}")
+
+    # a 64-request table drain on the threefry streams
+    n = 64
+    plans = plan_batch(paper_request_mix(ws, n, backend="table", pop_size=SERVE_POP,
+                                         generations=SERVE_GENS))
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        out = Path(tmp) / "serve_threefry.json"
+        _reset(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc, text = _serve_main(["--serve", str(n), "--backend", "table", "--prng", "threefry",
+                                "--pop", str(SERVE_POP), "--gens", str(SERVE_GENS),
+                                "--device", str(dev), "--out", str(out)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _read(counters)
+        check(rc == 0, f"--serve {n} --prng threefry returned {rc}")
+        want = len(plans) * SERVE_GENS
+        check(got["ga_gen_step"] == want and not any(v for k, v in got.items()
+                                                     if k != "ga_gen_step"),
+              f"--serve --prng threefry: launches {got}, want ga_gen_step {want}")
+        entries = json.loads(out.read_text())
+    n_ok, sample = _check_serve_entries(torch, dev, ws, "table", n, entries,
+                                        "--serve --prng threefry", prng="threefry")
+    paths["serve_threefry"] = {"imc_eval": got["imc_eval"], "ga_gen_step": got["ga_gen_step"]}
+    rec["serve"] = dict(requests=n, plans=len(plans), launches=got["ga_gen_step"],
+                        wall_s=wall, feasible=n_ok, alone_sample=sample)
+    for ln in _summary_lines(text):
+        log(ln)
+    log(f"service --prng threefry: {n} requests in {len(plans)} plan(s), "
+        f"{got['ga_gen_step']} ga_gen_step launches, {wall:.3f}s host clock; {n_ok} "
+        f"feasible bests re-score to themselves; rids {sample} alone: bit for bit")
+
+    # the quickstart example at the paper's configuration
+    _reset(counters)
+    t0 = time.perf_counter()
+    rc, text = _captured(quickstart.main, ["--device", str(dev)])
+    wall = time.perf_counter() - t0
+    check(rc == 0 and "best generalized design" in text,
+          f"quickstart returned {rc}: {text[-400:]}")
+    rec["quickstart"] = {"wall_s": wall, "launches": _read(counters)}
+    for ln in text.splitlines():
+        if ln.strip():
+            log(f"quickstart: {ln}")
     return paths
 
 
@@ -2603,12 +2835,13 @@ def run() -> dict:
     from repro_torch.kernels.ga_gen_step.ops import ga_gen_step
     from repro_torch.kernels.imc_eval.ops import imc_eval_multi
 
-    b1_launches = phase_main_path(torch, dev, "kernel", imc_eval_multi)
-    b2_launches = phase_main_path(torch, dev, "table", ga_gen_step)
+    b1_launches = phase_main_path(torch, dev, "kernel", imc_eval_multi, timings=timings)
+    b2_launches = phase_main_path(torch, dev, "table", ga_gen_step, timings=timings)
     for backend in ("kernel", "table"):
         phase_trace(torch, dev, backend, timings)
     serve_launches = phase_service(torch, dev, card, timings)
     fam = phase_families(torch, dev, card, timings)
+    threefry = phase_threefry(torch, dev, card, timings)
     fam_b1 = {k: v["imc_eval"] for k, v in fam.items() if v["imc_eval"]}
     fam_b2 = {k: v["ga_gen_step"] for k, v in fam.items() if v["ga_gen_step"]}
     lm = {name: phase_lm(torch, dev, name, card, timings) for name in LM_PATHS}
@@ -2634,9 +2867,11 @@ def run() -> dict:
         {"name": "imc_eval", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/imc_eval.cu",
          "replaces": "src/repro/kernels/imc_eval/kernel.py:47",
-         "launches": b1_launches + serve_launches["imc_eval"] + sum(fam_b1.values()),
+         "launches": b1_launches + serve_launches["imc_eval"] + sum(fam_b1.values())
+         + sum(v["imc_eval"] for v in threefry.values()),
          "launches_by_path": {"search": b1_launches,
                               "serve": serve_launches["imc_eval"], **fam_b1,
+                              **{k: v["imc_eval"] for k, v in threefry.items()},
                               "train": train["imc_eval"]},
          "max_abs_err": b1_err[0],
          "max_rel_err": b1_err[1],
@@ -2649,9 +2884,11 @@ def run() -> dict:
         {"name": "ga_gen_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ga_gen_step.cu",
          "replaces": "src/repro/kernels/ga_gen_step/kernel.py:115",
-         "launches": b2_launches + serve_launches["ga_gen_step"] + sum(fam_b2.values()),
+         "launches": b2_launches + serve_launches["ga_gen_step"] + sum(fam_b2.values())
+         + sum(v["ga_gen_step"] for v in threefry.values()),
          "launches_by_path": {"search": b2_launches,
                               "serve": serve_launches["ga_gen_step"], **fam_b2,
+                              **{k: v["ga_gen_step"] for k, v in threefry.items()},
                               "train": train["ga_gen_step"]},
          "max_abs_err": 0.0,
          "ms": t2["ms"], "plain_ms": t2["plain_ms"], "bound_ms": t2["bound_ms"],

@@ -32,9 +32,13 @@ Within a plan:
     same alone and in any batch.  The dense backends group by exact
     (W, L), so their tensors are never padded.
   * **Seeds** are data: each slot draws its initial population and its
-    uniform blocks from its own ``torch.Generator``s, so a slot's results
-    do not depend on its batch-mates.  The streams differ between the CPU
-    and CUDA generators; ``stream_tag`` names them in every cache key.
+    uniform blocks from its own streams, so a slot's results do not depend
+    on its batch-mates.  ``SearchEngine(prng="torch")`` (the default)
+    draws from ``torch.Generator``s seeded by the request's seed, whose
+    streams differ between the CPU and CUDA; ``prng="threefry"`` draws
+    what the JAX package draws from ``PRNGKey(seed)`` or the request's
+    ``key`` (``core.prng``), the same bits on every device.
+    ``stream_tag`` names the stream in every cache key.
     The rejection seeder runs on a CUDA stream of the engine's own, so its
     early exit waits for its own rounds, never for a GA still queued;
     ``SearchEngine(direct_seed=True)`` samples table-backend pools from
@@ -69,6 +73,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import store
+from repro_torch.core import prng as tf
 from repro_torch.core import space
 from repro_torch.core.ga import (
     GAResult,
@@ -100,17 +105,25 @@ from repro_torch.kernels.imc_eval.ops import evaluate_designs_kernel_arrays
 from repro_torch.workloads.pack import WorkloadSet
 
 BACKENDS = ("dense", "kernel", "table")
+PRNGS = ("torch", "threefry")
 MAX_SLOTS = 64  # searches per batched GA
 NOT_PORTED = "not ported yet (ROADMAP.md, queue A, 'Multi-device')"
 # objective tails of an eval ctx: (kind, area), (3,) weights, or area
 INDEXED, WEIGHTED = "indexed", "weighted"
 
 
-def stream_tag(device) -> str:
+def stream_tag(device, prng: str = "torch") -> str:
     """Names the random stream a seed draws on ``device``: the same seed
-    gives other designs on the CPU's and on CUDA's generator, so cache and
-    checkpoint keys must tell them apart."""
-    return f"repro_torch seed streams v1, torch.Generator({torch.device(device).type})"
+    gives other designs on the CPU's and on CUDA's generator, and on
+    threefry, so cache and checkpoint keys must tell them apart.  The
+    threefry tag keeps the device type: the dense cost model's float sums
+    may still round apart across devices."""
+    dev = torch.device(device).type
+    if prng == "torch":
+        return f"repro_torch seed streams v1, torch.Generator({dev})"
+    if prng == "threefry":
+        return f"repro_torch seed streams v1, jax threefry2x32 partitionable({dev})"
+    raise ValueError(f"prng must be one of {PRNGS}, got {prng!r}")
 
 
 @dataclasses.dataclass
@@ -219,21 +232,45 @@ def largest_workload_index(ws: WorkloadSet) -> int:
 
 
 # ----------------------------------------------------------------- seeding
-def _seed_rounds(generators: Sequence[torch.Generator], feats: torch.Tensor,
-                 mask: torch.Tensor, pop_size: int, oversample: int,
-                 max_rounds: int, tech: TechParams, stream=None):
+def _candidate_draws(source, n_cand: int, dev) -> Callable:
+    """``draw(open_) -> (B, n_cand, n)``: one round's candidates per slot.
+    ``source`` is one ``torch.Generator`` per slot, or a (B, 2) threefry
+    key tensor: then each round is ``key, k = split(key)`` and
+    ``uniform(k, (n_cand, n))`` per slot, as the JAX package's seeder
+    draws, and a slot whose pool is full before the round (``open_``
+    False) keeps its key, as a vmapped ``while_loop`` keeps a finished
+    element's state."""
+    if isinstance(source, torch.Tensor):
+        keys = source.to(dev)
+
+        def draw(open_: torch.Tensor) -> torch.Tensor:
+            nonlocal keys
+            ks = tf.split(keys)  # (B, 2, 2)
+            keys = torch.where(open_[:, None], ks[:, 0], keys)
+            return space.random_genomes(n_cand, key=ks[:, 1])
+        return draw
+
+    def draw(open_: torch.Tensor) -> torch.Tensor:
+        return torch.stack([space.random_genomes(n_cand, generator=g, device=dev)
+                            for g in source])
+    return draw
+
+
+def _seed_rounds(source, feats: torch.Tensor, mask: torch.Tensor, pop_size: int,
+                 oversample: int, max_rounds: int, tech: TechParams, stream=None):
     """Batched rejection sampler against ONE workload per slot (feats
     (B, L, 6), mask (B, L)).  Each round every slot draws ``pop_size *
-    oversample`` candidates from its own generator, keeps those that fit
-    and are V/f-valid, and fills its next free pool slots.  The rounds stop
-    once every pool is full, which the host reads after each round.  With
-    ``stream`` (the current CUDA stream, which the rounds run on) that read
-    waits on an event recorded on it, so it never waits for other streams'
-    work; without, it is a plain read.  A slot draws the same candidates
-    whatever batch or stream it runs in."""
+    oversample`` candidates from its own stream (``_candidate_draws``),
+    keeps those that fit and are V/f-valid, and fills its next free pool
+    slots.  The rounds stop once every pool is full, which the host reads
+    after each round.  With ``stream`` (the current CUDA stream, which the
+    rounds run on) that read waits on an event recorded on it, so it never
+    waits for other streams' work; without, it is a plain read.  A slot
+    draws the same candidates whatever batch or stream it runs in."""
     B = feats.shape[0]
     dev = feats.device
     n_cand = pop_size * oversample
+    draw = _candidate_draws(source, n_cand, dev)
     pool = torch.zeros((B, pop_size + 1, space.N_GENES), dtype=torch.float32,
                        device=dev)  # row pop_size collects the overflow
     count = torch.zeros((B,), dtype=torch.int64, device=dev)
@@ -242,8 +279,7 @@ def _seed_rounds(generators: Sequence[torch.Generator], feats: torch.Tensor,
         flag = torch.empty((), dtype=torch.bool, pin_memory=True)
         round_done = torch.cuda.Event()
     for _ in range(int(max_rounds)):
-        cand = torch.stack([space.random_genomes(n_cand, generator=g, device=dev)
-                            for g in generators])
+        cand = draw(count < pop_size)
         r = evaluate_designs_arrays(space.decode(cand), feats[:, None],
                                     mask[:, None], tech)
         ok = r.fits[..., 0] & r.valid  # (B, n_cand)
@@ -262,10 +298,12 @@ def _seed_rounds(generators: Sequence[torch.Generator], feats: torch.Tensor,
     return pool[:, :pop_size], count
 
 
-def _seed_pools(generators, feats, mask, pop_size, *, tech, oversample=64,
+def _seed_pools(source, feats, mask, pop_size, *, tech, oversample=64,
                 max_rounds=8, stream=None):
     """(pools (B, P, n), counts (B,)) on the device, not checked: each slot
-    rejects against its own largest workload of feats (B, W, L, 6).  The
+    rejects against its own largest workload of feats (B, W, L, 6), drawing
+    from ``source`` (one ``torch.Generator`` per slot, or (B, 2) threefry
+    keys, which are moved to the seeding stream's device there).  The
     early exit costs a host read a round and saves the rounds after the
     pools fill (one round nearly always, at P=40).  With a CUDA ``stream``
     the rounds run on it (feats and mask must be ready there) and the
@@ -276,7 +314,7 @@ def _seed_pools(generators, feats, mask, pop_size, *, tech, oversample=64,
     with contextlib.nullcontext() if stream is None else torch.cuda.stream(stream):
         li = torch.argmax(_workload_weights(feats, mask.to(torch.float32)), dim=1)
         bidx = torch.arange(feats.shape[0], device=feats.device)
-        pools, counts = _seed_rounds(generators, feats[bidx, li], mask[bidx, li],
+        pools, counts = _seed_rounds(source, feats[bidx, li], mask[bidx, li],
                                      int(pop_size), int(oversample), int(max_rounds),
                                      tech, stream)
     if stream is not None:
@@ -324,7 +362,8 @@ def _vt_cdf(tech: TechParams, device) -> Tuple[torch.Tensor, int]:
     return hit
 
 
-def _seed_direct(u: torch.Tensor, cdf6: torch.Tensor, tech: TechParams = TECH):
+def _seed_direct(u: torch.Tensor, cdf6: torch.Tensor, tech: TechParams = TECH, *,
+                 jit_division: bool = False):
     """Direct inverse-CDF seeder over the feasible cells of each slot's
     largest workload (the table backend's alternative to the rejection
     rounds): ``u`` (B, P, N_GENES + 2) uniforms, ``cdf6`` (B, n_cells)
@@ -334,7 +373,14 @@ def _seed_direct(u: torch.Tensor, cdf6: torch.Tensor, tech: TechParams = TECH):
     margin, so ``space.decode_indices`` maps it back to that cell.  Every
     design fits the largest workload and is V/f-valid by construction,
     with no host sync.  Returns (pools (B, P, n), counts (B,)): a count is
-    P, or 0 when the workload fits nowhere."""
+    P, or 0 when the workload fits nowhere.
+
+    The gene's division by its axis size is an IEEE division, the bits of
+    the JAX package's ``_seed_direct`` called eagerly; ``jit_division``
+    multiplies by the float32 reciprocal instead, as XLA compiles the
+    division by a constant inside the JAX engine's jitted seeder (one ulp
+    apart in ~13% of the genes, never across a cell), so the threefry
+    streams replay the JAX engine's pools bit for bit."""
     dev = u.device
     sizes = {f: len(space.SPACE[f]) for f in space.FIELDS}
     total6 = cdf6[:, -1:]  # (B, 1)
@@ -358,7 +404,11 @@ def _seed_direct(u: torch.Tensor, cdf6: torch.Tensor, tech: TechParams = TECH):
         frac = torch.clamp(u[..., j], 1e-3, 1.0 - 1e-3)
         cell = (torch.floor(u[..., j] * sizes[f]) if f == "glb_mb"  # any cell
                 else idx[f].to(torch.float32))
-        genes.append(_true_div(cell + frac, float(sizes[f])))
+        if jit_division:
+            recip = float(np.float32(1.0) / np.float32(sizes[f]))
+            genes.append((cell + frac) * torch.full((), recip, device=dev))
+        else:
+            genes.append(_true_div(cell + frac, float(sizes[f])))
     pools = torch.stack(genes, dim=-1)
     P = u.shape[1]
     counts = torch.where(total6[:, 0] > 0, P, 0)
@@ -385,7 +435,7 @@ def _objective_label(req: "SearchRequest") -> str:
 
 
 def seed_population_batched(
-    generators: Sequence[torch.Generator],
+    source,
     feats: torch.Tensor,
     mask: torch.Tensor,
     pop_size: int,
@@ -395,9 +445,11 @@ def seed_population_batched(
     max_rounds: int = 8,
 ) -> torch.Tensor:
     """Per-slot seeding: feats (B, W, L, 6), mask (B, W, L) -> pools
-    (B, pop_size, n).  Each slot rejects against its own largest workload
-    (paper Sec. III-C: designs failing it, or V/f-invalid, are dropped)."""
-    pools, counts = _seed_pools(generators, feats, mask, pop_size, tech=tech,
+    (B, pop_size, n), drawn from ``source`` (one ``torch.Generator`` per
+    slot, or (B, 2) threefry keys).  Each slot rejects against its own
+    largest workload (paper Sec. III-C: designs failing it, or V/f-invalid,
+    are dropped)."""
+    pools, counts = _seed_pools(source, feats, mask, pop_size, tech=tech,
                                 oversample=oversample, max_rounds=max_rounds)
     _check_seeded(counts.cpu().numpy(), pop_size)
     return pools
@@ -412,13 +464,19 @@ def seed_population(
     oversample: int = 64,
     max_rounds: int = 8,
     device="cuda",
+    key=None,
 ) -> torch.Tensor:
-    """Random init of one search from ``seed``; designs failing the largest
+    """Random init of one search from ``seed``'s seeding generator, or,
+    given a threefry ``key``, the population the JAX package's
+    ``seed_population(key, ...)`` draws; designs failing the largest
     workload (or V/f-invalid) are discarded (paper Sec. III-C)."""
     dev = resolve_device(device)
-    g_seed, _ = _slot_generators(int(seed), dev)
+    if key is None:
+        source = [_slot_generators(int(seed), dev)[0]]
+    else:
+        source = tf.as_key(key, dev)[None]
     return seed_population_batched(
-        [g_seed], ws.feats[None].to(dev), ws.mask[None].to(dev), pop_size,
+        source, ws.feats[None].to(dev), ws.mask[None].to(dev), pop_size,
         tech=tech, oversample=oversample, max_rounds=max_rounds)[0]
 
 
@@ -614,7 +672,9 @@ def empty_partial_result(req: "SearchRequest") -> SearchResult:
 class SearchRequest:
     """One DSE query, as data.  ``init_genomes`` (P, n) and ``u_blocks``
     (G, tot) replace the seeded population and the drawn uniform blocks
-    when given (tests feed the JAX package's own); neither is modified.
+    when given; neither is modified.  ``key`` ((2,) uint32 words, e.g.
+    ``np.asarray`` of a jax key) replaces ``PRNGKey(seed)`` on an engine
+    with ``prng="threefry"``; an engine on the torch streams refuses it.
     ``obj_weights`` (w_E, w_L, w_A) switches the request to the
     exponent-weighted objective; otherwise ``objective`` is a kind of
     ``objectives.OBJECTIVES`` or ``"pareto"`` (NSGA-II front search, whose
@@ -641,6 +701,14 @@ class SearchRequest:
     # objective="pareto" only: front members a result returns (crowded
     # order); hashed by the cache and plan keys, not part of signature()
     pareto_k: int = 10
+    key: Optional[object] = None
+
+    def prng_key(self) -> np.ndarray:
+        """The threefry key's words (2,) uint32: ``key``, or
+        ``PRNGKey(seed)``."""
+        if self.key is None:
+            return tf.key_data(tf.PRNGKey(self.seed))
+        return tf.key_data(tf.as_key(self.key))
 
     def signature(self) -> tuple:
         """Requests with equal signatures run as one batched GA.  The table
@@ -689,9 +757,12 @@ def _array_bytes(x) -> Tuple[tuple, bytes]:
 
 
 def hash_stream(h, req: SearchRequest) -> None:
-    """Feed the identity of a request's randomness to ``h``: its seed, and
-    the given population and blocks that replace the seeded ones."""
+    """Feed the identity of a request's randomness to ``h``: its seed, its
+    threefry key when given, and the given population and blocks that
+    replace the seeded ones."""
     h.update(repr(("seed", int(req.seed))).encode())
+    if req.key is not None:
+        h.update(repr(("key", tuple(int(w) for w in req.prng_key()))).encode())
     for name in ("init_genomes", "u_blocks"):
         x = getattr(req, name)
         if x is not None:
@@ -716,16 +787,16 @@ class BatchPlan:
     pad_l: int
 
 
-def plan_key(plan: BatchPlan, device="cuda") -> str:
+def plan_key(plan: BatchPlan, device="cuda", prng: str = "torch") -> str:
     """Content hash of everything that determines a plan's GA trajectory
     on ``device``: workload fingerprints, objectives, areas, tech, GA
-    sizes, each request's random stream (its seed, given blocks and
-    population, and the device's generator), the slot shape and the grid.
-    Stable across processes: the checkpoint directory name, so a killed
-    drain's restart finds its own saved state, and never another tech's or
-    another device's stream."""
+    sizes, each request's random stream (its seed or key, given blocks and
+    population, and the stream ``prng`` draws on the device), the slot
+    shape and the grid.  Stable across processes: the checkpoint directory
+    name, so a killed drain's restart finds its own saved state, and never
+    another tech's, another device's or another stream's."""
     h = hashlib.sha256()
-    h.update(stream_tag(device).encode())
+    h.update(stream_tag(device, prng).encode())
     for r in plan.requests:
         h.update(r.ws.fingerprint().encode())
         h.update(repr((
@@ -938,6 +1009,15 @@ class SearchEngine:
         backends keep the rejection seeder, as in the JAX package.
       * ``fused`` - accepted and without effect (the JAX package's two
         survival programs give the same bits; the port has one).
+      * ``prng`` - ``"torch"`` (default): each request draws from
+        ``torch.Generator``s seeded ``2 * seed`` (the population) and
+        ``2 * seed + 1`` (the GA blocks).  ``"threefry"``: each request
+        draws what the JAX package's engine draws from its key
+        (``req.key`` or ``PRNGKey(req.seed)``): ``k_seed, k_ga =
+        split(key)``, the seeder's rounds from ``k_seed`` and the GA's
+        block of generation g from ``split(k_ga, G)[g]``.  The keys are
+        split on the host (a few words); a plan's whole (G, S, tot) block
+        stream is one batched ``core.prng.uniform`` on the device.
 
     Pareto plans (``objective="pareto"``) run single-shot also with
     ``segment_gens``: NSGA-II carries state a ``GAState`` does not hold.
@@ -957,7 +1037,8 @@ class SearchEngine:
                  segment_gens: Optional[int] = None, segment_retries: int = 1,
                  checkpoint_dir: Optional[str] = None, checkpoint_every: int = 1,
                  result_cache=None, pipelined: bool = False, mesh=None,
-                 fused: Optional[bool] = None, direct_seed: bool = False):
+                 fused: Optional[bool] = None, direct_seed: bool = False,
+                 prng: str = "torch"):
         if mesh is not None:
             raise ValueError(f"SearchEngine(mesh=...) is {NOT_PORTED}")
         if fused not in (None, True, False):
@@ -965,9 +1046,10 @@ class SearchEngine:
         self.fused = fused
         self.direct_seed = bool(direct_seed)
         self.device = resolve_device(device)
+        self.stream = stream_tag(self.device, prng)  # refuses an unknown prng
+        self.prng = prng
         self._seed_stream = (torch.cuda.Stream(device=self.device)
                              if self.device.type == "cuda" else None)
-        self.stream = stream_tag(self.device)
         cache_stream = getattr(result_cache, "stream", None)
         if cache_stream is not None and cache_stream != self.stream:
             raise ValueError(f"result cache keys {cache_stream!r}, this engine "
@@ -991,9 +1073,18 @@ class SearchEngine:
         self._stacked_seed_cdfs: Dict[tuple, torch.Tensor] = {}
 
     # ------------------------------------------------------------ planning
+    def check_request(self, req: SearchRequest) -> None:
+        """Refuse a threefry ``key`` on the torch streams: it would be
+        ignored."""
+        if req.key is not None and self.prng != "threefry":
+            raise ValueError("SearchRequest.key needs SearchEngine(prng='threefry'); "
+                             f"this engine draws {self.stream!r}")
+
     def run(self, requests: Sequence[SearchRequest]) -> List[SearchResult]:
         """Plan and run; results align with ``requests``.  With a
         ``result_cache``, cached requests resolve without a launch."""
+        for r in requests:
+            self.check_request(r)
         out: List[Optional[SearchResult]] = [None] * len(requests)
         todo = list(range(len(requests)))
         if self.result_cache is not None:
@@ -1208,42 +1299,78 @@ class SearchEngine:
             kinds = np.array([OBJECTIVE_INDEX[r.objective] for r in reqs], np.int64)
             ctx = ctx + (self._to_device(kinds), self._to_device(areas))
             eval_fn = _ctx_eval(tech, backend)
+        for r in reqs:
+            self.check_request(r)
         init = u = seed_check = None
         if fresh:
-            gens = [_slot_generators(r.seed, self.device) for r in reqs]
-            init, seed_check = self._init_populations(reqs, gens, W, L)
             P, G = int(r0.pop_size), int(r0.generations)
             tot = block_layout(P, space.N_GENES).tot
-            u = torch.stack([
-                torch.rand((G, tot), generator=g_ga, device=self.device)
-                if r.u_blocks is None else self._to_device(_f32(r.u_blocks))
-                for r, (_, g_ga) in zip(reqs, gens)
-            ], dim=1)  # (G, S, tot)
+            if self.prng == "threefry":
+                init, seed_check, u = self._threefry_streams(reqs, W, L, G, tot)
+            else:
+                gens = [_slot_generators(r.seed, self.device) for r in reqs]
+                init, seed_check = self._init_populations(reqs, [g for g, _ in gens], W, L)
+                u = torch.stack([
+                    torch.rand((G, tot), generator=g_ga, device=self.device)
+                    if r.u_blocks is None else self._to_device(_f32(r.u_blocks))
+                    for r, (_, g_ga) in zip(reqs, gens)
+                ], dim=1)  # (G, S, tot)
         return _LaunchPrep(ctx=ctx, eval_fn=eval_fn, init=init, u=u,
                            seed_check=seed_check)
 
-    def _init_populations(self, reqs, gens, W: int, L: int):
+    def _threefry_streams(self, reqs, W: int, L: int, G: int, tot: int):
+        """(init, check, u (G, S, tot)) of a plan on the threefry streams.
+        The keys are split on the host: ``k_seed, k_ga = split(key)`` per
+        slot and ``split(k_ga, G)``, a few words each.  The block stream is
+        then ONE batched ``uniform`` over the (S, G) keys on the device,
+        whatever the plan's size; given ``u_blocks`` replace their slot's."""
+        keys = torch.from_numpy(np.stack([r.prng_key() for r in reqs]).astype(np.int64))
+        ks = tf.split(keys)  # (S, 2, 2)
+        init, check = self._init_populations(reqs, ks[:, 0], W, L)
+        drawn = [i for i, r in enumerate(reqs) if r.u_blocks is None]
+        u = None
+        if drawn:
+            k_gen = self._to_device(tf.split(ks[drawn, 1], G))  # (S', G, 2)
+            u = tf.uniform(k_gen, (tot,)).transpose(0, 1)  # (G, S', tot)
+        if len(drawn) < len(reqs):
+            cols = {i: j for j, i in enumerate(drawn)}
+            u = torch.stack([
+                u[:, cols[i]] if r.u_blocks is None else self._to_device(_f32(r.u_blocks))
+                for i, r in enumerate(reqs)], dim=1)
+        return init, check, u.contiguous()
+
+    def _init_populations(self, reqs, seed_src, W: int, L: int):
         """(init (S, P, n), check): given ``init_genomes`` are copied in,
         the other slots are seeded, by the batched rejection seeder against
         the slot-packed feats or, with ``direct_seed`` on the table backend,
         by ``_seed_direct``; ``check`` raises at harvest if one came up
-        short (``None`` when no slot was seeded)."""
+        short (``None`` when no slot was seeded).  ``seed_src`` holds each
+        slot's seeding stream: a ``torch.Generator`` per slot, or the (S, 2)
+        host tensor of threefry keys ``k_seed``."""
         P = int(reqs[0].pop_size)
         need = [i for i, r in enumerate(reqs) if r.init_genomes is None]
         pools: List[Optional[torch.Tensor]] = [None] * len(reqs)
         check = None
         if need:
             sub = [reqs[i] for i in need]
-            g_seed = [gens[i][0] for i in need]
+            threefry = isinstance(seed_src, torch.Tensor)
+            src = seed_src[need] if threefry else [seed_src[i] for i in need]
             tech = reqs[0].tech
             if self.direct_seed and reqs[0].backend == "table":
-                u = torch.stack([
-                    torch.rand((P, space.N_GENES + 2), generator=g, device=self.device)
-                    for g in g_seed])
-                seeded, counts = _seed_direct(u, self._stacked_seed_cdf(sub, tech), tech)
+                if threefry:
+                    u = tf.uniform(self._to_device(src), (P, space.N_GENES + 2))
+                else:
+                    u = torch.stack([
+                        torch.rand((P, space.N_GENES + 2), generator=g, device=self.device)
+                        for g in src])
+                seeded, counts = _seed_direct(u, self._stacked_seed_cdf(sub, tech), tech,
+                                              jit_division=threefry)
             else:
                 feats, mask = self._packed(sub, W, L)
-                seeded, counts = _seed_pools(g_seed, feats, mask, P, tech=tech,
+                if threefry:  # uploaded on the stream the rounds run on
+                    with self._on_seed_stream():
+                        src = self._to_device(src)
+                seeded, counts = _seed_pools(src, feats, mask, P, tech=tech,
                                              stream=self._seed_stream)
             staged = self._stage(counts)
             names = [r.ws.names for r in sub]
@@ -1257,6 +1384,10 @@ class SearchEngine:
             if r.init_genomes is not None:
                 pools[i] = self._to_device(_f32(r.init_genomes))
         return torch.stack(pools), check
+
+    def _on_seed_stream(self):
+        return (contextlib.nullcontext() if self._seed_stream is None
+                else torch.cuda.stream(self._seed_stream))
 
     def _request_seed_cdf(self, req: SearchRequest) -> np.ndarray:
         """One request's feasible-cell CDF for the direct seeder (host
@@ -1286,7 +1417,7 @@ class SearchEngine:
     def _ckpt_dir(self, plan: BatchPlan) -> Optional[Path]:
         if self.checkpoint_dir is None:
             return None
-        return Path(self.checkpoint_dir) / plan_key(plan, self.device)
+        return Path(self.checkpoint_dir) / plan_key(plan, self.device, self.prng)
 
     def _partial_results(self, plan: BatchPlan, gh: Optional[np.ndarray],
                          sh: Optional[np.ndarray]) -> List[Optional[SearchResult]]:
@@ -1422,13 +1553,14 @@ class SearchEngine:
             for i, r in enumerate(reqs)])
 
 
-_ENGINES: Dict[str, SearchEngine] = {}
+_ENGINES: Dict[Tuple[str, str], SearchEngine] = {}
 
 
-def default_engine(device="cuda") -> SearchEngine:
-    """Shared engine per device behind the ``core.search`` drivers."""
+def default_engine(device="cuda", prng: str = "torch") -> SearchEngine:
+    """Shared engine per device and stream behind the ``core.search``
+    drivers."""
     dev = resolve_device(device)
-    eng = _ENGINES.get(str(dev))
+    eng = _ENGINES.get((str(dev), prng))
     if eng is None:
-        eng = _ENGINES[str(dev)] = SearchEngine(device=dev)
+        eng = _ENGINES[(str(dev), prng)] = SearchEngine(device=dev, prng=prng)
     return eng

@@ -17,8 +17,12 @@ and hands them to a ``core.engine.SearchEngine`` on the requested device.
 
 Seeds are integers.  A search's randomness (its seeded population and
 its uniform blocks) comes from generators seeded by that integer, so a
-search gives the same result alone or in a batch.  ``init_genomes`` and
-``u_blocks`` replace the seeded population and the drawn blocks.
+search gives the same result alone or in a batch.  With
+``prng="threefry"`` a seed ``s`` means ``PRNGKey(s)`` and every draw is the
+JAX package's from that key (``key=``/``keys=`` pass threefry keys
+directly), so a seed or key replays the JAX package's search.
+``init_genomes`` and ``u_blocks`` replace the seeded population and the
+drawn blocks.
 ``objective="pareto"`` runs NSGA-II front search (the result holds the
 ``pareto_k`` best front members and their (E, L, A) vectors), and
 ``obj_weights`` the exponent-weighted objective.
@@ -30,6 +34,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import prng as tf
 from repro_torch.core import space
 from repro_torch.core.engine import (  # noqa: F401 (re-exported API)
     BACKENDS,
@@ -50,15 +55,20 @@ from repro_torch.imc.tech import TECH, TechParams
 from repro_torch.workloads.pack import WorkloadSet
 
 
-def _engine(engine: Optional[SearchEngine], device) -> SearchEngine:
-    if engine is not None:
-        return engine
-    return default_engine(device)
+def _engine(engine: Optional[SearchEngine], device, prng: str) -> SearchEngine:
+    """``engine`` when given (its stream must be ``prng``), else the shared
+    engine of the device and stream."""
+    if engine is None:
+        return default_engine(device, prng)
+    if engine.prng != prng:
+        raise ValueError(f"engine draws prng={engine.prng!r}, the call asks for {prng!r}")
+    return engine
 
 
 def split_seed(seed: int, n: int) -> List[int]:
-    """``n`` independent integer seeds derived from ``seed``: the port's
-    counterpart of ``jax.random.split(key, n)`` for per-workload searches."""
+    """``n`` independent integer seeds derived from ``seed``: the torch
+    streams' counterpart of ``jax.random.split(key, n)`` for per-workload
+    searches (the threefry streams split the key itself)."""
     return [int(s) for s in np.random.SeedSequence(int(seed)).generate_state(n)]
 
 
@@ -79,16 +89,21 @@ def run_search(
     backend: str = "dense",
     device="cuda",
     engine: Optional[SearchEngine] = None,
+    prng: str = "torch",
+    key=None,
 ) -> SearchResult:
-    """One joint search = a single-request engine run."""
+    """One joint search = a single-request engine run.  ``prng="threefry"``
+    replays the JAX package's ``run_search(PRNGKey(seed))``, or its
+    ``run_search(key)`` given ``key``."""
     req = SearchRequest(
         ws=ws, objective=objective, area_constr=float(area_constr),
         seed=int(seed), backend=backend, pop_size=int(pop_size),
         generations=int(generations), top_k=int(top_k), pareto_k=int(pareto_k),
         obj_weights=None if obj_weights is None else tuple(float(w) for w in obj_weights),
         tech=tech, init_genomes=init_genomes, u_blocks=u_blocks,
+        key=None if key is None else tf.key_data(tf.as_key(key)),
     )
-    return _engine(engine, device).run([req])[0]
+    return _engine(engine, device, prng).run([req])[0]
 
 
 def joint_search(seed: int, ws: WorkloadSet, **kw) -> SearchResult:
@@ -114,12 +129,16 @@ def batched_search(
     backend: str = "dense",
     device="cuda",
     engine: Optional[SearchEngine] = None,
+    prng: str = "torch",
+    keys=None,
 ) -> List[SearchResult]:
     """B independent searches: ``seeds`` (B,), ``feats`` (B, W, L, 6),
     ``mask`` (B, W, L), optional ``init_genomes`` (B, P, n),
     ``u_blocks`` (B, G, tot) and ``obj_weights`` (B, 3), each element's
     exponent weights.  Element b gives the same result as
-    ``run_search(seeds[b], ...)`` on its own workload set."""
+    ``run_search(seeds[b], ...)`` on its own workload set.  ``keys`` (B, 2)
+    threefry keys (``prng="threefry"``) replace the seeds' ``PRNGKey``s, as
+    the JAX package's ``batched_search(keys, ...)`` takes them."""
     feats = torch.as_tensor(np.asarray(feats, np.float32))
     mask = torch.as_tensor(np.asarray(mask, bool))
     B = len(seeds)
@@ -131,6 +150,10 @@ def batched_search(
         names_b = [tuple(n) for n in names]
     if obj_weights is not None:
         obj_weights = np.asarray(obj_weights, np.float64)
+    if keys is not None:
+        keys = tf.key_data(tf.as_key(keys))
+        if len(keys) != B:
+            raise ValueError(f"{len(keys)} keys for {B} searches")
     reqs = [
         SearchRequest(
             ws=WorkloadSet(names=names_b[b], feats=feats[b], mask=mask[b]),
@@ -147,10 +170,11 @@ def batched_search(
             tech=tech,
             init_genomes=None if init_genomes is None else init_genomes[b],
             u_blocks=None if u_blocks is None else u_blocks[b],
+            key=None if keys is None else keys[b],
         )
         for b in range(B)
     ]
-    return _engine(engine, device).run(reqs)
+    return _engine(engine, device, prng).run(reqs)
 
 
 def joint_search_batched(seeds: Sequence[int], ws: WorkloadSet, **kw) -> List[SearchResult]:
@@ -168,14 +192,25 @@ def separate_search(
     share_init=None,
     u_blocks=None,
     batched: bool = True,
+    prng: str = "torch",
+    key=None,
     **kw,
 ) -> Dict[str, SearchResult]:
     """One single-workload GA per workload (the paper's baseline).
-    Per-workload seeds come from ``split_seed(seed, W)``; ``share_init``
-    (P, n) seeds every GA with the same population and ``u_blocks``
-    (W, G, tot) gives each its blocks.  ``batched=False`` runs the W
-    searches one by one; both paths return identical results."""
+    Per-workload seeds come from ``split_seed(seed, W)``; with
+    ``prng="threefry"`` per-workload keys are ``split(key, W)`` of ``key``
+    or ``PRNGKey(seed)``, as in the JAX package.  ``share_init`` (P, n)
+    seeds every GA with the same population and ``u_blocks`` (W, G, tot)
+    gives each its blocks.  ``batched=False`` runs the W searches one by
+    one; both paths return identical results."""
     seeds = split_seed(seed, ws.n)
+    keys = None
+    if prng == "threefry":
+        k = tf.PRNGKey(seed) if key is None else tf.as_key(key)
+        keys = tf.key_data(tf.split(k, ws.n))
+    elif key is not None:
+        raise ValueError("separate_search(key=...) needs prng='threefry'")
+    kw["prng"] = prng
     if batched:
         init = None
         if share_init is not None:
@@ -187,6 +222,7 @@ def separate_search(
             names=[(n,) for n in ws.names],
             init_genomes=init,
             u_blocks=u_blocks,
+            keys=keys,
             **kw,
         )
         return dict(zip(ws.names, res))
@@ -194,7 +230,8 @@ def separate_search(
     for i, name in enumerate(ws.names):
         out[name] = run_search(
             seeds[i], ws.subset([i]), init_genomes=share_init,
-            u_blocks=None if u_blocks is None else u_blocks[i], **kw)
+            u_blocks=None if u_blocks is None else u_blocks[i],
+            key=None if keys is None else keys[i], **kw)
     return out
 
 

@@ -24,6 +24,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.imc.design import DesignArrays
 
 # name -> grid of values (ordered); the paper's density-1 grid
@@ -186,7 +187,11 @@ def design_dicts_from_indices(idx: np.ndarray) -> List[Dict[str, float]]:
 
 
 def random_genomes(n: int, *, generator: Optional[torch.Generator] = None,
-                   device="cpu") -> torch.Tensor:
-    """(n, 9) uniform genomes in [0, 1)."""
+                   device="cpu", key: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(n, 9) uniform genomes in [0, 1) from ``generator``, or, given
+    threefry keys (..., 2), the JAX package's ``random_genomes(key, n)``
+    for each key: (..., n, 9) on the keys' device."""
+    if key is not None:
+        return prng.uniform(key, (n, N_GENES))
     return torch.rand((n, N_GENES), generator=generator, device=device,
                       dtype=torch.float32)

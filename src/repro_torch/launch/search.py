@@ -18,6 +18,12 @@ the ``--pareto-k`` best front members in crowded order with their (E, L,
 A) vectors (with ``--separate``, the winners are re-scored on the whole set
 under the scalar proxy E*L*A, the ``ela`` objective).
 
+``--prng threefry`` draws every search's randomness as the JAX package
+does: the joint seeds ``s`` are ``PRNGKey(s)``, the separate searches of
+seed ``s`` split ``PRNGKey(s + 1000)``, and ``--serve`` request i draws
+from ``PRNGKey(i)``, so a run replays the JAX CLI's run with the same
+flags.  The default, ``--prng torch``, draws from ``torch.Generator``s.
+
 ``--lm-workloads`` adds LM architectures (``configs``) exported as IMC
 workloads (``workloads/lm.py``, ``--mode decode|prefill``, ``--seq`` tokens
 for prefill) to the CNNs of ``--workloads``.  LM weights fill all but a few
@@ -108,6 +114,7 @@ def build_engine(args, dev, result_cache=None):
         checkpoint_dir=args.checkpoint_dir or None,
         result_cache=result_cache,
         pipelined=args.pipelined,
+        prng=args.prng,
     )
 
 
@@ -119,7 +126,7 @@ def serve(args, ws: WorkloadSet, dev) -> int:
     """``--serve N``: drain N mixed requests through the DSE service."""
     cache = None
     if args.result_cache:
-        cache = ResultCache(disk_dir=args.result_cache, device=dev)
+        cache = ResultCache(disk_dir=args.result_cache, device=dev, prng=args.prng)
         print(f"[serve] result cache armed ({len(cache.disk_keys())} "
               f"entries on disk under {args.result_cache})")
     if args.stream_progress and not (args.segment_gens or args.checkpoint_dir):
@@ -138,7 +145,8 @@ def serve(args, ws: WorkloadSet, dev) -> int:
                             backoff_s=args.retry_backoff)
     svc_kw = dict(engine=engine, device=dev, policy=args.serve_policy,
                   retry=retry, partial_results=args.partial_results,
-                  result_cache=cache, pipelined=args.pipelined or None)
+                  result_cache=cache, pipelined=args.pipelined or None,
+                  prng=args.prng)
     mix_kw = {}
     if args.serve_policy == "priority":
         mix_kw["priorities"] = [3, 0, 1, 2]
@@ -250,6 +258,10 @@ def main(argv=None) -> int:
                     help="also run per-workload baselines")
     ap.add_argument("--device", default="cuda")
     ap.add_argument(
+        "--prng", default="torch", choices=["torch", "threefry"],
+        help="random streams: torch.Generators, or the JAX package's threefry "
+             "streams (a seed draws what the JAX CLI draws from it)")
+    ap.add_argument(
         "--serve", type=int, default=0, metavar="N",
         help="run the DSE service on N heterogeneous requests (mixed "
              "workload subsets / objectives / seeds) instead of the search",
@@ -316,7 +328,8 @@ def main(argv=None) -> int:
 
     kw = dict(objective=args.objective, area_constr=args.area,
               pop_size=args.pop, generations=args.gens, pareto_k=args.pareto_k,
-              backend=args.backend, device=dev, engine=build_engine(args, dev))
+              backend=args.backend, device=dev, engine=build_engine(args, dev),
+              prng=args.prng)
     # separate winners are re-scored on the whole set under a scalar
     # objective: the Pareto family's is its E*L*A proxy, the ela objective
     rescore_obj = "ela" if args.objective == PARETO else args.objective

@@ -6,15 +6,16 @@ everything that decides a request's result bits
     (cost-model version, grid token, workload fingerprint, objective,
      exponent weights, area constraint, backend, pop size, generations,
      top_k, pareto_k, tech,
-     the random stream: its device's generator, the seed, and any given
-     initial population or uniform blocks)
+     the random stream: its device's generator or threefry, the seed, the
+     threefry key, and any given initial population or uniform blocks)
 
 and over nothing else: ``priority`` and ``deadline_s`` only reorder
 launches.  The stream tag is the port's own component: the same seed
 draws other designs on the CPU's generator than on CUDA's, so a disk tier
 shared by a CPU run and a card run must not serve one's result as the
-other's.  A cache is built for one device (``ResultCache(device=)``) and
-keys with that device's tag.
+other's.  A cache is built for one device and stream
+(``ResultCache(device=, prng=)``) and keys with their tag; an engine
+refuses a cache of another device or stream.
 
 ``ResultCache`` maps the key to a finalized ``SearchResult`` in two tiers:
 an in-memory LRU front (``capacity`` entries, thread-safe: the async
@@ -52,7 +53,8 @@ _EMPTY = np.zeros((0,), np.float32)
 
 def request_key(req: SearchRequest, stream: str) -> str:
     """Content key of one request's result on the random stream ``stream``
-    (``core.engine.stream_tag`` of the device that computes it)."""
+    (``core.engine.stream_tag`` of the device that computes it and of its
+    streams, torch or threefry)."""
     h = hashlib.sha256()
     h.update(imc.COST_MODEL_VERSION.encode())  # read per call: a bump misses
     h.update(space.grid_token().encode())
@@ -136,17 +138,19 @@ class CacheStats:
 
 class ResultCache:
     """Two-tier (LRU memory + optional disk) ``request_key`` -> finalized
-    ``SearchResult`` store for results computed on ``device``.  ``get`` /
+    ``SearchResult`` store for results computed on ``device`` from the
+    random streams ``prng`` (``core.engine.stream_tag``).  ``get`` /
     ``put`` take a ``SearchRequest`` or a key string; a disk hit is
     promoted into memory.  Thread-safe; disk writes are atomic."""
 
     def __init__(self, capacity: int = 1024,
-                 disk_dir: Optional[Union[str, Path]] = None, *, device="cuda"):
+                 disk_dir: Optional[Union[str, Path]] = None, *, device="cuda",
+                 prng: str = "torch"):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         self.capacity = int(capacity)
         self.disk_dir = None if disk_dir is None else Path(disk_dir)
-        self.stream = stream_tag(device)
+        self.stream = stream_tag(device, prng)
         self._mem: "OrderedDict[str, SearchResult]" = OrderedDict()
         self._lock = threading.RLock()
         self.stats = CacheStats()

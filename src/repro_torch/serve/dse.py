@@ -274,6 +274,12 @@ class DSEService:
     from an explicitly passed engine's own ``pipelined`` flag when left
     ``None``, and silently falls back to the sequential drain on engines
     without the dispatch/harvest split (stubs, fault wrappers).
+
+    ``prng`` picks the random streams of the engine the service builds
+    (``SearchEngine(prng=...)``: ``"torch"``, the default, or
+    ``"threefry"``, which replays the JAX package's service from each
+    request's seed or key); a passed engine keeps its own, and a ``prng``
+    that differs from it raises.
     """
 
     def __init__(
@@ -290,12 +296,17 @@ class DSEService:
         result_cache=None,
         pipelined: Optional[bool] = None,
         mesh=None,
+        prng: Optional[str] = None,
     ):
         if mesh is not None:
             raise ValueError(f"DSEService(mesh=...) is {NOT_PORTED}")
+        own = getattr(engine, "prng", None)
+        if prng is not None and own is not None and own != prng:
+            raise ValueError(f"engine draws prng={own!r}, the service asks for {prng!r}")
         self.engine = engine or SearchEngine(device=device, max_slots=max_slots,
                                              result_cache=result_cache,
-                                             pipelined=bool(pipelined))
+                                             pipelined=bool(pipelined),
+                                             prng=prng or "torch")
         if pipelined is None:
             self.pipelined = bool(getattr(self.engine, "pipelined", False))
         else:
@@ -359,6 +370,7 @@ class DSEService:
         mid-drain) and pre-builds table-backend cost tables so drains only
         launch the seeding and the GA.
 
+        A threefry ``key`` on an engine on the torch streams fails here.
         A result-cache hit resolves the rid right here: the result is in
         ``self.results`` before ``submit`` returns, nothing queues, and
         no launch ever runs for it.
@@ -370,6 +382,9 @@ class DSEService:
         mid-search boundaries and never call it).  Callbacks run on the
         draining thread, between segment launches."""
         req.signature()
+        check = getattr(self.engine, "check_request", None)
+        if check is not None:
+            check(req)
         if self.result_cache is not None:
             hit = self.result_cache.get(req)
             if hit is not None:
@@ -848,11 +863,12 @@ class AsyncDSEService:
         result_cache=None,
         pipelined: Optional[bool] = None,
         mesh=None,
+        prng: Optional[str] = None,
     ):
         self.service = DSEService(
             engine=engine, device=device, max_slots=max_slots, policy=policy,
             clock=clock, retry=retry, partial_results=partial_results,
-            result_cache=result_cache, pipelined=pipelined, mesh=mesh,
+            result_cache=result_cache, pipelined=pipelined, mesh=mesh, prng=prng,
         )
         # the card of the building thread, selected again in the worker
         dev = getattr(self.service.engine, "device", None)

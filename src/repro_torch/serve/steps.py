@@ -8,6 +8,7 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import prng
 from repro_torch.models import transformer
 
 PyTree = Any
@@ -36,3 +37,13 @@ def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
     """(B, S, V) logits -> (B, 1) int32 argmax of the last position (the
     first index among ties, as jnp.argmax)."""
     return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+
+
+def temperature_sample(logits: torch.Tensor, key, temperature: float = 1.0) -> torch.Tensor:
+    """(B, S, V) logits -> (B, 1) int32: the argmax of the last position's
+    logits over ``temperature`` plus Gumbel noise drawn from the threefry
+    ``key`` ((2,) uint32 words), the JAX package's ``temperature_sample``;
+    runs on the logits' device."""
+    last = logits[:, -1, :]
+    g = prng.gumbel(prng.as_key(key, last.device), tuple(last.shape))
+    return torch.argmax(last / temperature + g, dim=-1).to(torch.int32)[:, None]

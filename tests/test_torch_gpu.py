@@ -868,3 +868,39 @@ def test_batches_reach_the_card_from_pinned_memory(cuda):
     assert dev["inputs"].is_cuda and dev["inputs"].dtype == torch.int64
     for k in b:
         np.testing.assert_array_equal(dev[k].cpu().numpy(), b[k])
+
+
+# ------------------------------------------------- threefry streams on the card
+def test_threefry_draws_on_card_equal_cpu(cuda):
+    """The JAX package's streams (``core/prng.py``) give the same bits on
+    the card and the CPU, at the engine's shapes (a service plan's stream,
+    one seeder round); gumbel within 1e-6 (the two devices' ``log``)."""
+    from repro_torch.core import prng
+
+    for seed in (0, 1, 2**31 - 1, 2**32 + 3, -1):
+        assert torch.equal(prng.PRNGKey(seed, device=cuda).cpu(), prng.PRNGKey(seed))
+    keys = prng.split(prng.PRNGKey(3), 64)
+    for n in (2, 8, 64):
+        assert torch.equal(prng.split(keys.to(cuda), n).cpu(), prng.split(keys, n))
+    k_gen = prng.split(prng.split(keys)[:, 1], 10)
+    for k, shape in ((k_gen, (1180,)), (keys, (2560, 9)), (keys[:3], (7, 5))):
+        got = prng.uniform(k.to(cuda), shape).cpu()
+        assert torch.equal(got.view(torch.int32), prng.uniform(k, shape).view(torch.int32))
+    got = prng.uniform(keys.to(cuda), (100,), minval=-2.0, maxval=3.5).cpu()
+    want = prng.uniform(keys, (100,), minval=-2.0, maxval=3.5)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    g = prng.gumbel(keys[:8].to(cuda), (32000,)).cpu()
+    torch.testing.assert_close(g, prng.gumbel(keys[:8], (32000,)), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("direct", [False, True])
+def test_threefry_table_search_on_card_gives_cpu_generation0(cuda, ws, direct):
+    from repro_torch.core.engine import SearchEngine, SearchRequest
+
+    reqs = [SearchRequest(ws=ws, seed=s, backend="table", pop_size=40, generations=2)
+            for s in range(4)]
+    card, cpu = (SearchEngine(device=d, prng="threefry", direct_seed=direct).run(reqs)
+                 for d in (cuda, "cpu"))
+    for a, b in zip(card, cpu):
+        np.testing.assert_array_equal(a.ga.genomes[0].view(np.int32),
+                                      b.ga.genomes[0].view(np.int32))
