@@ -127,6 +127,18 @@ first fault exits non-zero and prints no result:
      kernel, re-scores, 8 requests alone on the threefry streams: the same
      bits); and ``repro_torch.examples.quickstart`` at the paper's
      configuration;
+ 9d. the search stack on a mesh of ranks (``--search-mesh``,
+     ``DSEService(mesh=)``): phase 7's search command on ``kernel`` and
+     ``table`` and ``--serve 64 --backend table``, first meshless, then
+     (a) in a world of one under NCCL at ``--search-mesh 1x1`` and (b) on
+     two ranks sharing the card under gloo (this script's
+     ``--mesh-worker`` mode, two subprocesses with torchrun's variables and
+     a deadline) at ``2x1`` and ``1x2``, every launch count and the
+     collective counts set to 0 just before each run: each run writes the
+     meshless run's results and launches its backend's kernel on every
+     rank as often as the meshless run, and no other; host clock, launches
+     and collective calls and bytes per rank logged; gloo must all-gather
+     the card's tensors;
  10. the LM serving path at full width, once per model, each freed before
      the next loads, random weights from seed 0, peak device memory under
      ``MEM_LIMIT`` (70 GB) and logged.  ``llama3.2-1b`` (16 layers),
@@ -183,7 +195,9 @@ first fault exits non-zero and prints no result:
      within ``TRAIN_*`` tolerances;
  11. one JSON line ``{"kernels": [...]}``: launches on the main paths
      (``launches_by_path``: the search CLI, the service, phase 9b's
-     paths and phase 9c's, ``search_threefry`` and ``serve_threefry``;
+     paths and phase 9c's, ``search_threefry`` and ``serve_threefry``,
+     and phase 9d's, ``search_mesh`` and ``serve_mesh``: the 1x1 runs and
+     every rank of the two-rank runs;
      for flash_attention and ssd_scan each model of phase 10; the
      training path, ``train``, 0 for each),
      max error, kernel and plain times per call (CUDA events, after a
@@ -1836,6 +1850,231 @@ def phase_threefry(torch, dev, card, timings):
     return paths
 
 
+# ------------------------------------------------------------ search mesh
+# phase 9d: the CLI runs held to the meshless bits (phase 7's search
+# commands and a 64-request table drain), the two-rank meshes that share
+# the card under gloo, and the two ranks' deadline
+MESH_RUNS = (("search", "kernel"), ("search", "table"), ("serve", "table"))
+MESH_SHAPES = ("2x1", "1x2")
+MESH_SERVE_N = 64
+MESH_DEADLINE_S = 420
+MESH_KERNELS = ("imc_eval", "ga_gen_step")
+
+
+def _mesh_argv(kind, backend, dev, out, shape=None):
+    """The CLI's argv of one phase-9d run: the search path with phase 7's
+    flags, or the 64-request table drain, on ``--search-mesh shape``."""
+    if kind == "search":
+        argv = ["--seeds", str(PAPER_SEEDS), "--pop", "40", "--gens", "10", "--separate",
+                "--backend", backend]
+    else:
+        argv = ["--serve", str(MESH_SERVE_N), "--backend", backend, "--pop", str(SERVE_POP),
+                "--gens", str(SERVE_GENS)]
+    argv += ["--device", str(dev), "--out", str(out)]
+    if shape is not None:
+        argv += ["--search-mesh", shape]
+    return argv
+
+
+def _mesh_run(torch, argv, counters) -> dict:
+    """One CLI run, every launch count and the collective counts set to 0
+    just before it: host clock, B1 / B2 launches, collective calls and
+    bytes."""
+    from repro_torch.core import distributed as mdist
+    from repro_torch.launch.search import main
+
+    _reset(counters)
+    mdist.STATS.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc, text = _captured(main, argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"{' '.join(argv)} returned {rc}: {text[-400:]}")
+    got = _read(counters)
+    return {"wall_s": wall, "launches": got, "collective_calls": mdist.STATS.calls,
+            "collective_bytes": mdist.STATS.bytes}
+
+
+def _mesh_entries(path: Path) -> list:
+    """A run's ``--out`` entries without their host clocks."""
+    entries = json.loads(path.read_text())
+    for e in entries:
+        e.pop("wall_s", None)
+    return entries
+
+
+def _gloo_takes_cuda(torch) -> str:
+    """Gloo all-gathers CUDA tensors (the mesh's all-gathers hand it the
+    card's tensors of ranks sharing the card); fails the phase if not."""
+    import torch.distributed as dist
+
+    x = torch.full((3,), float(dist.get_rank()), device="cuda")
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, x)
+    got = [float(p[0]) for p in parts]
+    check(got == [float(r) for r in range(len(parts))], f"gloo all_gather of CUDA tensors: {got}")
+    return "yes"
+
+
+def mesh_worker(outdir: str) -> int:
+    """One rank of phase 9d's two ranks sharing the card under gloo
+    (``chip_smoke.py --mesh-worker DIR``; ``phase_mesh`` starts both with
+    torchrun's variables): every run of ``MESH_RUNS`` on each of
+    ``MESH_SHAPES``, rank 0 writing the ``--out`` files, each rank its
+    counts to ``DIR/rank<r>.json``."""
+    import torch
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch.mesh import init_world
+
+    rank, world, dev = init_world("cuda", backend="gloo")
+    out = Path(outdir)
+    rec = {"rank": rank, "world": world, "device": str(dev),
+           "gloo_cuda": _gloo_takes_cuda(torch), "runs": []}
+    counters = _counters()
+    for turn in range(2):  # the first turn also warms the rank up
+        for shape in MESH_SHAPES:
+            for kind, backend in MESH_RUNS:
+                path = out / f"{kind}_{backend}_{shape}_{turn}.json"
+                r = _mesh_run(torch, _mesh_argv(kind, backend, dev, path, shape), counters)
+                rec["runs"].append({"turn": turn, "shape": shape, "kind": kind,
+                                    "backend": backend, **r})
+    torch.distributed.destroy_process_group()
+    (out / f"rank{rank}.json").write_text(json.dumps(rec))
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _two_ranks(tmp: Path) -> list:
+    """Start both ranks of the gloo world as subprocesses and wait for
+    them within ``MESH_DEADLINE_S`` (killed past it); any rank's failure
+    fails the phase.  Returns each rank's record."""
+    import os
+
+    port = _free_port()
+    procs = []
+    for r in range(2):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE="2", LOCAL_RANK="0",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        logf = open(tmp / f"rank{r}.log", "w")
+        procs.append((subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                        "--mesh-worker", str(tmp)], env=env, cwd=str(ROOT),
+                                       stdout=logf, stderr=subprocess.STDOUT), logf))
+    deadline = time.monotonic() + MESH_DEADLINE_S
+    try:
+        for p, _ in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"two-rank mesh run passed its {MESH_DEADLINE_S} s deadline")
+    finally:
+        for p, logf in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            logf.close()
+    for r, (p, _) in enumerate(procs):
+        check(p.returncode == 0, f"mesh rank {r} exited {p.returncode}: "
+              + (tmp / f"rank{r}.log").read_text()[-1500:])
+    return [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(2)]
+
+
+def phase_mesh(torch, dev, card, timings):
+    """The search CLI and the service on a mesh of ranks (``--search-mesh``,
+    ``DSEService(mesh=)``): (a) a world of one under NCCL, ``1x1``; (b) two
+    ranks sharing the card under gloo, ``2x1`` and ``1x2``, each run twice
+    (the first turn warms the fresh processes up).  Each run on ``kernel``
+    and ``table`` (phase 7's search) and the 64-request table drain must
+    write the meshless run's results and launch its backend's kernel on
+    every rank as often as the meshless run.  The meshless and the 1x1 runs
+    go in turns meshless, 1x1, 1x1, meshless.  Returns {path: {kernel:
+    launches}}."""
+    import torch.distributed as dist
+
+    counters = _counters()
+    rec = timings["mesh"] = {"card": card, "runs": []}
+    paths = {"search_mesh": dict.fromkeys(MESH_KERNELS, 0),
+             "serve_mesh": dict.fromkeys(MESH_KERNELS, 0)}
+    kname = {"kernel": "imc_eval", "table": "ga_gen_step"}
+
+    def held(kind, backend, label, run, entries, ref, count=True):
+        want = {k: (v if k == kname[backend] else 0) for k, v in ref[0]["launches"].items()}
+        got = {k: run["launches"][k] for k in want}
+        check(got == want and got[kname[backend]] > 0,
+              f"{label} {kind} --backend {backend}: launches {got}, the meshless run's {want}")
+        check(entries == ref[1], f"{label} {kind} --backend {backend}: results differ from "
+              "the meshless run's")
+        path = "search_mesh" if kind == "search" else "serve_mesh"
+        for k in MESH_KERNELS:
+            paths[path][k] += run["launches"][k] if count else 0
+
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        tmp = Path(tmp)
+        ref, walls = {}, {}
+        # the meshless runs and (a) a world of one under NCCL, in turns
+        for kind, backend in MESH_RUNS:
+            clocks = {None: [], "1x1": []}
+            for turn, shape in enumerate((None, "1x1", "1x1", None)):
+                out = tmp / f"{kind}_{backend}_{shape}_{turn}.json"
+                r = _mesh_run(torch, _mesh_argv(kind, backend, dev, out, shape), counters)
+                entries = _mesh_entries(out)
+                if (kind, backend) not in ref:
+                    ref[(kind, backend)] = (r, entries)
+                if shape is None:
+                    held(kind, backend, "meshless", r, entries, ref[(kind, backend)],
+                         count=False)
+                else:
+                    check(dist.get_backend() == "nccl", f"1x1 ran on {dist.get_backend()}")
+                    held(kind, backend, "1x1 (NCCL)", r, entries, ref[(kind, backend)])
+                clocks[shape].append(r["wall_s"])
+                rec["runs"].append({"mesh": shape, "turn": turn, "kind": kind,
+                                    "backend": backend, **r})
+            walls[(kind, backend)] = clocks[None]
+            log(f"mesh 1x1 (NCCL, world of one) {kind} --backend {backend}: host clock "
+                f"{', '.join(f'{w:.3f}' for w in clocks['1x1'])}s against the meshless "
+                f"{', '.join(f'{w:.3f}' for w in clocks[None])}s (turns meshless, 1x1, "
+                f"1x1, meshless; the first 1x1 run of the phase makes the process "
+                f"group), launches {r['launches']}, {r['collective_calls']} collectives "
+                f"({r['collective_bytes']} bytes); the meshless run's results")
+        dist.destroy_process_group()
+        # (b) two ranks sharing the card under gloo
+        t0 = time.perf_counter()
+        ranks = _two_ranks(tmp)
+        rec["two_ranks_wall_s"] = time.perf_counter() - t0
+        rec["gloo_cuda"] = ranks[0]["gloo_cuda"]
+        log(f"two ranks on {card} under gloo ({rec['two_ranks_wall_s']:.1f}s with their "
+            f"start): gloo takes CUDA tensors: {ranks[0]['gloo_cuda']}")
+        for i, run0 in enumerate(ranks[0]["runs"]):
+            turn, shape = run0["turn"], run0["shape"]
+            kind, backend = run0["kind"], run0["backend"]
+            entries = _mesh_entries(tmp / f"{kind}_{backend}_{shape}_{turn}.json")
+            for rk in ranks:
+                run = rk["runs"][i]
+                held(kind, backend, f"{shape} rank {rk['rank']} (gloo)", run, entries,
+                     ref[(kind, backend)])
+                rec["runs"].append({"mesh": shape, "rank": rk["rank"], **{
+                    k: v for k, v in run.items() if k != "shape"}})
+            if turn == 0:
+                continue
+            log(f"mesh {shape} (gloo, two ranks on one card) {kind} --backend {backend}: "
+                + "; ".join(f"rank {rk['rank']} {rk['runs'][i]['wall_s']:.3f}s host clock, "
+                            f"launches {rk['runs'][i]['launches']}, "
+                            f"{rk['runs'][i]['collective_calls']} collectives "
+                            f"({rk['runs'][i]['collective_bytes']} bytes)" for rk in ranks)
+                + f"; the meshless {', '.join(f'{w:.3f}' for w in walls[(kind, backend)])}s;"
+                " the meshless run's results (both turns)")
+    log(f"mesh launches: {paths}")
+    return paths
+
+
 # ----------------------------------------------------------- LM kernels
 def _gen(torch, dev, seed):
     g = torch.Generator(device=dev)
@@ -2842,6 +3081,7 @@ def run() -> dict:
     serve_launches = phase_service(torch, dev, card, timings)
     fam = phase_families(torch, dev, card, timings)
     threefry = phase_threefry(torch, dev, card, timings)
+    mesh = phase_mesh(torch, dev, card, timings)
     fam_b1 = {k: v["imc_eval"] for k, v in fam.items() if v["imc_eval"]}
     fam_b2 = {k: v["ga_gen_step"] for k, v in fam.items() if v["ga_gen_step"]}
     lm = {name: phase_lm(torch, dev, name, card, timings) for name in LM_PATHS}
@@ -2868,10 +3108,12 @@ def run() -> dict:
          "source": "src/repro_torch/kernels/csrc/imc_eval.cu",
          "replaces": "src/repro/kernels/imc_eval/kernel.py:47",
          "launches": b1_launches + serve_launches["imc_eval"] + sum(fam_b1.values())
-         + sum(v["imc_eval"] for v in threefry.values()),
+         + sum(v["imc_eval"] for v in threefry.values())
+         + sum(v["imc_eval"] for v in mesh.values()),
          "launches_by_path": {"search": b1_launches,
                               "serve": serve_launches["imc_eval"], **fam_b1,
                               **{k: v["imc_eval"] for k, v in threefry.items()},
+                              **{k: v["imc_eval"] for k, v in mesh.items()},
                               "train": train["imc_eval"]},
          "max_abs_err": b1_err[0],
          "max_rel_err": b1_err[1],
@@ -2885,10 +3127,12 @@ def run() -> dict:
          "source": "src/repro_torch/kernels/csrc/ga_gen_step.cu",
          "replaces": "src/repro/kernels/ga_gen_step/kernel.py:115",
          "launches": b2_launches + serve_launches["ga_gen_step"] + sum(fam_b2.values())
-         + sum(v["ga_gen_step"] for v in threefry.values()),
+         + sum(v["ga_gen_step"] for v in threefry.values())
+         + sum(v["ga_gen_step"] for v in mesh.values()),
          "launches_by_path": {"search": b2_launches,
                               "serve": serve_launches["ga_gen_step"], **fam_b2,
                               **{k: v["ga_gen_step"] for k, v in threefry.items()},
+                              **{k: v["ga_gen_step"] for k, v in mesh.items()},
                               "train": train["ga_gen_step"]},
          "max_abs_err": 0.0,
          "ms": t2["ms"], "plain_ms": t2["plain_ms"], "bound_ms": t2["bound_ms"],
@@ -2937,4 +3181,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--mesh-worker":
+        sys.exit(mesh_worker(sys.argv[2]))
     sys.exit(main())

@@ -55,10 +55,18 @@ same model with its layer sums from the ``imc_eval`` kernel) and
 ``ga_gen_step`` kernel).  They are the JAX package's ``"jnp"``,
 ``"pallas"`` and ``"table"``.
 
-Not ported: meshes (``SearchEngine(mesh=...)`` raises ``ValueError``;
-ROADMAP.md, queue A, "Multi-device").  ``fused`` is accepted and has no
-effect: the JAX package's two survival programs give the same bits, and
-the port has one.
+Meshes: ``SearchEngine(mesh=...)`` (or ``mesh=`` on ``run`` / ``dispatch``
+/ ``execute``) runs every plan on a ``launch.mesh.make_search_mesh``
+layout, one process per card, every rank the same program: a rank seeds
+and runs the GAs of its rows along ``search`` with each population split
+along ``data`` (``core.distributed``), and every rank gets the whole
+plan's results, bit for bit the meshless ones.  The mesh's first rank (the
+lead) owns the result cache and the segment checkpoints; a resumed plan
+takes the lead's restored state and each rank keeps its rows (the JAX
+engine's ``_place_state``).
+
+``fused`` is accepted and has no effect: the JAX package's two survival
+programs give the same bits, and the port has one.
 """
 from __future__ import annotations
 
@@ -73,6 +81,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import store
+from repro_torch.core import distributed as mdist
 from repro_torch.core import prng as tf
 from repro_torch.core import space
 from repro_torch.core.ga import (
@@ -93,6 +102,7 @@ from repro_torch.core.objectives import (
     OBJECTIVE_WEIGHTS,
     PARETO,
     make_indexed_objective,
+    make_objective,
     make_pareto_objective,
     make_weighted_objective,
 )
@@ -107,7 +117,7 @@ from repro_torch.workloads.pack import WorkloadSet
 BACKENDS = ("dense", "kernel", "table")
 PRNGS = ("torch", "threefry")
 MAX_SLOTS = 64  # searches per batched GA
-NOT_PORTED = "not ported yet (ROADMAP.md, queue A, 'Multi-device')"
+NOT_PORTED = "not ported yet (ROADMAP.md, queue A, 'Multi-device: the LM on a mesh')"
 # objective tails of an eval ctx: (kind, area), (3,) weights, or area
 INDEXED, WEIGHTED = "indexed", "weighted"
 
@@ -173,7 +183,8 @@ def _ctx_eval(tech: TechParams, backend: str, tail: str = INDEXED,
     ``(tables,)`` for the table backend; the tail is ``kind (B,), area
     (B,)`` (``INDEXED``: scores (B, P)), ``weights (B, 3)`` (``WEIGHTED``,
     with ``area_constr`` fixed: scores (B, P)) or ``area (B,)`` (``PARETO``:
-    (B, P, 3) vectors).  The table callback of the indexed tail carries
+    (B, P, 3) vectors), or none for a static kind of ``OBJECTIVE_INDEX``
+    (scored under ``area_constr``).  The table callback of the indexed tail carries
     ``gen_step``, the ``ga_gen_step`` kernel wrapper, which the GA runs in
     place of its plain generation step; the kernel scores only that
     tail, so the weighted and Pareto tails run the plain step."""
@@ -194,9 +205,14 @@ def _ctx_eval(tech: TechParams, backend: str, tail: str = INDEXED,
 
         def obj(r, ctx):
             return vector(r, ctx[-1])
+    elif tail in OBJECTIVE_INDEX:  # a static kind: no tail leaves
+        static = make_objective(tail, area_constr)
+
+        def obj(r, ctx):
+            return static(r)
     else:
-        raise ValueError(f"objective tail must be {INDEXED!r}, {WEIGHTED!r} or "
-                         f"{PARETO!r}, got {tail!r}")
+        raise ValueError(f"objective tail must be {INDEXED!r}, {WEIGHTED!r}, "
+                         f"{PARETO!r} or a kind of {tuple(OBJECTIVE_INDEX)}, got {tail!r}")
 
     if backend == "table":
         def ev(genomes, ctx):
@@ -443,14 +459,23 @@ def seed_population_batched(
     tech: TechParams = TECH,
     oversample: int = 64,
     max_rounds: int = 8,
+    mesh=None,
 ) -> torch.Tensor:
     """Per-slot seeding: feats (B, W, L, 6), mask (B, W, L) -> pools
     (B, pop_size, n), drawn from ``source`` (one ``torch.Generator`` per
     slot, or (B, 2) threefry keys).  Each slot rejects against its own
     largest workload (paper Sec. III-C: designs failing it, or V/f-invalid,
-    are dropped)."""
+    are dropped).  With ``mesh`` each rank seeds its rows along ``search``
+    and every rank returns the whole batch's pools."""
+    B = int(feats.shape[0])
+    if mesh is not None:
+        rows = mdist.search_rows(mesh, B)
+        source, feats, mask = source[rows], feats[rows], mask[rows]
     pools, counts = _seed_pools(source, feats, mask, pop_size, tech=tech,
                                 oversample=oversample, max_rounds=max_rounds)
+    if mesh is not None:
+        pools = mdist.gather_rows(mesh, pools, B)
+        counts = mdist.gather_rows(mesh, counts, B)
     _check_seeded(counts.cpu().numpy(), pop_size)
     return pools
 
@@ -924,6 +949,14 @@ def plan_batch(
 
 
 # ----------------------------------------------------------------- engine
+def _rows(mesh, n: int) -> Tuple[slice, bool]:
+    """This rank's rows of a plan of ``n`` and whether they split (a
+    meshless engine runs them all)."""
+    if mesh is None:
+        return slice(0, n), False
+    return mdist.search_rows(mesh, n), mdist.rows_split(mesh, n)
+
+
 def _pack_host(reqs: Sequence[SearchRequest], W: int, L: int):
     """Slot-packed host feats (S, W, L, 6) and mask (S, W, L), zero-padded
     and masked past each request's own shape."""
@@ -956,6 +989,10 @@ class _LaunchPrep:
     init: Optional[torch.Tensor]  # (S, P, n) initial populations
     u: Optional[torch.Tensor]  # (G, S, tot) the GA's uniform stream
     seed_check: Optional[Callable]  # raises if a pool came up short
+    # on a mesh: this rank's rows of the plan (all of them when they do not
+    # split), and whether they split, so the outputs are gathered
+    rows: slice = slice(None)
+    split: bool = False
 
 
 @dataclasses.dataclass
@@ -975,6 +1012,8 @@ class PendingLaunch:
     # staged genome and objective-vector histories
     pareto: Optional[_Staged] = None
     history: Optional[Tuple[_Staged, _Staged]] = None
+    mesh: Optional[object] = None  # the mesh it ran on: only its lead caches
+    seq: int = 0  # a service's launch number on a mesh (serve.dse)
 
 
 class SearchEngine:
@@ -1009,6 +1048,15 @@ class SearchEngine:
         backends keep the rejection seeder, as in the JAX package.
       * ``fused`` - accepted and without effect (the JAX package's two
         survival programs give the same bits; the port has one).
+      * ``mesh`` - a ``launch.mesh.make_search_mesh`` layout (``run``,
+        ``dispatch`` and ``execute`` also take one per call): each rank runs
+        its rows of every plan with each population split along ``data``,
+        and gets the whole plan's results (``core.distributed``).  Every
+        rank of the mesh makes the same calls in the same order; the
+        engine's ``device`` must be this rank's card (``cuda:LOCAL_RANK``,
+        the current device) or the CPU of a CPU mesh.  The lead (the mesh's
+        first rank) alone reads and writes the result cache and the
+        checkpoints.
       * ``prng`` - ``"torch"`` (default): each request draws from
         ``torch.Generator``s seeded ``2 * seed`` (the population) and
         ``2 * seed + 1`` (the GA blocks).  ``"threefry"``: each request
@@ -1039,13 +1087,14 @@ class SearchEngine:
                  result_cache=None, pipelined: bool = False, mesh=None,
                  fused: Optional[bool] = None, direct_seed: bool = False,
                  prng: str = "torch"):
-        if mesh is not None:
-            raise ValueError(f"SearchEngine(mesh=...) is {NOT_PORTED}")
         if fused not in (None, True, False):
             raise ValueError(f"fused must be None, True or False, got {fused!r}")
         self.fused = fused
         self.direct_seed = bool(direct_seed)
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            mdist.check_device(mesh, self.device)
         self.stream = stream_tag(self.device, prng)  # refuses an unknown prng
         self.prng = prng
         self._seed_stream = (torch.cuda.Stream(device=self.device)
@@ -1080,14 +1129,24 @@ class SearchEngine:
             raise ValueError("SearchRequest.key needs SearchEngine(prng='threefry'); "
                              f"this engine draws {self.stream!r}")
 
-    def run(self, requests: Sequence[SearchRequest]) -> List[SearchResult]:
+    def _mesh(self, mesh):
+        """The mesh of a call: its own, else the engine's."""
+        if mesh is None:
+            return self.mesh
+        if mesh is not self.mesh:
+            mdist.check_device(mesh, self.device)
+        return mesh
+
+    def run(self, requests: Sequence[SearchRequest], *, mesh=None) -> List[SearchResult]:
         """Plan and run; results align with ``requests``.  With a
-        ``result_cache``, cached requests resolve without a launch."""
+        ``result_cache``, cached requests resolve without a launch (on a
+        mesh the lead looks them up and sends every rank its hits)."""
+        mesh = self._mesh(mesh)
         for r in requests:
             self.check_request(r)
         out: List[Optional[SearchResult]] = [None] * len(requests)
         todo = list(range(len(requests)))
-        if self.result_cache is not None:
+        if self.result_cache is not None and mdist.is_lead(mesh):
             todo = []
             for i, r in enumerate(requests):
                 hit = self.result_cache.get(r)
@@ -1095,18 +1154,21 @@ class SearchEngine:
                     out[i] = hit
                 else:
                     todo.append(i)
+        if mesh is not None:
+            out, todo = mdist.broadcast_object(mesh, (out, todo))
         plans = plan_batch([requests[i] for i in todo], max_slots=self.max_slots)
         if self.pipelined:
             # seeding syncs (see the class docstring): seed every plan while
             # the stream is empty, then queue the launches back to back
-            preps = [None if self._segmented(p) else self._prepare(p) for p in plans]
-            pending = [self.dispatch(p, prep=prep) for p, prep in zip(plans, preps)]
+            preps = [None if self._segmented(p) else self._prepare(p, mesh=mesh) for p in plans]
+            pending = [self.dispatch(p, mesh=mesh, prep=prep)
+                       for p, prep in zip(plans, preps)]
             for plan, pend in zip(plans, pending):
                 for i, res in zip(plan.indices, self.harvest(pend)):
                     out[todo[i]] = res
         else:
             for plan in plans:
-                for i, res in zip(plan.indices, self.execute(plan)):
+                for i, res in zip(plan.indices, self.execute(plan, mesh=mesh)):
                     out[todo[i]] = res
         return out  # type: ignore[return-value]
 
@@ -1198,21 +1260,21 @@ class SearchEngine:
             self._packed_workloads[key] = hit
         return hit
 
-    def execute(self, plan: BatchPlan, *,
+    def execute(self, plan: BatchPlan, *, mesh=None,
                 on_progress: Optional[Callable[[int, SearchResult], None]] = None,
                 ) -> List[SearchResult]:
         """One launch (or, with ``segment_gens``, a chain of guarded
         segments: the same bits); results in plan order.  ``on_progress(i,
         partial)`` gets a monotone best-so-far snapshot of plan request i
         after every segment but the last (the segmented path only)."""
-        return self.harvest(self.dispatch(plan, on_progress=on_progress))
+        return self.harvest(self.dispatch(plan, mesh=mesh, on_progress=on_progress))
 
     def _segmented(self, plan: BatchPlan) -> bool:
         k = self.segment_gens
         r0 = plan.requests[0]
         return k is not None and 0 < k < int(r0.generations) and r0.objective != PARETO
 
-    def dispatch(self, plan: BatchPlan, *,
+    def dispatch(self, plan: BatchPlan, *, mesh=None,
                  on_progress: Optional[Callable[[int, SearchResult], None]] = None,
                  prep: Optional[_LaunchPrep] = None) -> PendingLaunch:
         """Seed and launch a plan without waiting for its GA: the GA (and,
@@ -1220,35 +1282,48 @@ class SearchEngine:
         its outputs to the host ride in the ``PendingLaunch``.  ``prep`` is
         the plan's ``_prepare``, when the caller seeded it already.  The
         segmented path runs its guarded segments here (it syncs per segment
-        by design) and leaves only the final read to ``harvest``."""
+        by design) and leaves only the final read to ``harvest``.  On a mesh
+        this rank runs its rows and the outputs are gathered here, so every
+        rank stages the whole plan's."""
+        mesh = self._mesh(mesh)
         r0 = plan.requests[0]
         if self._segmented(plan):
-            return self._dispatch_segmented(plan, self.segment_gens,
+            return self._dispatch_segmented(plan, mesh, self.segment_gens,
                                             on_progress=on_progress)
         if prep is None:
-            prep = self._prepare(plan)
+            prep = self._prepare(plan, mesh=mesh)
         self.launches += 1
+        S = len(plan.requests)
+
+        def whole(x):
+            """The plan's every row of a local output (a tensor or a
+            NamedTuple of them)."""
+            if not prep.split:
+                return x
+            if isinstance(x, tuple):
+                return type(x)(*(mdist.gather_rows(mesh, f, S) for f in x))
+            return mdist.gather_rows(mesh, x, S)
+
         kw = dict(pop_size=int(r0.pop_size), generations=int(r0.generations),
                   init_genomes=prep.init, ctx=prep.ctx, u_blocks=prep.u)
+        out = dict(plan=plan, seed_check=prep.seed_check, mesh=mesh)
         if r0.objective == PARETO:
             # both engine modes run the same front epilogue, so their fronts
             # are the same bits; the sequential one also keeps the history
             kw["top_k"] = max(int(r.pareto_k) for r in plan.requests)
             if self.pipelined:
                 thin = run_pareto_batched(prep.eval_fn, **kw)
-                return PendingLaunch(plan=plan, pareto=self._stage(thin),
-                                     seed_check=prep.seed_check)
+                return PendingLaunch(pareto=self._stage(whole(thin)), **out)
             gh, oh, thin = run_pareto_batched(prep.eval_fn, history=True, **kw)
-            return PendingLaunch(plan=plan, pareto=self._stage(thin),
-                                 history=(self._stage(gh), self._stage(oh)),
-                                 seed_check=prep.seed_check)
+            return PendingLaunch(pareto=self._stage(whole(thin)),
+                                 history=(self._stage(whole(gh)), self._stage(whole(oh))),
+                                 **out)
         if self.pipelined:
             thin = run_ga_batched_thin(prep.eval_fn,
                                        top_k=max(int(r.top_k) for r in plan.requests), **kw)
-            return PendingLaunch(plan=plan, thin=self._stage(thin),
-                                 seed_check=prep.seed_check)
+            return PendingLaunch(thin=self._stage(whole(thin)), **out)
         ga = run_ga_batched(prep.eval_fn, **kw)
-        return PendingLaunch(plan=plan, ga=self._stage(ga), seed_check=prep.seed_check)
+        return PendingLaunch(ga=self._stage(whole(ga)), **out)
 
     def harvest(self, pending: PendingLaunch) -> List[SearchResult]:
         """Wait for a dispatched plan's outputs, finalize them, and put the
@@ -1266,20 +1341,25 @@ class SearchEngine:
             results = _finalize_batch_thin(self._sync(pending.thin), pending.plan.requests)
         else:
             results = _finalize_batch(self._sync(pending.ga), pending.plan.requests)
-        self._cache_completed(pending.plan, results)
+        self._cache_completed(pending.plan, results, pending.mesh)
         return results
 
-    def _cache_completed(self, plan: BatchPlan, results: Sequence[SearchResult]) -> None:
-        if self.result_cache is not None:
+    def _cache_completed(self, plan: BatchPlan, results: Sequence[SearchResult],
+                         mesh=None) -> None:
+        if self.result_cache is not None and mdist.is_lead(mesh):
             for r, res in zip(plan.requests, results):
                 self.result_cache.put(r, res)
 
-    def _prepare(self, plan: BatchPlan, *, fresh: bool = True) -> _LaunchPrep:
+    def _prepare(self, plan: BatchPlan, *, mesh=None, fresh: bool = True) -> _LaunchPrep:
         """A plan's device inputs up to the GA launch: the eval ctx and,
         when ``fresh`` (not resuming a checkpoint), the initial populations
         and the uniform stream.  Only the seeder's rounds wait for the
-        device, one sync each."""
-        reqs = plan.requests
+        device, one sync each.  On a mesh, only this rank's rows: their
+        workloads, objectives and streams, a rank drawing for its own rows
+        alone (one batched threefry pass over their keys), and an eval
+        that splits each population along ``data``."""
+        rows, split = _rows(mesh, len(plan.requests))
+        reqs = plan.requests[rows]
         r0 = reqs[0]
         backend, tech = r0.backend, r0.tech
         W, L = plan.pad_w, plan.pad_l
@@ -1299,6 +1379,8 @@ class SearchEngine:
             kinds = np.array([OBJECTIVE_INDEX[r.objective] for r in reqs], np.int64)
             ctx = ctx + (self._to_device(kinds), self._to_device(areas))
             eval_fn = _ctx_eval(tech, backend)
+        if mesh is not None:
+            eval_fn = mdist.split_eval(eval_fn, mesh)
         for r in reqs:
             self.check_request(r)
         init = u = seed_check = None
@@ -1306,27 +1388,50 @@ class SearchEngine:
             P, G = int(r0.pop_size), int(r0.generations)
             tot = block_layout(P, space.N_GENES).tot
             if self.prng == "threefry":
-                init, seed_check, u = self._threefry_streams(reqs, W, L, G, tot)
+                init, counts, need, u = self._threefry_streams(reqs, W, L, G, tot)
             else:
                 gens = [_slot_generators(r.seed, self.device) for r in reqs]
-                init, seed_check = self._init_populations(reqs, [g for g, _ in gens], W, L)
+                init, counts, need = self._init_populations(reqs, [g for g, _ in gens], W, L)
                 u = torch.stack([
                     torch.rand((G, tot), generator=g_ga, device=self.device)
                     if r.u_blocks is None else self._to_device(_f32(r.u_blocks))
                     for r, (_, g_ga) in zip(reqs, gens)
                 ], dim=1)  # (G, S, tot)
+            seed_check = self._seed_check(plan, reqs, counts, need, P,
+                                          mesh if split else None)
         return _LaunchPrep(ctx=ctx, eval_fn=eval_fn, init=init, u=u,
-                           seed_check=seed_check)
+                           seed_check=seed_check, rows=rows, split=split)
+
+    def _seed_check(self, plan: BatchPlan, reqs, counts, need, P: int, mesh):
+        """The check ``harvest`` runs on the seeded pools' counts (``None``
+        when no row was seeded).  On a split mesh every rank gathers every
+        row's count, seeded here or not (a given population counts P), so
+        all ranks raise alike."""
+        if mesh is not None:
+            full = torch.full((len(reqs),), P, dtype=torch.int64, device=self.device)
+            if need:
+                full[need] = counts.to(torch.int64)
+            counts = mdist.gather_rows(mesh, full, len(plan.requests))
+            names = [r.ws.names for r in plan.requests]
+        elif not need:
+            return None
+        else:
+            names = [reqs[i].ws.names for i in need]
+        staged = self._stage(counts)
+
+        def check():
+            _check_seeded(self._sync(staged), P, names)
+        return check
 
     def _threefry_streams(self, reqs, W: int, L: int, G: int, tot: int):
-        """(init, check, u (G, S, tot)) of a plan on the threefry streams.
+        """(init, counts, need, u (G, S, tot)) of a plan on the threefry streams.
         The keys are split on the host: ``k_seed, k_ga = split(key)`` per
         slot and ``split(k_ga, G)``, a few words each.  The block stream is
         then ONE batched ``uniform`` over the (S, G) keys on the device,
         whatever the plan's size; given ``u_blocks`` replace their slot's."""
         keys = torch.from_numpy(np.stack([r.prng_key() for r in reqs]).astype(np.int64))
         ks = tf.split(keys)  # (S, 2, 2)
-        init, check = self._init_populations(reqs, ks[:, 0], W, L)
+        init, counts, need = self._init_populations(reqs, ks[:, 0], W, L)
         drawn = [i for i, r in enumerate(reqs) if r.u_blocks is None]
         u = None
         if drawn:
@@ -1337,20 +1442,21 @@ class SearchEngine:
             u = torch.stack([
                 u[:, cols[i]] if r.u_blocks is None else self._to_device(_f32(r.u_blocks))
                 for i, r in enumerate(reqs)], dim=1)
-        return init, check, u.contiguous()
+        return init, counts, need, u.contiguous()
 
     def _init_populations(self, reqs, seed_src, W: int, L: int):
-        """(init (S, P, n), check): given ``init_genomes`` are copied in,
-        the other slots are seeded, by the batched rejection seeder against
-        the slot-packed feats or, with ``direct_seed`` on the table backend,
-        by ``_seed_direct``; ``check`` raises at harvest if one came up
-        short (``None`` when no slot was seeded).  ``seed_src`` holds each
-        slot's seeding stream: a ``torch.Generator`` per slot, or the (S, 2)
-        host tensor of threefry keys ``k_seed``."""
+        """(init (S, P, n), counts, need): given ``init_genomes`` are copied
+        in, the slots ``need`` are seeded, by the batched rejection seeder
+        against the slot-packed feats or, with ``direct_seed`` on the table
+        backend, by ``_seed_direct``, with ``counts`` (on the device, not
+        read) the designs each found (``None`` when no slot was seeded).
+        ``seed_src`` holds each slot's seeding stream: a
+        ``torch.Generator`` per slot, or the (S, 2) host tensor of threefry
+        keys ``k_seed``."""
         P = int(reqs[0].pop_size)
         need = [i for i, r in enumerate(reqs) if r.init_genomes is None]
         pools: List[Optional[torch.Tensor]] = [None] * len(reqs)
-        check = None
+        counts = None
         if need:
             sub = [reqs[i] for i in need]
             threefry = isinstance(seed_src, torch.Tensor)
@@ -1372,18 +1478,12 @@ class SearchEngine:
                         src = self._to_device(src)
                 seeded, counts = _seed_pools(src, feats, mask, P, tech=tech,
                                              stream=self._seed_stream)
-            staged = self._stage(counts)
-            names = [r.ws.names for r in sub]
-
-            def check(staged=staged, names=names):
-                _check_seeded(self._sync(staged), P, names)
-
             for j, i in enumerate(need):
                 pools[i] = seeded[j]
         for i, r in enumerate(reqs):
             if r.init_genomes is not None:
                 pools[i] = self._to_device(_f32(r.init_genomes))
-        return torch.stack(pools), check
+        return torch.stack(pools), counts, need
 
     def _on_seed_stream(self):
         return (contextlib.nullcontext() if self._seed_stream is None
@@ -1430,7 +1530,7 @@ class SearchEngine:
                 for i, r in enumerate(plan.requests)]
 
     def _dispatch_segmented(
-        self, plan: BatchPlan, seg: int,
+        self, plan: BatchPlan, mesh, seg: int,
         on_progress: Optional[Callable[[int, SearchResult], None]] = None,
     ) -> PendingLaunch:
         """Advance the plan ``seg`` generations a launch with a NaN guard,
@@ -1442,21 +1542,39 @@ class SearchEngine:
         ``pipelined`` keeps the history on the device: the guard reads one
         byte a segment, snapshots go through the thin epilogue, and the
         final epilogue is staged for ``harvest``.  Checkpoints and fault
-        partials read the full history at their (cold) boundaries."""
+        partials read the full history at their (cold) boundaries.
+
+        On a mesh a rank advances its rows' state and every segment's
+        outputs are gathered, so each rank holds the whole history and
+        takes the same guard and retry decisions.  The lead alone reads and
+        writes the checkpoints: a restored state goes to every rank, which
+        keeps its rows."""
         reqs = plan.requests
+        S = len(reqs)
         G = int(plan.requests[0].generations)
         K = max(int(r.top_k) for r in reqs)
         thin = self.pipelined
         ck_dir = self._ckpt_dir(plan)
+        lead = mdist.is_lead(mesh)
+        rows, split = _rows(mesh, S)
+
+        def whole(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+            return mdist.gather_rows_dim(mesh, t, S, dim) if split else t
 
         state: Optional[GAState] = None
         done = 0
         gh = sh = None  # (S, done+1, P, n) / (S, done+1, P): numpy, or device if thin
-        if ck_dir is not None and store.latest_step(ck_dir) is not None:
-            (g_, s_, u_, gen_, gh, sh), _ = store.restore(ck_dir)
+        restored = None
+        if ck_dir is not None and lead and store.latest_step(ck_dir) is not None:
+            restored, _ = store.restore(ck_dir)
+        if ck_dir is not None and mesh is not None:
+            restored = mdist.broadcast_object(mesh, restored)
+        if restored is not None:
+            g_, s_, u_, gen_, gh, sh = restored
             done = int(gen_)
-            state = GAState(genomes=self._to_device(g_), scores=self._to_device(s_),
-                            u=self._to_device(u_), gen=done)
+            state = GAState(genomes=self._to_device(g_[rows]),
+                            scores=self._to_device(s_[rows]),
+                            u=self._to_device(u_[:, rows]), gen=done)
             if thin:
                 gh, sh = self._to_device(gh), self._to_device(sh)
 
@@ -1468,22 +1586,23 @@ class SearchEngine:
             return gh, sh
 
         try:
-            prep = self._prepare(plan, fresh=state is None)
+            prep = self._prepare(plan, mesh=mesh, fresh=state is None)
             self.launches += 1
             if state is None:
                 if prep.seed_check is not None:
                     prep.seed_check()
                 state = init_ga_state_batched(prep.eval_fn, prep.init, prep.u,
                                               ctx=prep.ctx)
+                g0, s0 = whole(state.genomes), whole(state.scores)
                 if thin:
-                    if bool(torch.isnan(state.scores).any()):
+                    if bool(torch.isnan(s0).any()):
                         raise NonFiniteScoreError("NaN scores in the seed evaluation")
-                    gh, sh = state.genomes[:, None], state.scores[:, None]
+                    gh, sh = g0[:, None], s0[:, None]
                 else:
-                    s0 = self._sync(state.scores)
+                    s0 = self._sync(s0)
                     if np.isnan(s0).any():
                         raise NonFiniteScoreError("NaN scores in the seed evaluation")
-                    gh, sh = self._sync(state.genomes)[:, None], s0[:, None]
+                    gh, sh = self._sync(g0)[:, None], s0[:, None]
         except EngineFault:
             raise
         except Exception as e:
@@ -1499,6 +1618,7 @@ class SearchEngine:
                     new_state, (hg, hs) = run_ga_batched_segment(
                         state, prep.eval_fn, ctx=prep.ctx, generations=k_gens,
                         total_generations=G)
+                    hg, hs = whole(hg), whole(hs)
                     if thin:
                         if bool(torch.isnan(hs).any()):
                             raise NonFiniteScoreError(
@@ -1528,10 +1648,12 @@ class SearchEngine:
             done += k_gens
             seg_idx += 1
             if ck_dir is not None and done < G and seg_idx % self.checkpoint_every == 0:
-                hg_ck, hs_ck = host_hist()
-                store.save(ck_dir, done, [
-                    self._sync(state.genomes), self._sync(state.scores),
-                    self._sync(state.u), np.int64(done), hg_ck, hs_ck])
+                # every rank gathers the state; the lead writes it
+                ck_state = (whole(state.genomes), whole(state.scores), whole(state.u, 1))
+                if lead:
+                    hg_ck, hs_ck = host_hist()
+                    store.save(ck_dir, done, [self._sync(t) for t in ck_state]
+                               + [np.int64(done), hg_ck, hs_ck])
             if on_progress is not None and done < G:
                 if thin:
                     snap = self._sync(ga_epilogue_batched(gh, sh, top_k=K))
@@ -1543,12 +1665,12 @@ class SearchEngine:
                                                  r.ws.names, _objective_label(r), r.top_k,
                                                  partial=True))
 
-        if ck_dir is not None:
+        if ck_dir is not None and lead:
             store.clear(ck_dir)
         if thin:
-            return PendingLaunch(plan=plan,
+            return PendingLaunch(plan=plan, mesh=mesh,
                                  thin=self._stage(ga_epilogue_batched(gh, sh, top_k=K)))
-        return PendingLaunch(plan=plan, results=[
+        return PendingLaunch(plan=plan, mesh=mesh, results=[
             _finalize(_history_result(gh[i], sh[i]), r.ws.names, _objective_label(r), r.top_k)
             for i, r in enumerate(reqs)])
 

@@ -26,6 +26,10 @@ drawn blocks.
 ``objective="pareto"`` runs NSGA-II front search (the result holds the
 ``pareto_k`` best front members and their (E, L, A) vectors), and
 ``obj_weights`` the exponent-weighted objective.
+``mesh=`` (``launch.mesh.make_search_mesh``) runs the searches on a mesh
+of ranks, the independent GAs split along ``search`` and each population
+along ``data`` (``core.distributed``); every rank calls the driver alike
+and gets every result, bit for bit the ``mesh=None`` ones.
 """
 from __future__ import annotations
 
@@ -91,10 +95,12 @@ def run_search(
     engine: Optional[SearchEngine] = None,
     prng: str = "torch",
     key=None,
+    mesh=None,
 ) -> SearchResult:
     """One joint search = a single-request engine run.  ``prng="threefry"``
     replays the JAX package's ``run_search(PRNGKey(seed))``, or its
-    ``run_search(key)`` given ``key``."""
+    ``run_search(key)`` given ``key``.  On a ``mesh`` its one row runs on
+    every rank with the population split along ``data``."""
     req = SearchRequest(
         ws=ws, objective=objective, area_constr=float(area_constr),
         seed=int(seed), backend=backend, pop_size=int(pop_size),
@@ -103,7 +109,7 @@ def run_search(
         tech=tech, init_genomes=init_genomes, u_blocks=u_blocks,
         key=None if key is None else tf.key_data(tf.as_key(key)),
     )
-    return _engine(engine, device, prng).run([req])[0]
+    return _engine(engine, device, prng).run([req], mesh=mesh)[0]
 
 
 def joint_search(seed: int, ws: WorkloadSet, **kw) -> SearchResult:
@@ -131,6 +137,7 @@ def batched_search(
     engine: Optional[SearchEngine] = None,
     prng: str = "torch",
     keys=None,
+    mesh=None,
 ) -> List[SearchResult]:
     """B independent searches: ``seeds`` (B,), ``feats`` (B, W, L, 6),
     ``mask`` (B, W, L), optional ``init_genomes`` (B, P, n),
@@ -138,7 +145,9 @@ def batched_search(
     exponent weights.  Element b gives the same result as
     ``run_search(seeds[b], ...)`` on its own workload set.  ``keys`` (B, 2)
     threefry keys (``prng="threefry"``) replace the seeds' ``PRNGKey``s, as
-    the JAX package's ``batched_search(keys, ...)`` takes them."""
+    the JAX package's ``batched_search(keys, ...)`` takes them.  ``mesh``
+    splits the B searches along ``search`` and each population along
+    ``data``."""
     feats = torch.as_tensor(np.asarray(feats, np.float32))
     mask = torch.as_tensor(np.asarray(mask, bool))
     B = len(seeds)
@@ -174,7 +183,7 @@ def batched_search(
         )
         for b in range(B)
     ]
-    return _engine(engine, device, prng).run(reqs)
+    return _engine(engine, device, prng).run(reqs, mesh=mesh)
 
 
 def joint_search_batched(seeds: Sequence[int], ws: WorkloadSet, **kw) -> List[SearchResult]:
@@ -194,6 +203,7 @@ def separate_search(
     batched: bool = True,
     prng: str = "torch",
     key=None,
+    mesh=None,
     **kw,
 ) -> Dict[str, SearchResult]:
     """One single-workload GA per workload (the paper's baseline).
@@ -202,7 +212,10 @@ def separate_search(
     or ``PRNGKey(seed)``, as in the JAX package.  ``share_init`` (P, n)
     seeds every GA with the same population and ``u_blocks`` (W, G, tot)
     gives each its blocks.  ``batched=False`` runs the W searches one by
-    one; both paths return identical results."""
+    one; both paths return identical results.  ``mesh`` splits the W
+    searches along ``search`` (the batched path only)."""
+    if mesh is not None and not batched:
+        raise ValueError("mesh= requires the batched path (batched=True)")
     seeds = split_seed(seed, ws.n)
     keys = None
     if prng == "threefry":
@@ -223,6 +236,7 @@ def separate_search(
             init_genomes=init,
             u_blocks=u_blocks,
             keys=keys,
+            mesh=mesh,
             **kw,
         )
         return dict(zip(ws.names, res))

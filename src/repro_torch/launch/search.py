@@ -57,6 +57,21 @@ with their best so far, ``--result-cache DIR`` answers requests seen
 before (this process or an earlier one over DIR, on the same device)
 with no launch, and ``--stream-progress`` prints each request's best so
 far after every segment.
+
+``--search-mesh SxP`` runs the search (and ``--serve``) on a (search,
+population) mesh of ranks, one process per card: S splits the independent
+GAs (seeds, workloads, requests), P each population (``core.distributed``),
+sizes clamped to the world as the JAX CLI clamps them to its devices.
+Start one process per rank with ``torchrun``; without torchrun's variables
+the world is one rank.  Rank 0 prints and writes ``--out``; every result
+is bit for bit the meshless run's:
+
+    torchrun --nproc-per-node 8 -m repro_torch.launch.search --search-mesh 8x1
+    torchrun --nproc-per-node 2 -m repro_torch.launch.search --device cpu \
+        --search-mesh 2x1 --pop 16 --gens 3 --seeds 4
+
+The process groups run NCCL on the card (one card per rank) and gloo on
+the CPU.
 """
 from __future__ import annotations
 
@@ -78,6 +93,7 @@ from repro_torch.core.search import (
 )
 from repro_torch.core.objectives import OBJECTIVES, PARETO
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import describe, init_world, make_search_mesh
 from repro_torch.serve.cache import ResultCache
 from repro_torch.serve.dse import AsyncDSEService, DSEService, RetryPolicy, paper_request_mix
 from repro_torch.workloads.cnn import PAPER_WORKLOADS, cnn_workload
@@ -99,10 +115,14 @@ def _fmt(v, spec: str = ".2f") -> str:
     return "n/a" if v is None else f"{v:{spec}}"
 
 
-def build_engine(args, dev, result_cache=None):
+def _quiet(*args, **kw) -> None:
+    """``print`` on a rank other than the first."""
+
+
+def build_engine(args, dev, result_cache=None, mesh=None):
     """A ``SearchEngine`` with the knobs when one is set, else ``None``
-    (the search functions then use the shared engine; the service builds
-    its own around ``result_cache``)."""
+    (the search functions then use the shared engine with ``mesh=`` per
+    call; the service builds its own around ``result_cache``)."""
     if not (args.segment_gens or args.checkpoint_dir or args.pipelined):
         return None
     # checkpoints are written at segment boundaries: a checkpoint dir
@@ -115,6 +135,7 @@ def build_engine(args, dev, result_cache=None):
         result_cache=result_cache,
         pipelined=args.pipelined,
         prng=args.prng,
+        mesh=mesh,
     )
 
 
@@ -122,22 +143,23 @@ def _best(res) -> str:
     return f"{res.top_scores[0]:.4g}" if len(res.top_scores) else "infeasible"
 
 
-def serve(args, ws: WorkloadSet, dev) -> int:
-    """``--serve N``: drain N mixed requests through the DSE service."""
+def serve(args, ws: WorkloadSet, dev, mesh=None, log=print) -> int:
+    """``--serve N``: drain N mixed requests through the DSE service (on
+    ``mesh``, the first rank plans and the others follow)."""
     cache = None
     if args.result_cache:
         cache = ResultCache(disk_dir=args.result_cache, device=dev, prng=args.prng)
-        print(f"[serve] result cache armed ({len(cache.disk_keys())} "
+        log(f"[serve] result cache armed ({len(cache.disk_keys())} "
               f"entries on disk under {args.result_cache})")
     if args.stream_progress and not (args.segment_gens or args.checkpoint_dir):
         # streaming needs segment boundaries; segments change no result
         args.segment_gens = 2
-        print("[serve] --stream-progress: defaulting --segment-gens 2")
-    engine = build_engine(args, dev, result_cache=cache)
+        log("[serve] --stream-progress: defaulting --segment-gens 2")
+    engine = build_engine(args, dev, result_cache=cache, mesh=mesh)
     on_progress = None
     if args.stream_progress:
         def on_progress(rid, snap):
-            print(f"[serve] rid {rid} partial @gen {snap.generations}: "
+            log(f"[serve] rid {rid} partial @gen {snap.generations}: "
                   f"best-so-far {_best(snap)}")
     retry = None
     if args.retry_attempts > 1:
@@ -146,7 +168,7 @@ def serve(args, ws: WorkloadSet, dev) -> int:
     svc_kw = dict(engine=engine, device=dev, policy=args.serve_policy,
                   retry=retry, partial_results=args.partial_results,
                   result_cache=cache, pipelined=args.pipelined or None,
-                  prng=args.prng)
+                  prng=args.prng, mesh=mesh)
     mix_kw = {}
     if args.serve_policy == "priority":
         mix_kw["priorities"] = [3, 0, 1, 2]
@@ -159,18 +181,18 @@ def serve(args, ws: WorkloadSet, dev) -> int:
     if args.serve_async:
         with AsyncDSEService(**svc_kw) as svc:
             futs = [svc.submit(r, on_progress=on_progress) for r in reqs]
-            print(f"[serve] {args.serve} heterogeneous requests submitted "
+            log(f"[serve] {args.serve} heterogeneous requests submitted "
                   f"async (policy={args.serve_policy}, backend={args.backend}, "
                   f"slots={svc.service.engine.max_slots})")
             for fut in futs:
                 res = results[fut.rid] = fut.result()
-                print(f"[serve] rid {fut.rid}: {res.objective} on "
+                log(f"[serve] rid {fut.rid}: {res.objective} on "
                       f"{','.join(res.workload_names)} -> best={_best(res)}")
         stats, eng = svc.stats, svc.service.engine
     else:
         svc = DSEService(**svc_kw)
         rids = [svc.submit(r, on_progress=on_progress) for r in reqs]
-        print(f"[serve] {args.serve} heterogeneous requests queued "
+        log(f"[serve] {args.serve} heterogeneous requests queued "
               f"(policy={args.serve_policy}, backend={args.backend}, "
               f"slots={svc.engine.max_slots})")
         # cache hits resolved at submit never reach the queue
@@ -178,39 +200,39 @@ def serve(args, ws: WorkloadSet, dev) -> int:
             res = svc.results.get(rid)
             if res is not None:
                 results[rid] = res
-                print(f"[serve] rid {rid}: {res.objective} on "
+                log(f"[serve] rid {rid}: {res.objective} on "
                       f"{','.join(res.workload_names)} -> best={_best(res)} "
                       f"(cache hit)")
         for rid, res in svc.stream():
             results[rid] = res
-            print(f"[serve] rid {rid}: {res.objective} on "
+            log(f"[serve] rid {rid}: {res.objective} on "
                   f"{','.join(res.workload_names)} -> best={_best(res)}")
         stats, eng = svc.stats, svc.engine
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
     n_evald = args.serve * args.pop * (args.gens + 1)
-    print(f"[serve] drained {len(results)} requests in {dt:.1f}s "
+    log(f"[serve] drained {len(results)} requests in {dt:.1f}s "
           f"({len(results) / dt:.1f} req/s, {n_evald / dt:.0f} designs/s, "
           f"{stats.launches} launches, wait p50/p99 "
           f"{_fmt(stats.wait_p(50))}/{_fmt(stats.wait_p(99))}s, "
           f"latency p50/p99 {_fmt(stats.latency_p(50))}/"
           f"{_fmt(stats.latency_p(99))}s, "
           f"{stats.deadline_misses} deadline misses)")
-    print(f"[serve] faults: {stats.failures} failures, {stats.retries} "
+    log(f"[serve] faults: {stats.failures} failures, {stats.retries} "
           f"retries, {stats.partials} partials, {stats.abandoned} abandoned")
-    print(f"[serve] overlap: pipelined={'on' if args.pipelined else 'off'}, "
+    log(f"[serve] overlap: pipelined={'on' if args.pipelined else 'off'}, "
           f"dispatch->harvest gap p50 "
           f"{_fmt(stats.dispatch_gap_p(50), '.4f')}s, device idle "
           f"{stats.device_idle_s:.3f}s, "
           f"{getattr(eng, 'transfer_bytes', 0)} bytes harvested over "
           f"{getattr(eng, 'launches', 0)} engine launches")
     if cache is not None:
-        print(f"[serve] cache: {stats.cache_hits} submit hits / "
+        log(f"[serve] cache: {stats.cache_hits} submit hits / "
               f"{stats.cache_misses} misses this drain "
               f"(hit rate {stats.cache_hit_rate():.1%}); tiers: "
               f"{cache.stats.summary()}")
-    if args.out:
+    if args.out and log is not _quiet:
         payload = [
             {
                 "rid": rid,
@@ -225,7 +247,7 @@ def serve(args, ws: WorkloadSet, dev) -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(payload, f, indent=1)
-        print(f"[serve] wrote {args.out}")
+        log(f"[serve] wrote {args.out}")
     return 0
 
 
@@ -313,23 +335,46 @@ def main(argv=None) -> int:
         help="--serve: print each request's best so far after every "
              "segment (--segment-gens 2 unless a boundary is set)",
     )
+    ap.add_argument(
+        "--search-mesh", default="", metavar="SxP",
+        help="(search, population) mesh of ranks, e.g. 8x1: split the "
+             "searches over S ranks and each population over P (one process "
+             "per rank, torchrun; sizes clamp to the world)")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
 
     if args.seeds < 1:
         ap.error("--seeds must be >= 1")
-    dev = resolve_device(args.device)
+    log = print
+    mesh = None
+    if args.search_mesh:
+        try:
+            s, p = (int(v) for v in args.search_mesh.lower().split("x"))
+        except ValueError:
+            ap.error(f"--search-mesh takes SxP, got {args.search_mesh!r}")
+        rank, world, dev = init_world(args.device)
+        mesh = make_search_mesh(s, p, device_type=dev.type)
+        if mesh is None:
+            print(f"[search] rank {rank} idle: the {s}x{p} mesh clamps to fewer "
+                  f"ranks than the world of {world}")
+            return 0
+        if rank:
+            log = _quiet  # the first rank alone reports
+        log(f"[search] mesh: {describe(mesh)} ({world} ranks, "
+              f"{torch.distributed.get_backend()})")
+    else:
+        dev = resolve_device(args.device)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     ws = build_workloads(args)
-    print(f"[search] workloads: {ws.names} (L_max={ws.feats.shape[1]}) "
+    log(f"[search] workloads: {ws.names} (L_max={ws.feats.shape[1]}) "
           f"on {dev} ({name})")
     if args.serve:
-        return serve(args, ws, dev)
+        return serve(args, ws, dev, mesh, log)
 
     kw = dict(objective=args.objective, area_constr=args.area,
               pop_size=args.pop, generations=args.gens, pareto_k=args.pareto_k,
-              backend=args.backend, device=dev, engine=build_engine(args, dev),
-              prng=args.prng)
+              backend=args.backend, device=dev, engine=build_engine(args, dev, mesh=mesh),
+              prng=args.prng, mesh=mesh)
     # separate winners are re-scored on the whole set under a scalar
     # objective: the Pareto family's is its E*L*A proxy, the ela objective
     rescore_obj = "ela" if args.objective == PARETO else args.objective
@@ -337,16 +382,16 @@ def main(argv=None) -> int:
     ress = joint_search_batched(list(range(args.seeds)), ws, **kw)
     dt_all = time.perf_counter() - t0
     n_evald = args.seeds * args.pop * (args.gens + 1)
-    print(f"[search] {args.seeds} seed(s) in {dt_all:.3f}s "
+    log(f"[search] {args.seeds} seed(s) in {dt_all:.3f}s "
           f"({n_evald / dt_all:.0f} designs/s on {name}, host clock, "
           f"first call included)")
 
     results = []
     for seed, res in enumerate(ress):
         best = f"{res.top_scores[0]:.4g}" if len(res.top_scores) else "infeasible"
-        print(f"[search] seed {seed}: best={best}")
+        log(f"[search] seed {seed}: best={best}")
         if res.top_designs:
-            print(f"         best design: {res.top_designs[0]}")
+            log(f"         best design: {res.top_designs[0]}")
         entry = {
             "seed": seed,
             "joint_best": float(res.top_scores[0]) if len(res.top_scores) else None,
@@ -361,7 +406,7 @@ def main(argv=None) -> int:
                  "design": d}
                 for v, d in zip(res.objective_vectors, res.top_designs)]
             for j, v in enumerate(res.objective_vectors):
-                print(f"         front[{j}]: E={v[0]:.4g}pJ L={v[1]:.4g}ns "
+                log(f"         front[{j}]: E={v[0]:.4g}pJ L={v[1]:.4g}ns "
                       f"A={v[2]:.4g}mm2")
         if args.separate:
             sep = separate_search(seed + 1000, ws, **kw)
@@ -384,14 +429,14 @@ def main(argv=None) -> int:
                     "best_on_all": best_on_all,
                 }
             entry["separate"] = cross
-            print(f"         separate: {json.dumps(cross)}")
+            log(f"         separate: {json.dumps(cross)}")
         results.append(entry)
 
-    if args.out:
+    if args.out and log is not _quiet:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
-        print(f"[search] wrote {args.out}")
+        log(f"[search] wrote {args.out}")
     return 0
 
 

@@ -19,8 +19,8 @@
   step is the number of steps taken, as the JAX launcher's final one is;
   the JAX launcher labels the others with the index of the step just
   taken, so its resume takes that step's batch twice.
-* ``--data`` / ``--model`` (a device mesh) belong to the multi-device work
-  and raise.
+* ``--data`` / ``--model`` (the LM on a device mesh) raise: ROADMAP.md,
+  queue A, "Multi-device: the LM on a mesh".
 """
 from __future__ import annotations
 

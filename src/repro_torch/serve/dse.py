@@ -29,9 +29,22 @@ card of the thread that built the service.
 samples and deadline misses; every clock reading goes through the
 injectable ``clock``, so a virtual clock and a stub engine make every
 scheduling decision and statistic exact (``tests/test_torch_scheduler_sim.py``).
+
+``mesh=`` (``launch.mesh.make_search_mesh``) runs every launch on a mesh
+of ranks, one process per card, each rank making the same calls
+(``submit`` ... ``drain``).  The policies read a clock (aging, retry
+backoff, deadlines), so only the lead (the mesh's first rank) queues,
+plans, looks up and fills the result cache and writes checkpoints; before
+each launch it sends every rank the plan (``core.distributed.
+broadcast_object``), and the other ranks run what they receive
+(``_follow``): their part of the launch, whose gathered results every rank
+holds.  A follower's ``results`` gets every request's result, those the
+lead resolved without a launch (cache hits, partials) included, and a
+request the lead gave up on fails on every rank.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -52,8 +65,8 @@ import numpy as np
 
 import torch
 
+from repro_torch.core import distributed as mdist
 from repro_torch.core.engine import (
-    NOT_PORTED,
     BatchPlan,
     EngineFault,
     RequestMeta,
@@ -81,6 +94,8 @@ def _percentile(samples: Sequence[float], q: float) -> Optional[float]:
 # the percentiles describe recent traffic rather than all-time history.
 SAMPLE_WINDOW = 4096
 LAUNCH_LOG_WINDOW = 4096
+# seconds between the idle async lead's messages to its followers on a mesh
+HEARTBEAT_S = 10.0
 
 
 @dataclasses.dataclass
@@ -280,6 +295,10 @@ class DSEService:
     ``"threefry"``, which replays the JAX package's service from each
     request's seed or key); a passed engine keeps its own, and a ``prng``
     that differs from it raises.
+
+    ``mesh`` runs the service on a mesh of ranks (the module docstring):
+    the engine it builds gets the mesh, and a passed engine must run on
+    it.  Every rank makes the same calls in the same order.
     """
 
     def __init__(
@@ -298,15 +317,24 @@ class DSEService:
         mesh=None,
         prng: Optional[str] = None,
     ):
-        if mesh is not None:
-            raise ValueError(f"DSEService(mesh=...) is {NOT_PORTED}")
         own = getattr(engine, "prng", None)
         if prng is not None and own is not None and own != prng:
             raise ValueError(f"engine draws prng={own!r}, the service asks for {prng!r}")
+        if engine is not None and mesh is not None and getattr(engine, "mesh", None) is not mesh:
+            raise ValueError("the engine passed runs on another mesh than the service's")
         self.engine = engine or SearchEngine(device=device, max_slots=max_slots,
                                              result_cache=result_cache,
                                              pipelined=bool(pipelined),
-                                             prng=prng or "torch")
+                                             prng=prng or "torch", mesh=mesh)
+        # on a mesh: the lead plans and sends, the other ranks follow
+        self.mesh = getattr(self.engine, "mesh", None)
+        self._follower = not mdist.is_lead(self.mesh)
+        self._seq = 0  # launches announced to the followers
+        self._depth = 0  # nesting of the lead's driving calls (step, stream)
+        # the lead's resolutions without a launch (cache hits, partials,
+        # abandoned requests), sent with its next message
+        self._unsent: Dict[int, object] = {}
+        self._unsent_lock = threading.Lock()
         if pipelined is None:
             self.pipelined = bool(getattr(self.engine, "pipelined", False))
         else:
@@ -385,12 +413,17 @@ class DSEService:
         check = getattr(self.engine, "check_request", None)
         if check is not None:
             check(req)
+        if self._follower:  # the lead queues it; this rank numbers it alike
+            rid = self._next_rid
+            self._next_rid += 1
+            return rid
         if self.result_cache is not None:
             hit = self.result_cache.get(req)
             if hit is not None:
                 rid = self._next_rid
                 self._next_rid += 1
                 self.results[rid] = hit
+                self._forward(rid, hit)
                 self.stats.submitted += 1
                 self.stats.completed += 1
                 self.stats.cache_hits += 1
@@ -419,6 +452,99 @@ class DSEService:
 
     def pending(self) -> int:
         return len(self.queue) + len(self._retry_lane)
+
+    # ------------------------------------------------------------- the mesh
+    def _forward(self, rid: int, res) -> None:
+        """Queue a resolution without a launch (a result, or the exception
+        an abandoned request failed with) for the followers."""
+        if self.mesh is not None:
+            if isinstance(res, BaseException):
+                res = RuntimeError(f"the lead abandoned rid {rid}: {res!r}")
+            with self._unsent_lock:
+                self._unsent[rid] = res
+
+    def _send(self, op: str, *payload) -> None:
+        """The lead's message to every rank of the mesh: what to run next,
+        and the resolutions made since the last message."""
+        with self._unsent_lock:
+            unsent, self._unsent = self._unsent, {}
+        mdist.broadcast_object(self.mesh, (op, payload, unsent))
+
+    @contextlib.contextmanager
+    def _session(self):
+        """The lead's outermost driving call (``step``, ``stream``) ends
+        with a ``stop`` that ends the followers' matching call, carrying
+        the lead's failure if it raised."""
+        outer = self.mesh is not None and self._depth == 0
+        self._depth += 1
+        failure = None
+        try:
+            yield
+        except BaseException as e:
+            failure = repr(e)
+            raise
+        finally:
+            self._depth -= 1
+            if outer:
+                self._send("stop", failure)
+
+    def _launch(self, plan: BatchPlan, rids: List[int], kw: Dict):
+        """``engine.dispatch``, announced to the followers on a mesh."""
+        if self.mesh is None:
+            return self.engine.dispatch(plan, **kw)
+        self._seq += 1
+        self._send("dispatch", self._seq, plan, list(rids))
+        pend = self.engine.dispatch(plan, **kw)
+        pend.seq = self._seq
+        return pend
+
+    def _harvest(self, pend) -> List[SearchResult]:
+        """``engine.harvest``, announced to the followers on a mesh."""
+        if self.mesh is not None:
+            self._send("harvest", pend.seq)
+        return self.engine.harvest(pend)
+
+    def _execute(self, plan: BatchPlan, rids: List[int], kw: Dict) -> List[SearchResult]:
+        if self.mesh is None:
+            return self.engine.execute(plan, **kw)
+        return self._harvest(self._launch(plan, rids, kw))
+
+    def _follow(self) -> Iterator[Tuple[int, object]]:
+        """A follower's side of the lead's driving call: run each launch
+        the lead announces (its part, and the gathers) until the lead's
+        ``stop``; yields (rid, result) as results land, and (rid,
+        exception) for a request the lead abandoned.  A launch that fails
+        here failed on the lead too, which decides what follows."""
+        inflight: Dict[int, Optional[Tuple[object, List[int]]]] = {}
+        while True:
+            op, payload, resolved = mdist.broadcast_object(self.mesh)
+            for rid, res in resolved.items():
+                if isinstance(res, BaseException):
+                    self.failed[rid] = res
+                else:
+                    self.results[rid] = res
+                yield rid, res
+            if op == "stop":
+                if payload[0] is not None:
+                    raise RuntimeError(f"the lead rank's drain failed: {payload[0]}")
+                return
+            if op == "dispatch":
+                seq, plan, rids = payload
+                try:
+                    inflight[seq] = (self.engine.dispatch(plan), rids)
+                except Exception:  # noqa: BLE001 - the lead's launch failed alike
+                    inflight[seq] = None
+            elif op == "harvest":
+                entry = inflight.pop(payload[0])
+                if entry is None:
+                    continue
+                try:
+                    results = self.engine.harvest(entry[0])
+                except Exception:  # noqa: BLE001 - the lead's harvest failed alike
+                    continue
+                for rid, res in zip(entry[1], results):
+                    self.results[rid] = res
+                    yield rid, res
 
     # --------------------------------------------------------------- serving
     def _plans(self) -> List[BatchPlan]:
@@ -513,6 +639,7 @@ class DSEService:
         ``stats.abandoned`` — never silently dropped."""
         self._drop_wait_samples(len(rids))
         for rid in rids:
+            self._forward(rid, RuntimeError("launch failed"))
             self._submit_s.pop(rid, None)
             self._deadline_s.pop(rid, None)
             self._attempts.pop(rid, None)
@@ -538,6 +665,7 @@ class DSEService:
         elif getattr(res, "partial", True) is False:
             res = dataclasses.replace(res, partial=True)
         self.results[rid] = res
+        self._forward(rid, res)
         self.stats.partials += 1
         self.stats.completed += 1
         waited = now - self._submit_s.pop(rid)
@@ -605,6 +733,7 @@ class DSEService:
                 resolutions.append(self._resolve_partial(rid, req, now))
             else:
                 self.failed[rid] = exc
+                self._forward(rid, exc)
                 failed.append(rid)
         for rid in failed:  # wait samples already dropped above
             self._submit_s.pop(rid, None)
@@ -667,7 +796,15 @@ class DSEService:
         plus, under ``partial_results``, any deadline-swept partial
         resolutions.  Requests submitted while a step runs simply join
         the next plan.  With a ``retry`` policy an engine failure is
-        absorbed (retry lane / quarantine) instead of raised."""
+        absorbed (retry lane / quarantine) instead of raised.  A follower
+        on a mesh runs its part of the lead's step."""
+        if self._follower:
+            return [(rid, r) for rid, r in self._follow()
+                    if not isinstance(r, BaseException)]
+        with self._session():
+            return self._step()
+
+    def _step(self) -> List[Tuple[int, SearchResult]]:
         swept = self._sweep_deadlines() if self.partial_results else []
         d = self._dispatch()
         if d is None:
@@ -676,7 +813,7 @@ class DSEService:
         if self._last_harvest_end is not None:
             self.stats.device_idle_s += max(0.0, t0 - self._last_harvest_end)
         try:
-            results = self.engine.execute(plan, **self._progress_kw(rids))
+            results = self._execute(plan, rids, self._progress_kw(rids))
         except Exception as e:
             if self.retry is None:
                 self._rollback(plan, rids)  # step() stays retryable
@@ -715,7 +852,7 @@ class DSEService:
         plan, rids, t0, pend, td = entry
         th = self.clock()
         try:
-            results = self.engine.harvest(pend)
+            results = self._harvest(pend)
         except Exception as e:
             self._inflight -= 1
             if self._inflight == 0:
@@ -768,8 +905,7 @@ class DSEService:
                     self.stats.device_idle_s += max(
                         0.0, t0 - self._last_harvest_end)
                 try:
-                    pend = self.engine.dispatch(
-                        plan, **self._progress_kw(rids))
+                    pend = self._launch(plan, rids, self._progress_kw(rids))
                 except Exception as e:
                     # a failed dispatch resolves like a failed launch; the
                     # in-flight prev is untouched and harvests next round
@@ -804,15 +940,22 @@ class DSEService:
         finishes — callers overlap their own post-processing with the
         remaining launches.  Under ``pipelined=True`` (on an engine with
         the dispatch/harvest split) the drain double-buffers launches;
-        same results, same per-plan yield boundaries."""
-        if self.pipelined and self._can_pipeline:
-            yield from self._stream_pipelined()
+        same results, same per-plan yield boundaries.  A follower on a mesh
+        yields the results of its part of the lead's drain."""
+        if self._follower:
+            for rid, r in self._follow():
+                if not isinstance(r, BaseException):
+                    yield rid, r
             return
-        while self.pending():
-            out = self.step()
-            yield from out
-            if not out and not self.queue and self.pending():
-                self._wait_for_retries()
+        with self._session():
+            if self.pipelined and self._can_pipeline:
+                yield from self._stream_pipelined()
+                return
+            while self.pending():
+                out = self._step()
+                yield from out
+                if not out and not self.queue and self.pending():
+                    self._wait_for_retries()
 
     def drain(self) -> Dict[int, SearchResult]:
         """Run the whole queue — waiting out retry backoff — until every
@@ -847,7 +990,13 @@ class AsyncDSEService:
     ``pipelined=True`` swaps the worker for a double-buffered loop
     (dispatch plan i+1 before harvesting plan i — see ``DSEService``);
     results and future-resolution order are unchanged.  Use as a context
-    manager, or call ``close()``."""
+    manager, or call ``close()``.
+
+    On a mesh every rank builds the service and submits the same requests
+    in the same order.  The lead's worker plans and sends each launch (and
+    the resolutions made without one); the other ranks' workers run what
+    they receive and resolve their futures by request id.  The lead's
+    ``close`` ends the followers' workers, so every rank closes."""
 
     def __init__(
         self,
@@ -884,10 +1033,15 @@ class AsyncDSEService:
         if not paused:
             self._run.set()
         self._futures: Dict[int, Future] = {}
+        # a follower's results that landed before its own submit of the rid
+        self._early: Dict[int, object] = {}
         self._closed = False
         svc = self.service
-        loop = (self._loop_pipelined
-                if svc.pipelined and svc._can_pipeline else self._loop)
+        if svc._follower:
+            loop = self._loop_follow
+        else:
+            loop = (self._loop_pipelined
+                    if svc.pipelined and svc._can_pipeline else self._loop)
 
         def target():
             if self._cuda_index is not None:
@@ -922,13 +1076,18 @@ class AsyncDSEService:
             rid = self.service.submit(req, on_progress=on_progress)
             fut: Future = Future()
             fut.rid = rid  # type: ignore[attr-defined]
-            hit = self.service.results.get(rid)
+            if self.service._follower:
+                hit = self._early.pop(rid, None)
+            else:
+                hit = self.service.results.get(rid)
             if hit is None:
                 self._futures[rid] = fut
                 self._idle.clear()
         # a cache hit resolves OUTSIDE the lock (done-callbacks may submit)
         if hit is not None:
-            fut.set_result(hit)
+            _settle(fut, hit)
+            if self.service.mesh is not None:
+                self._wake.set()  # the lead's worker sends the hit on
             return fut
         self._wake.set()
         return fut
@@ -948,8 +1107,8 @@ class AsyncDSEService:
     # --------------------------------------------------------------- serving
     def _loop(self):
         while True:
-            self._wake.wait()
-            self._run.wait()
+            self._wait(self._wake)
+            self._wait(self._run)
             svc = self.service
             retry_wait = None
             with self._lock:
@@ -974,6 +1133,7 @@ class AsyncDSEService:
                 if f is not None:
                     f.set_result(res)
             if d is None:
+                self._send_resolutions()
                 if retry_wait is not None:
                     # backed-off retries pending: nap on the REAL clock (a
                     # virtual service clock advances externally), bounded
@@ -985,7 +1145,7 @@ class AsyncDSEService:
             # and join the next dispatch's re-plan (progress callbacks
             # fire here too — lock-free, so they may submit)
             try:
-                results = svc.engine.execute(plan, **svc._progress_kw(rids))
+                results = svc._execute(plan, rids, svc._progress_kw(rids))
             except BaseException as e:  # noqa: BLE001 — fail the futures, keep serving
                 with self._lock:
                     if svc.retry is None:
@@ -1044,7 +1204,7 @@ class AsyncDSEService:
             plan, rids, t0, pend, td = entry
             th = svc.clock()
             try:
-                results = svc.engine.harvest(pend)
+                results = svc._harvest(pend)
             except BaseException as e:  # noqa: BLE001 — fail the futures, keep serving
                 with self._lock:
                     svc._inflight -= 1
@@ -1074,8 +1234,8 @@ class AsyncDSEService:
         prev = None  # (plan, rids, t0, pending, td) still in flight
         while True:
             if prev is None:
-                self._wake.wait()
-                self._run.wait()
+                self._wait(self._wake)
+                self._wait(self._run)
             elif not self._run.is_set():
                 # paused mid-overlap: settle the in-flight launch, then
                 # block at the top of the next iteration
@@ -1114,13 +1274,15 @@ class AsyncDSEService:
                 if prev is not None:
                     to_harvest, prev = prev, None
                     harvest_entry(to_harvest)
-                elif retry_wait is not None:
+                    continue
+                self._send_resolutions()
+                if retry_wait is not None:
                     time.sleep(min(retry_wait, 0.05) or 0.001)
                 continue
             # dispatch WITHOUT the lock: it only enqueues device work
             # (progress callbacks fire here too, and may submit)
             try:
-                pend = svc.engine.dispatch(plan, **svc._progress_kw(rids))
+                pend = svc._launch(plan, rids, svc._progress_kw(rids))
             except BaseException as e:  # noqa: BLE001 — fail the futures, keep serving
                 with self._lock:
                     resolved, failed = fail_rids(plan, rids, e)
@@ -1145,6 +1307,45 @@ class AsyncDSEService:
         # the pops above see an empty future map and skip
         if prev is not None:
             harvest_entry(prev)
+
+    def _wait(self, event: threading.Event) -> None:
+        """Wait for ``event``.  On a mesh the lead's idle worker messages
+        the followers every ``HEARTBEAT_S`` meanwhile, so their waits never
+        reach their groups' timeout."""
+        svc = self.service
+        if svc.mesh is None:
+            event.wait()
+            return
+        while not event.wait(HEARTBEAT_S):
+            svc._send("resolve")
+
+    def _send_resolutions(self) -> None:
+        """The lead's worker, going idle: send the followers what it
+        resolved without a launch (cache hits, partials, failures)."""
+        svc = self.service
+        if svc.mesh is not None and svc._unsent:
+            svc._send("resolve")
+
+    def _loop_follow(self):
+        """A follower's worker: run the lead's launches and resolve this
+        rank's futures by rid until the lead closes."""
+        try:
+            for rid, res in self.service._follow():
+                with self._lock:
+                    fut = self._futures.pop(rid, None)
+                    if fut is None:
+                        self._early[rid] = res
+                    elif not self._futures:
+                        self._idle.set()
+                if fut is not None:
+                    _settle(fut, res)
+        except BaseException as e:  # noqa: BLE001 - fail the futures left
+            with self._lock:
+                left = list(self._futures.values())
+                self._futures.clear()
+                self._idle.set()
+            for f in left:
+                f.set_exception(e)
 
     def drain(self, timeout: Optional[float] = None) -> Dict[int, SearchResult]:
         """Block until the queue and all in-flight launches are done;
@@ -1186,12 +1387,21 @@ class AsyncDSEService:
             f.cancel()
         if threading.current_thread() is not self._worker:
             self._worker.join()
+            if self.service.mesh is not None and not self.service._follower:
+                self.service._send("stop", None)  # ends the followers' workers
 
     def __enter__(self) -> "AsyncDSEService":
         return self
 
     def __exit__(self, *exc):
         self.close()
+
+
+def _settle(fut: Future, res) -> None:
+    if isinstance(res, BaseException):
+        fut.set_exception(res)
+    else:
+        fut.set_result(res)
 
 
 def paper_request_mix(

@@ -904,3 +904,70 @@ def test_threefry_table_search_on_card_gives_cpu_generation0(cuda, ws, direct):
     for a, b in zip(card, cpu):
         np.testing.assert_array_equal(a.ga.genomes[0].view(np.int32),
                                       b.ga.genomes[0].view(np.int32))
+
+
+def _nccl_rank(rank: int, world: int, store: str, out: str) -> None:
+    """One card's rank of ``test_search_mesh_over_two_cards_under_nccl``."""
+    import datetime
+    import pickle
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_search_mesh
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=120))
+    try:
+        ws = pack_workloads([(n, cnn_workload(n)) for n in PAPER_WORKLOADS])
+        got = {}
+        for shape in ((2, 1), (1, 2)):
+            mesh = make_search_mesh(*shape, device_type="cuda", timeout_s=120)
+            for backend in ("kernel", "table"):
+                imc_eval_multi.launches = ga_gen_step.launches = 0
+                res = search.joint_search_batched(
+                    [0, 1, 2, 3], ws, pop_size=16, generations=3, backend=backend,
+                    device=torch.device("cuda", rank), mesh=mesh)
+                got[(shape, backend)] = (
+                    [(r.top_scores, r.top_genomes, r.ga.scores) for r in res],
+                    imc_eval_multi.launches, ga_gen_step.launches)
+        with open(f"{out}.{rank}", "wb") as f:
+            pickle.dump(got, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_search_mesh_over_two_cards_under_nccl(cuda, ws, tmp_path):
+    """Two ranks, one card each, NCCL: the searches split over ``search``
+    (2x1) or each population over ``data`` (1x2) give the meshless run's
+    bits on every rank, each rank launching its backend's kernel."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    ctx = mp.start_processes(_nccl_rank, args=(2, str(tmp_path / "store"), str(tmp_path / "o")),
+                             nprocs=2, join=False, start_method="spawn")
+    try:
+        for _ in range(300):
+            if ctx.join(timeout=1.0):
+                break
+        else:
+            raise AssertionError("the two NCCL ranks passed their 300 s deadline")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks = [pickle.load(open(tmp_path / f"o.{r}", "rb")) for r in range(2)]
+    for backend in ("kernel", "table"):
+        ref = search.joint_search_batched([0, 1, 2, 3], ws, pop_size=16, generations=3,
+                                          backend=backend, device=cuda)
+        for got in ranks:
+            for shape in ((2, 1), (1, 2)):
+                res, b1, b2 = got[(shape, backend)]
+                assert (b1 > 0) if backend == "kernel" else (b2 > 0 and b1 == 0)
+                for (s, g, h), r in zip(res, ref):
+                    np.testing.assert_array_equal(s.view(np.uint32), r.top_scores.view(np.uint32))
+                    np.testing.assert_array_equal(g, r.top_genomes)
+                    np.testing.assert_array_equal(h.view(np.uint32), r.ga.scores.view(np.uint32))
