@@ -193,13 +193,36 @@ first fault exits non-zero and prints no result:
      the card against the same step on the CPU from the same weights,
      moments and batch: loss, grad norm, each leaf's gradient and update
      within ``TRAIN_*`` tolerances;
+ 10c. training on a mesh: (a) ``llama3.2-1b`` at full width and depth,
+     phase 10b's steps and seed, through ``launch.train.main`` meshless
+     and at ``--data 1 --model 1`` in a world of one under NCCL, every
+     launch count set to 0 just before each: losses and grad norms within
+     ``MESH_LOSS_TOL`` of phase 10b's and of the meshless run, the final
+     parameters and moments compared bit for bit (logged), step ms and
+     peak memory beside phase 10b's, no kernel launched; then one 1x1 step
+     timed and one traced (device busy, idle share) beside phase 10b's
+     traced meshless step; (b) whether gloo
+     runs DTensor's collectives on the card's tensors for two ranks
+     sharing it (this script's ``--gloo-probe`` mode); if it does, or
+     with two cards (NCCL, a card per rank), llama and mamba2 at full
+     width, 2 layers, ``--seq 256 --batch 4``, 4 steps, at ``2x1`` and
+     ``1x2`` on two ranks (``--train-mesh-worker``) against the meshless
+     runs: losses within ``MESH_LOSS_TOL`` and step 0's grad norm within
+     ``MESH_GNORM_RTOL`` (relative), each rank's local state bytes
+     what ``params_sharding`` implies and at most ``MESH_BYTES_RATIO`` of
+     the meshless run's for llama, collective calls and bytes per rank
+     of the last step logged (``--count-comm``), a 2x1 checkpoint resumed at 1x2 repeating the
+     unbroken run's losses; with one card that gloo cannot share it logs
+     so and ``python3 chip_smoke.py --train-mesh`` runs (b) alone on two
+     cards or more;
  11. one JSON line ``{"kernels": [...]}``: launches on the main paths
      (``launches_by_path``: the search CLI, the service, phase 9b's
      paths and phase 9c's, ``search_threefry`` and ``serve_threefry``,
      and phase 9d's, ``search_mesh`` and ``serve_mesh``: the 1x1 runs and
      every rank of the two-rank runs;
      for flash_attention and ssd_scan each model of phase 10; the
-     training path, ``train``, 0 for each),
+     training path, ``train``, and training on a mesh, ``train_mesh``, 0
+     for each),
      max error, kernel and plain times per call (CUDA events, after a
      warm-up, in turns plain/kernel/kernel/plain; at small sizes they
      include the host's launch overhead), the same work's device time
@@ -3049,6 +3072,511 @@ def phase_train_card_vs_cpu(torch, dev, card, timings):
     return launches
 
 
+# ------------------------------------------------------ training on a mesh
+# phase 10c: (a) llama at full width and depth through launch.train.main
+# --data 1 --model 1 in a world of one under NCCL against phase 10b's
+# meshless run; (b) two ranks at --data 2 and --model 2, full width, 2
+# layers, from the meshless runs at the same settings
+MESH_TRAIN_MODELS = ("llama3.2-1b", "mamba2-780m")
+MESH_TRAIN_DEPTH = 2
+MESH_TRAIN_ARGS = ("--seq", "256", "--batch", "4", "--steps", "4", "--log-every", "1")
+# the mesh runs count the collectives of their last step only (a dispatch
+# mode, slow on the host): their step ms come from the steps before it
+MESH_COUNT_ARGS = ("--count-comm",)
+MESH_TRAIN_SHAPES = ((2, 1), (1, 2))
+# a mesh run's loss against the meshless run's: each rank's products are
+# the meshless ones on its shards, but a sum split over ranks (the batch of
+# a weight's gradient over data, a row-parallel product over model) is
+# summed in float32 and rounded once, not by the meshless GEMM, and Adam
+# turns those bf16 ulps into other updates (tests/test_torch_mesh_train.py
+# reads up to 4.8e-4 over 4 steps on the CPU)
+MESH_LOSS_TOL = 1e-3
+# step 0's grad norm against the meshless run's, relative: both runs hold
+# the same parameters, so only the rounding of the split sums differs
+# (tests/test_torch_mesh_train.py reads up to 5.6e-4 on the CPU); a
+# gradient summed twice, or missing a rank's rows, moves it by far more
+MESH_GNORM_RTOL = 2e-3
+# local (params, moments) bytes of a rank of a two-rank llama mesh against
+# the meshless run's: FSDP over data or the vocab over model halves the
+# embedding, which is most of a 2-layer llama
+MESH_BYTES_RATIO = 0.55
+MESH_TRAIN_DEADLINE_S = 420
+_MESH_STEP = re.compile(r"^\[train\] step\s+(\d+) loss (\S+) gnorm (\S+) lr (\S+) \((\S+)s\)"
+                        r"(?: comm (\d+) calls (\d+) B)?$")
+_MESH_BYTES = re.compile(r"^\[train\] rank (\d+) local state bytes (\d+)$")
+_MESH_COMM = re.compile(r"^\[train\] (?:rank \d+ )?step\s+(\d+) .*comm (\d+) calls (\d+) B$")
+
+
+def _mesh_train_log(out: str) -> dict:
+    """{step: (loss, grad norm, lr, seconds, collective calls, bytes)} of a
+    ``launch.train.main`` log, the collective counts 0 off a mesh."""
+    steps = {}
+    for ln in out.splitlines():
+        m = _MESH_STEP.match(ln)
+        if m:
+            steps[int(m.group(1))] = tuple(float(m.group(i)) for i in (2, 3, 4, 5)) + (
+                int(m.group(6) or 0), int(m.group(7) or 0))
+    return steps
+
+
+def _spec_state_bytes(cfg, shape) -> int:
+    """Local bytes of (float32 params, mu, nu) plus the int32 step that the
+    specs imply on a (data, model) mesh of ``shape``."""
+    from repro_torch.core.distributed import MeshLayout
+    from repro_torch.distributed import sharding
+    from repro_torch.models import transformer
+    from repro_torch.models.common import ParamDecl
+
+    sizes = dict(zip(("data", "model"), shape))
+    total = 0
+
+    def walk(spec, decl):
+        nonlocal total
+        if isinstance(decl, ParamDecl):
+            n = math.prod(decl.shape)
+            for entry in spec:
+                for ax in (entry if isinstance(entry, tuple) else (entry,)):
+                    n //= sizes.get(ax, 1) if ax else 1
+            total += 3 * 4 * n
+        elif isinstance(decl, dict):
+            for k in decl:
+                walk(spec[k], decl[k])
+        else:
+            for a, b in zip(spec, decl):
+                walk(a, b)
+
+    tmpl = transformer.param_template(cfg)
+    walk(sharding.spec_tree(tmpl, MeshLayout(("data", "model"), shape)), tmpl)
+    return total + 4
+
+
+def _train_captured(torch, argv, depth=None):
+    """``launch.train.main(argv)`` with its stdout captured, the model cut to
+    ``depth`` layers at full width (``_model_cfg``; the launcher's
+    ``--layers`` reduces the width too), and the state it trained kept:
+    (exit code, stdout, (params, AdamW state) after the last step; the step
+    updates them in place)."""
+    from repro_torch.launch import train
+
+    build, get, kept = train.build_state, train.get_config, []
+
+    def keep(*a, **k):
+        kept.append(build(*a, **k))
+        return kept[-1]
+
+    train.build_state = keep
+    train.get_config = lambda name: _model_cfg(name, depth)
+    try:
+        rc, out = _captured(train.main, argv)
+    finally:
+        train.build_state, train.get_config = build, get
+    return rc, out, (kept[-1] if kept else None)
+
+
+def _gloo_probe_worker(outdir: str) -> int:
+    """One rank of the probe: a DTensor all-gather of the card's tensors
+    under gloo (the functional collectives DTensor runs); a crash prints
+    its Python stack."""
+    import faulthandler
+
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch.mesh import init_world, make_test_mesh
+
+    faulthandler.enable()
+    rank, _, _ = init_world("cuda", backend="gloo")
+    mesh = make_test_mesh(2, 1, device_type="cuda")
+    x = DTensor.from_local(torch.full((2, 3), float(rank), device="cuda"), mesh,
+                           [Shard(0), Replicate()])
+    got = x.redistribute(mesh, [Replicate(), Replicate()]).to_local()[:, 0].tolist()
+    torch.distributed.destroy_process_group()
+    Path(outdir, f"probe{rank}.json").write_text(json.dumps(got))
+    return 0
+
+
+def _ranks(tmp: Path, mode: str, cards: int, deadline_s: float) -> list:
+    """Run this script's ``mode`` on two ranks (torchrun's variables, rank r
+    on card r, or both on card 0 with ``cards`` 1) within the deadline
+    (killed past it).  Returns each rank's (exit code, log)."""
+    import os
+
+    port = _free_port()
+    procs = []
+    for r in range(2):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE="2",
+                   LOCAL_RANK=str(r if cards > 1 else 0), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port))
+        logf = open(tmp / f"{mode[2:]}{r}.log", "w")
+        procs.append((subprocess.Popen([sys.executable, str(Path(__file__).resolve()), mode,
+                                        str(tmp)], env=env, cwd=str(ROOT), stdout=logf,
+                                       stderr=subprocess.STDOUT), logf))
+    deadline = time.monotonic() + deadline_s
+    try:
+        for p, _ in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for p, logf in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            logf.close()
+    return [(p.returncode, (tmp / f"{mode[2:]}{r}.log").read_text())
+            for r, (p, _) in enumerate(procs)]
+
+
+def gloo_takes_dtensor_cuda(torch) -> str:
+    """Whether gloo runs DTensor's collectives on the card's tensors for
+    two ranks sharing it: "yes", or what the ranks did."""
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        tmp = Path(tmp)
+        res = _ranks(tmp, "--gloo-probe", 1, 120)
+        if all(rc == 0 for rc, _ in res):
+            got = [json.loads((tmp / f"probe{r}.json").read_text()) for r in range(2)]
+            return "yes" if got == [[0.0, 1.0]] * 2 else f"wrong values {got}"
+        tail = [ln for ln in res[0][1].splitlines() if "Fatal" in ln or "wait_tensor" in ln
+                or "Error" in ln][:3]
+        return f"no: ranks exited {[rc for rc, _ in res]} ({'; '.join(tail)})"
+
+
+def train_mesh_worker(outdir: str) -> int:
+    """One rank of phase 10c (b) (``chip_smoke.py --train-mesh-worker DIR``):
+    each model of ``MESH_TRAIN_MODELS`` at each of ``MESH_TRAIN_SHAPES``
+    through ``launch.train.main`` (llama at 2x1 with a checkpoint every 2
+    steps), then the 2x1 checkpoint resumed at 1x2; every launch count set
+    to 0 just before each run.  Writes ``DIR/rank<r>.json``."""
+    import shutil
+
+    import torch
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch.mesh import init_world
+
+    backend = "gloo" if torch.cuda.device_count() < 2 else "nccl"
+    rank, world, dev = init_world("cuda", backend=backend)
+    counters = _counters()
+    ckpt = Path(outdir) / "ckpt"
+    rec = {"rank": rank, "backend": backend, "device": str(dev), "runs": []}
+
+    def one(name, shape, extra=(), label=None):
+        argv = ["--arch", name, *MESH_TRAIN_ARGS, *MESH_COUNT_ARGS, "--data", str(shape[0]),
+                "--model", str(shape[1]), *extra]
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        rc, out, _ = _train_captured(torch, argv, MESH_TRAIN_DEPTH)
+        wall = time.perf_counter() - t0
+        m = [int(x.group(2)) for x in map(_MESH_BYTES.match, out.splitlines()) if x]
+        comm = {int(x.group(1)): (int(x.group(2)), int(x.group(3)))
+                for x in map(_MESH_COMM.match, out.splitlines()) if x}
+        rec["runs"].append({"name": name, "shape": list(shape), "label": label or "run",
+                            "rc": rc, "wall_s": wall, "log": _mesh_train_log(out), "comm": comm,
+                            "local_bytes": m[0] if m else None,
+                            "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+                            "launches": {k: c.launches for k, c in counters.items()},
+                            "by_op": next((ln.split(": ", 1)[1] for ln in out.splitlines()
+                                           if ln.startswith("[train] comm by op: ")), ""),
+                            "resumed": "auto-resumed from step 2" in out})
+
+    for shape in MESH_TRAIN_SHAPES:
+        for name in MESH_TRAIN_MODELS:
+            extra = (("--ckpt-dir", str(ckpt), "--ckpt-every", "2")
+                     if shape == (2, 1) and name == "llama3.2-1b" else ())
+            one(name, shape, extra)
+    if rank == 0:  # a crash after step 2 of the 2x1 run: resume at 1x2
+        shutil.rmtree(ckpt / "step_000000004")
+    torch.distributed.barrier()
+    one("llama3.2-1b", (1, 2), ("--ckpt-dir", str(ckpt)), "resume")
+    torch.distributed.destroy_process_group()
+    Path(outdir, f"rank{rank}.json").write_text(json.dumps(rec))
+    return 0
+
+
+def phase_train_mesh_ranks(torch, dev, card, timings, gloo: str):
+    """Phase 10c (b): two ranks at ``--data 2`` and ``--model 2`` (gloo
+    sharing the card when it takes DTensor's collectives there, else NCCL
+    with a card per rank), against the meshless runs at the same settings
+    in this process: each logged loss within MESH_LOSS_TOL; each rank's
+    local state bytes exactly what ``params_sharding`` implies, and at most
+    MESH_BYTES_RATIO of the meshless bytes for llama; no kernel launched;
+    the 2x1 checkpoint resumed at 1x2 repeats the unbroken 2x1 run's losses
+    within MESH_LOSS_TOL; collective calls and bytes per rank per step,
+    step ms and peak memory logged.  Returns {kernel: launches}, or None
+    when it cannot run here (one card that gloo cannot share)."""
+    cards = torch.cuda.device_count()
+    if gloo != "yes" and cards < 2:
+        log(f"train mesh (b), two ranks: not run on one {card}: gloo {gloo}; NCCL takes "
+            "one card per rank: `python3 chip_smoke.py --train-mesh` on two or more cards")
+        timings["train_mesh/ranks"] = {"card": card, "run": False, "gloo_dtensor_cuda": gloo}
+        return None
+    counters = _counters()
+    ref = {}
+    for name in MESH_TRAIN_MODELS:
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        rc, out, state = _train_captured(torch, ["--arch", name, *MESH_TRAIN_ARGS],
+                                         MESH_TRAIN_DEPTH)
+        check(rc == 0, f"{name} meshless ({MESH_TRAIN_DEPTH} layers) exited {rc}")
+        from repro_torch.launch.train import local_bytes
+
+        ref[name] = {"log": _mesh_train_log(out), "bytes": local_bytes(state),
+                     "peak": torch.cuda.max_memory_allocated()}
+        del state
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        res = _ranks(tmp, "--train-mesh-worker", 1 if gloo == "yes" else 2,
+                     MESH_TRAIN_DEADLINE_S)
+        wall = time.perf_counter() - t0
+        for r, (rc, text) in enumerate(res):
+            frames = [ln for ln in text.splitlines() if "repro_torch" in ln or "Error" in ln]
+            check(rc == 0, f"train mesh rank {r} exited {rc}: " + "\n".join(frames[-40:])
+                  + text[-1500:])
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(2)]
+    launches = dict.fromkeys(counters, 0)
+    out = {"card": card, "backend": ranks[0]["backend"], "wall_s": wall, "runs": []}
+    for i, run0 in enumerate(ranks[0]["runs"]):
+        name, shape, label = run0["name"], tuple(run0["shape"]), run0["label"]
+        cfg = _model_cfg(name, MESH_TRAIN_DEPTH)
+        want_bytes = _spec_state_bytes(cfg, shape)
+        log0 = {int(k): v for k, v in run0["log"].items()}
+        for rk in ranks:
+            run = rk["runs"][i]
+            check(run["rc"] == 0, f"{name} {shape} rank {rk['rank']} exited {run['rc']}")
+            check(run["local_bytes"] == want_bytes, f"{name} {shape} rank {rk['rank']}: local "
+                  f"state {run['local_bytes']} bytes, the specs imply {want_bytes}")
+            check(not any(run["launches"].values()), f"{name} {shape}: kernels launched "
+                  f"{run['launches']}")
+            for k, v in run["launches"].items():
+                launches[k] += v
+        ratio = want_bytes / ref[name]["bytes"]
+        if name == "llama3.2-1b":
+            check(ratio <= MESH_BYTES_RATIO, f"{name} {shape}: local bytes {ratio:.3f} of the "
+                  f"meshless run's > {MESH_BYTES_RATIO}")
+        if label == "resume":
+            check(run0["resumed"], f"{name}: the 1x2 run did not resume from step 2")
+            unbroken = {int(k): v for k, v in next(
+                r for r in ranks[0]["runs"] if r["name"] == name and tuple(r["shape"]) == (2, 1)
+                and r["label"] == "run")["log"].items()}
+            check(sorted(log0) == [2, 3], f"{name}: resumed run logged {sorted(log0)}")
+            gap = max(abs(log0[s][0] - unbroken[s][0]) for s in log0)
+            check(gap <= MESH_LOSS_TOL, f"{name}: 2x1 checkpoint resumed at 1x2: losses "
+                  f"{gap} from the unbroken run's")
+            log(f"train mesh (b) {name}: the 2x1 checkpoint resumed at 1x2 (restore_resharded)"
+                f", steps 2-3 within {gap:.3g} of the unbroken 2x1 run")
+            out["resume_gap"] = gap
+            continue
+        want = ref[name]["log"]
+        check(sorted(log0) == sorted(want) == list(range(4)), f"{name} {shape}: steps "
+              f"{sorted(log0)}")
+        gap = max(abs(log0[s][0] - want[s][0]) for s in want)
+        gn = max(abs(log0[s][1] - want[s][1]) for s in want)
+        gn0 = abs(log0[0][1] - want[0][1]) / want[0][1]
+        check(gap <= MESH_LOSS_TOL, f"{name} {shape}: losses {gap} from the meshless run's")
+        check(gn0 <= MESH_GNORM_RTOL, f"{name} {shape}: step 0's grad norm {log0[0][1]} is "
+              f"{gn0:.3g} (relative) from the meshless run's {want[0][1]}")
+        # the faster of steps 1 and 2: step 0 warms up, step 3 runs the
+        # collective counter, and llama's 2x1 run writes a checkpoint
+        # between steps 1 and 2
+        times = [log0[s][3] for s in range(3)]
+        step_ms = min(b - a for a, b in zip(times, times[1:])) * 1e3
+        ref_t = [want[s][3] for s in range(3)]
+        ref_ms = min(b - a for a, b in zip(ref_t, ref_t[1:])) * 1e3
+        per_rank = [(rk["rank"], *rk["runs"][i]["comm"]["3"], rk["runs"][i]["peak_memory_bytes"])
+                    for rk in ranks]  # step 3's collectives
+        out["runs"].append({"name": name, "shape": list(shape), "loss_gap": gap,
+                            "gnorm_gap": gn, "gnorm_step0_rel_gap": gn0,
+                            "local_bytes": want_bytes,
+                            "meshless_bytes": ref[name]["bytes"], "bytes_ratio": ratio,
+                            "step_ms": step_ms, "meshless_step_ms": ref_ms,
+                            "collectives_by_op_rank0": run0["by_op"],
+                            "collectives_per_step": [(r, c, b) for r, c, b, _ in per_rank],
+                            "peak_memory_bytes": [p for *_, p in per_rank],
+                            "meshless_peak_memory_bytes": ref[name]["peak"]})
+        log(f"train mesh (b) {name} {shape[0]}x{shape[1]} ({ranks[0]['backend']}, "
+            f"{'two ranks on one card' if ranks[0]['backend'] == 'gloo' else 'a card per rank'}"
+            f", {card}): losses within {gap:.3g} of the meshless run's (grad norms "
+            f"{gn:.3g}; step 0's {gn0:.3g} relative); local state {want_bytes} bytes per rank = the specs' "
+            f"({ratio:.3f} of the meshless {ref[name]['bytes']}); median step "
+            f"{step_ms:.1f} ms against the meshless {ref_ms:.1f} ms (the faster of steps 1 and 2)"
+            f"; by op on rank 0 ({run0['by_op']}); per rank, step 3: "
+            + "; ".join(f"rank {r} {c} collectives {b} bytes, peak {p / 1e9:.2f} GB"
+                        for r, c, b, p in per_rank)
+            + f" (meshless peak {ref[name]['peak'] / 1e9:.2f} GB); no kernel launched")
+    timings["train_mesh/ranks"] = out
+    return launches
+
+
+def _traced_1x1_step(torch, dev, name):
+    """One step of ``name`` at phase 10b's shapes on a 1x1 mesh in a world
+    of one under NCCL, as ``launch.train --data 1 --model 1`` runs it
+    (DTensor state, ``use_rules``): (ms of an untraced step after a
+    warm-up, the trace summary of one more: device busy, idle share)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import ctx, sharding
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import train
+
+    cfg = _model_cfg(name)
+    lmesh.init_world("cuda")
+    try:
+        mesh = lmesh.make_test_mesh(1, 1, device_type="cuda")
+        params, opt = train.build_state(cfg, dev, 0, mesh)
+        batch_fn, placed = train.batch_source(cfg, TRAIN_SEQ, TRAIN_BATCH, 0, dev, mesh)
+        batch = placed(batch_fn(0))
+
+        def one():
+            return _train_step_timed(torch, dev, cfg, True, params, opt, batch)[0]
+
+        with ctx.use_rules(mesh, sharding.make_rules(mesh)):
+            one()  # warm-up
+            ms = one()
+            prof, wall = _profiled(torch, one)
+        per = device_kernels(prof)
+        del params, opt, batch
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return ms, (_trace_summary(per, (), wall) if per else {"device": "not measured"})
+
+
+def phase_train_mesh(torch, dev, card, timings):
+    """Phase 10c: (a) llama3.2-1b at full width and depth (``--seq 1024
+    --batch 4``, phase 10b's steps and seed) through ``launch.train.main``
+    meshless and then at ``--data 1 --model 1`` in a world of one under
+    NCCL, every launch count set to 0 just before each run: the 1x1 run's
+    losses and grad norms within MESH_LOSS_TOL of phase 10b's and of the
+    meshless run here (the largest gap logged, and whether the final
+    parameters and moments are the meshless run's bits), its step ms and
+    peak memory beside phase 10b's, no kernel launched; (b) the two-rank
+    runs (``phase_train_mesh_ranks``).  Returns {kernel: launches}."""
+    import torch.distributed as dist
+
+    from repro_torch.models.common import tree_leaves
+
+    name = "llama3.2-1b"
+    steps = TRAIN_PATHS[name][0]
+    counters = _counters()
+    argv = ["--arch", name, "--seq", str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH),
+            "--steps", str(steps), "--log-every", "1"]
+    runs = {}
+    for label, extra in (("meshless", []), ("1x1", ["--data", "1", "--model", "1"])):
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        rc, out, state = _train_captured(torch, argv + extra)
+        check(rc == 0, f"{name} {label}: launch.train.main exited {rc}")
+        peak = _check_memory(torch, f"{name} {label} training")
+        launches = {k: c.launches for k, c in counters.items()}
+        check(not any(launches.values()), f"{name} {label}: kernels launched {launches}")
+        if label == "1x1":
+            check("(1 ranks, nccl)" in out, f"{name} 1x1 did not run in a world of one under "
+                  f"NCCL: {out.splitlines()[:1]}")
+            check(not dist.is_initialized(), "the 1x1 run left its process group")
+        lg = _mesh_train_log(out)
+        check(sorted(lg) == list(range(steps)), f"{name} {label}: steps {sorted(lg)}")
+        # on the host: the next run's peak counts only its own tensors
+        leaves = [(x.to_local() if hasattr(x, "to_local") else x).detach().cpu()
+                  for x in tree_leaves(state)]
+        runs[label] = {"log": lg, "peak": peak, "leaves": leaves, "launches": launches}
+        del state
+    ref10b = timings[f"train/{name}"]
+    mesh, plain = runs["1x1"], runs["meshless"]
+    gap10b = max(max(abs(mesh["log"][s][0] - ref10b["losses"][s]),
+                     abs(mesh["log"][s][1] - ref10b["grad_norms"][s])) for s in range(steps))
+    gap = max(max(abs(mesh["log"][s][0] - plain["log"][s][0]),
+                  abs(mesh["log"][s][1] - plain["log"][s][1])) for s in range(steps))
+    check(gap10b <= MESH_LOSS_TOL and gap <= MESH_LOSS_TOL, f"{name} 1x1: losses / grad norms "
+          f"{gap10b} from phase 10b's, {gap} from the meshless run's")
+    bits = len(mesh["leaves"]) == len(plain["leaves"]) and all(
+        torch.equal(a, b) for a, b in zip(mesh["leaves"], plain["leaves"]))
+    del plain["leaves"], mesh["leaves"]
+    torch.cuda.empty_cache()
+
+    def median_ms(lg):
+        t = [lg[s][3] for s in range(steps)]
+        d = sorted(b - a for a, b in zip(t, t[1:]))
+        return d[len(d) // 2] * 1e3
+
+    rec = {"card": card, "steps": steps, "loss_gnorm_gap_10b": gap10b,
+           "loss_gnorm_gap_meshless": gap, "state_bits_equal": bits,
+           "step_ms_median": median_ms(mesh["log"]),
+           "meshless_step_ms_median": median_ms(plain["log"]),
+           "step_ms_median_10b": ref10b["step_s_median"] * 1e3,
+           "peak_memory_bytes": mesh["peak"], "meshless_peak_memory_bytes": plain["peak"],
+           "peak_memory_bytes_10b": ref10b["peak_memory_bytes"]}
+    # where the 1x1 step's time goes: one step timed and one traced, beside
+    # phase 10b's traced meshless step (both without the collective counter)
+    for c in counters.values():
+        c.launches = 0
+    rec["one_step_ms"], trace = _traced_1x1_step(torch, dev, name)
+    check(not any(c.launches for c in counters.values()), f"{name} 1x1: the traced steps "
+          "launched kernels")
+    rec["trace"] = trace
+    ref_trace = ref10b.get("trace", {})
+    timings["train_mesh/1x1"] = rec
+    log(f"train mesh (a) {name} ({TRAIN_PATHS[name][0]} steps, 16 layers, B={TRAIN_BATCH}, "
+        f"S={TRAIN_SEQ}) at --data 1 --model 1, a world of one under NCCL on {card}: losses "
+        f"and grad norms within {gap10b:.3g} of phase 10b's and {gap:.3g} of the meshless run "
+        f"here; final params and moments {'equal' if bits else 'NOT equal'} to the meshless "
+        f"run's bits; median step {rec['step_ms_median']:.1f} ms (meshless here "
+        f"{rec['meshless_step_ms_median']:.1f}, phase 10b {rec['step_ms_median_10b']:.1f}), "
+        f"peak {mesh['peak'] / 1e9:.2f} GB (meshless here {plain['peak'] / 1e9:.2f}, phase 10b "
+        f"{ref10b['peak_memory_bytes'] / 1e9:.2f}); no kernel launched")
+    if "device_busy_s" in trace and "device_busy_s" in ref_trace:
+        log(f"train mesh (a) {name} 1x1 one step {rec['one_step_ms']:.1f} ms (phase 10b's "
+            f"remat step {ref10b['remat']['on']['ms']:.1f}); traced: {trace['wall_s']:.3f}s host "
+            f"clock, device busy {trace['device_busy_s'] * 1e3:.2f} ms (idle share "
+            f"{trace['idle_share']:.4f}), {trace['device_activities']} device activities, "
+            f"against phase 10b's meshless step {ref_trace['wall_s']:.3f}s, busy "
+            f"{ref_trace['device_busy_s'] * 1e3:.2f} ms (idle share "
+            f"{ref_trace['idle_share']:.4f}), {ref_trace['device_activities']} activities")
+    else:
+        log(f"train mesh (a) {name} 1x1 one step {rec['one_step_ms']:.1f} ms; device time "
+            "not measured")
+    gloo = gloo_takes_dtensor_cuda(torch)
+    timings["train_mesh/gloo_dtensor_cuda"] = gloo
+    log(f"gloo takes DTensor's collectives on the card's tensors (two ranks on one {card}): "
+        f"{gloo}")
+    ranks = phase_train_mesh_ranks(torch, dev, card, timings, gloo)
+    launches = dict(mesh["launches"])  # the 1x1 run's, then every rank's of (b)
+    for k, v in (ranks or {}).items():
+        launches[k] += v
+    return launches
+
+
+def train_mesh_main() -> int:
+    """``chip_smoke.py --train-mesh``: phase 10c (b) alone, on two cards or
+    more under NCCL (a card per rank); prints its lines and the last line
+    ``{"ok": true, ...}``."""
+    try:
+        import torch
+
+        if torch.cuda.device_count() < 2:
+            raise SmokeFailure(f"--train-mesh needs two cards, {torch.cuda.device_count()} seen")
+        sys.path.insert(0, str(SRC))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device("cuda", 0)
+        card, name = phase_card(torch)
+        timings = {"card": card}
+        phase_train_mesh_ranks(torch, dev, card, timings, "not asked (a card per rank)")
+        log("timings " + json.dumps(timings))
+    except SmokeFailure as e:
+        print(f"[smoke] FAIL: {e}", file=sys.stderr, flush=True)
+        return 1
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def run() -> dict:
     import torch
 
@@ -3091,6 +3619,7 @@ def run() -> dict:
     train_runs = [phase_train(torch, dev, name, card, timings) for name in TRAIN_PATHS]
     train_runs.append(phase_train_card_vs_cpu(torch, dev, card, timings))
     train = {k: sum(r[k] for r in train_runs) for k in train_runs[0]}
+    train_mesh = phase_train_mesh(torch, dev, card, timings)
 
     log("timings " + json.dumps(timings))
 
@@ -3114,7 +3643,7 @@ def run() -> dict:
                               "serve": serve_launches["imc_eval"], **fam_b1,
                               **{k: v["imc_eval"] for k, v in threefry.items()},
                               **{k: v["imc_eval"] for k, v in mesh.items()},
-                              "train": train["imc_eval"]},
+                              "train": train["imc_eval"], "train_mesh": train_mesh["imc_eval"]},
          "max_abs_err": b1_err[0],
          "max_rel_err": b1_err[1],
          "ms": t1["ms"], "plain_ms": t1["plain_ms"], "bound_ms": t1["bound_ms"],
@@ -3133,7 +3662,8 @@ def run() -> dict:
                               "serve": serve_launches["ga_gen_step"], **fam_b2,
                               **{k: v["ga_gen_step"] for k, v in threefry.items()},
                               **{k: v["ga_gen_step"] for k, v in mesh.items()},
-                              "train": train["ga_gen_step"]},
+                              "train": train["ga_gen_step"],
+                              "train_mesh": train_mesh["ga_gen_step"]},
          "max_abs_err": 0.0,
          "ms": t2["ms"], "plain_ms": t2["plain_ms"], "bound_ms": t2["bound_ms"],
          "bound_by": t2["bound_by"], "library_ms": None,
@@ -3145,7 +3675,8 @@ def run() -> dict:
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:33",
          "launches": sum(lm_b3.values()),
-         "launches_by_path": {**lm_b3, "train": train["flash_attention"]},
+         "launches_by_path": {**lm_b3, "train": train["flash_attention"],
+                              "train_mesh": train_mesh["flash_attention"]},
          "max_abs_err": b3_err["s1024"],
          "ms": t3["ms"], "plain_ms": t3["plain_ms"], "bound_ms": t3["bound_ms"],
          "bound_by": t3["bound_by"], "library_ms": t3["library_ms"],
@@ -3156,7 +3687,8 @@ def run() -> dict:
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/kernel.py:33",
          "launches": sum(lm_b4.values()),
-         "launches_by_path": {**lm_b4, "train": train["ssd_scan"]},
+         "launches_by_path": {**lm_b4, "train": train["ssd_scan"],
+                              "train_mesh": train_mesh["ssd_scan"]},
          "max_abs_err": b4_err["bf16_s1024"][0],
          "max_abs_err_f32": b4_err["s1024"][0], "device_kernels_per_call": len(t4["device_parts"]),
          "ms": t4["ms"], "plain_ms": t4["plain_ms"], "bound_ms": t4["bound_ms"],
@@ -3183,4 +3715,10 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--mesh-worker":
         sys.exit(mesh_worker(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--train-mesh-worker":
+        sys.exit(train_mesh_worker(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--gloo-probe":
+        sys.exit(_gloo_probe_worker(sys.argv[2]))
+    if sys.argv[1:] == ["--train-mesh"]:
+        sys.exit(train_mesh_main())
     sys.exit(main())

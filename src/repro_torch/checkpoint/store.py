@@ -17,6 +17,13 @@ stored.  ``save_tree`` / ``restore_tree`` store a tree's leaves in the JAX
 package's leaf order (``models/common.tree_flatten``: dict keys sorted,
 lists and NamedTuples such as ``AdamWState`` in order), so a checkpoint the
 JAX package wrote of the same tree restores into the port and back.
+
+A tree of DTensors (mesh training) is saved whole: every rank of the mesh
+gathers each leaf (``full_tensor``), the mesh's first rank writes it, and
+the others wait at a barrier until the step is committed; the layout on
+disk is the same, so such a checkpoint restores into any mesh shape, or
+none.  ``restore_resharded`` places a checkpoint on a mesh: each rank reads
+the whole arrays and keeps its own shard of each.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ from typing import Any, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.common import tree_flatten, tree_unflatten
 
@@ -99,8 +107,24 @@ def restore(ckpt_dir: PathLike, step: Optional[int] = None
 
 
 def save_tree(ckpt_dir: PathLike, step: int, tree: Any, *, keep: int = 3) -> Path:
-    """``save`` of the tree's leaves in the JAX package's leaf order."""
-    return save(ckpt_dir, step, tree_flatten(tree)[0], keep=keep)
+    """``save`` of the tree's leaves in the JAX package's leaf order.  DTensor
+    leaves are gathered one at a time on every rank of their mesh (each rank
+    must call this), written by the mesh's first rank; every rank returns
+    once the step is committed."""
+    leaves = tree_flatten(tree)[0]
+    mesh = next((x.device_mesh for x in leaves if isinstance(x, DTensor)), None)
+    if mesh is None:
+        return save(ckpt_dir, step, leaves, keep=keep)
+    from repro_torch.launch.mesh import barrier
+
+    whole = (x.full_tensor() if isinstance(x, DTensor) else x for x in leaves)
+    if not any(mesh.get_coordinate()):
+        save(ckpt_dir, step, whole, keep=keep)
+    else:
+        for _ in whole:  # take part in each gather
+            pass
+    barrier(mesh)
+    return _step_dir(Path(ckpt_dir), step)
 
 
 def restore_tree(ckpt_dir: PathLike, template: Any, step: Optional[int] = None
@@ -121,6 +145,40 @@ def restore_tree(ckpt_dir: PathLike, template: Any, step: Optional[int] = None
         x = torch.from_numpy(a).to(device=t.device, dtype=t.dtype)
         leaves.append(x.requires_grad_() if t.requires_grad else x)
     return tree_unflatten(treedef, leaves), step
+
+
+def restore_resharded(ckpt_dir: PathLike, template: Any, placements_tree: Any, mesh,
+                      step: Optional[int] = None) -> Tuple[Any, int]:
+    """(a tree shaped like ``template``, step) with each leaf placed on
+    ``mesh`` by its placements in ``placements_tree`` (a tree of the
+    template's structure, as ``distributed.sharding.params_sharding`` gives
+    one; ``None`` keeps a leaf a plain tensor): every rank reads the whole
+    arrays and keeps its own shard of each, so a checkpoint written on one
+    mesh shape, or none, restores onto another.  Dtypes, devices and
+    ``requires_grad`` come from the template's leaves (DTensors or not),
+    and their global shapes are checked."""
+    from repro_torch.distributed.ctx import local_shard
+    from repro_torch.distributed.sharding import placement_leaves
+
+    arrs, step = restore(ckpt_dir, step)
+    tmpl, treedef = tree_flatten(template)
+    places = placement_leaves(placements_tree)
+    if not len(arrs) == len(tmpl) == len(places):
+        raise ValueError(f"checkpoint step {step} holds {len(arrs)} leaves, the "
+                         f"template {len(tmpl)}, the placements {len(places)}")
+    out = []
+    for i, (a, t, pl) in enumerate(zip(arrs, tmpl, places)):
+        if tuple(a.shape) != tuple(t.shape):
+            raise ValueError(f"leaf {i}: shape {tuple(a.shape)} in the checkpoint, "
+                             f"{tuple(t.shape)} in the template")
+        x = torch.from_numpy(a)
+        if pl is None:
+            x = x.to(device=t.device, dtype=t.dtype)
+        else:  # the shard is cut on the host: only it goes to the card
+            x = local_shard(x, mesh, pl).to(device=t.device, dtype=t.dtype).contiguous()
+            x = DTensor.from_local(x, mesh, pl, run_check=False)
+        out.append(x.requires_grad_() if t.requires_grad else x)
+    return tree_unflatten(treedef, out), step
 
 
 def clear(ckpt_dir: PathLike) -> None:

@@ -20,6 +20,17 @@ FFN_KINDS = ("mlp", "moe", "none")
 
 
 @dataclass(frozen=True)
+class ShapeSpec:
+    """One input-shape cell: a step of ``kind`` ("train" | "prefill" |
+    "decode") over ``global_batch`` sequences of ``seq_len``."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str  # dense | moe | ssm | hybrid | encdec | vlm

@@ -117,7 +117,6 @@ from repro_torch.workloads.pack import WorkloadSet
 BACKENDS = ("dense", "kernel", "table")
 PRNGS = ("torch", "threefry")
 MAX_SLOTS = 64  # searches per batched GA
-NOT_PORTED = "not ported yet (ROADMAP.md, queue A, 'Multi-device: the LM on a mesh')"
 # objective tails of an eval ctx: (kind, area), (3,) weights, or area
 INDEXED, WEIGHTED = "indexed", "weighted"
 

@@ -190,9 +190,23 @@ def make_search_mesh(searches: Optional[int] = None, pop: Optional[int] = None, 
     return _build(shape, ("search", "data"), device_type, timeout_s)
 
 
+def barrier(mesh) -> None:
+    """Wait until every rank of ``mesh`` got here: a one-element all-reduce
+    along each axis in turn (after the last one, every rank's sum holds
+    every rank's term)."""
+    for d in range(mesh.ndim):
+        group = mesh.get_group(d)
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if dist.get_backend(group) == "nccl" else torch.device("cpu"))
+        dist.all_reduce(torch.ones(1, device=dev), group=group)
+
+
 def mesh_axis_sizes(mesh) -> Dict[str, int]:
-    """``{axis_name: size}`` in mesh order."""
-    return dict(zip(mesh.mesh_dim_names, tuple(mesh.mesh.shape)))
+    """``{axis_name: size}`` in mesh order, of a ``DeviceMesh`` or of a
+    layout with no ranks behind it (``core.distributed.MeshLayout``)."""
+    if isinstance(mesh, DeviceMesh):
+        return dict(zip(mesh.mesh_dim_names, tuple(mesh.mesh.shape)))
+    return dict(zip(mesh.names, (int(s) for s in mesh.sizes)))
 
 
 def describe(mesh) -> str:

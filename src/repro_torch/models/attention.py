@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.ctx import constrain
+
 NEG_INF = -1e30
 
 
@@ -44,13 +46,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = D ** -0.5
 
     qf = (q * scale).float().reshape(B, Sq, KV, G, D)
+    # the JAX package's layout hints: on a mesh the model calls this on each
+    # rank's own sequences and heads (transformer._attention_mesh), plain
+    # tensors, which constrain passes through
+    qf = constrain(qf, ("batch", None, None, None, None))
     q_pos = q_offset + torch.arange(Sq, device=q.device)
-    m = torch.full((B, KV, G, Sq), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, KV, G, Sq, D), dtype=torch.float32, device=q.device)
+    bkg = ("batch", None, None, None)
+    m = constrain(torch.full((B, KV, G, Sq), NEG_INF, dtype=torch.float32,
+                             device=q.device), bkg)
+    l = constrain(torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=q.device), bkg)
+    acc = constrain(torch.zeros((B, KV, G, Sq, D), dtype=torch.float32, device=q.device),
+                    bkg + (None,))
     for start in range(0, Skv, chunk):
-        kc = k[:, start:start + chunk].float()
-        vc = v[:, start:start + chunk].float()
+        kc = constrain(k[:, start:start + chunk].float(), ("batch", None, None, None))
+        vc = constrain(v[:, start:start + chunk].float(), ("batch", None, None, None))
         kv_pos = start + torch.arange(chunk, device=q.device)
         s = torch.einsum("bqkgd,bckd->bkgqc", qf, kc)
         msk = _mask(q_pos, kv_pos, causal, window)

@@ -1,14 +1,19 @@
 """Shared model building blocks (the port's ``src/repro/models/common.py``).
 
-Parameters are declared as a nested dict of :class:`ParamDecl` (shape and
-init scale); ``init_params`` materializes a template with an explicit
-``torch.Generator``.  The JAX package's logical sharding names and
-``param_specs`` have no meaning on one card and are left out.
+Parameters are declared as a nested dict of :class:`ParamDecl` (shape,
+logical dim names, init scale).  The same template materializes three ways:
+
+* ``init_params``   - real tensors, drawn from an explicit ``torch.Generator``;
+* ``param_structs`` - meta-device tensors (shapes and dtypes, no storage);
+* ``param_specs``   - a spec per leaf through the logical -> mesh-axis rules
+  (``distributed/sharding.py``): a tuple with one entry per dim, ``None``,
+  an axis name or a tuple of axis names, as the JAX package's
+  ``PartitionSpec``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -16,10 +21,32 @@ import torch.nn.functional as F
 PyTree = Any
 
 
+Spec = Tuple[Any, ...]  # per dim: None, an axis name, or a tuple of axis names
+
+
 @dataclasses.dataclass(frozen=True)
 class ParamDecl:
     shape: Tuple[int, ...]
+    logical: Tuple[Optional[str], ...]  # logical name per dim (None = replicated)
     scale: float = 1.0  # stddev multiplier on fan-in init; 0 -> zeros; -1 -> ones
+    # alternative whole-tuple layout used when any *primary* named dim fails
+    # mesh divisibility (the EP layout of MoE weights -> the expert-TP layout
+    # when the expert count does not divide the model axis)
+    alt_logical: Optional[Tuple[Optional[str], ...]] = None
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.logical), (self.shape, self.logical)
+        if self.alt_logical is not None:
+            assert len(self.shape) == len(self.alt_logical)
+
+
+def is_decl(x) -> bool:
+    return isinstance(x, ParamDecl)
+
+
+def tree_map_decl(f: Callable[[ParamDecl], Any], tree: PyTree) -> PyTree:
+    """Map ``f`` over the ``ParamDecl`` leaves of a template."""
+    return tree_map(f, tree)
 
 
 def tree_map(f: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
@@ -118,6 +145,65 @@ def init_params(template: PyTree, generator: torch.Generator,
         return leaf if cast is None else cast(key, leaf)
 
     return walk(template)
+
+
+def param_structs(template: PyTree, dtype: torch.dtype = torch.float32) -> PyTree:
+    """Meta-device tensors of the template's shapes: no storage."""
+    return tree_map_decl(lambda d: torch.empty(d.shape, dtype=dtype, device="meta"),
+                         template)
+
+
+def flat_axes(ax) -> Tuple[str, ...]:
+    """The mesh axes of a spec entry (an axis name or a tuple of them)."""
+    return tuple(ax) if isinstance(ax, (tuple, list)) else (ax,)
+
+
+def axis_size(mesh_sizes: Dict[str, int], ax) -> int:
+    """The product of the sizes of ``ax``'s mesh axes (1 for ``None``)."""
+    n = 1
+    for a in (() if ax is None else flat_axes(ax)):
+        n *= mesh_sizes.get(a, 1)
+    return n
+
+
+def dim_spec(shape, logical, rules: Dict[str, Any],
+             mesh_sizes: Dict[str, int]) -> Tuple[Spec, bool]:
+    """(spec, every named dim kept) of one layout: each dim's axes through
+    ``rules``, or None where the name maps to nothing, its size does not
+    divide the axes' product, or an earlier dim already took an axis."""
+    spec = []
+    used: set = set()
+    all_ok = True
+    for size, name in zip(shape, logical):
+        ax = rules.get(name) if name else None
+        if ax is None:
+            spec.append(None)
+            continue
+        n = axis_size(mesh_sizes, ax)
+        if n <= 1 or size % n != 0 or any(a in used for a in flat_axes(ax)):
+            spec.append(None)
+            all_ok = False
+            continue
+        used.update(flat_axes(ax))
+        spec.append(tuple(ax) if isinstance(ax, list) else ax)
+    return tuple(spec), all_ok
+
+
+def param_specs(template: PyTree, rules: Dict[str, Any]) -> PyTree:
+    """A spec per leaf from logical dim names through ``rules`` (logical
+    name -> None, an axis, or a tuple of axes; ``rules["_mesh_sizes"]``
+    the axis sizes), by ``dim_spec``; when a primary named dim falls back
+    to replicated, the whole ``alt_logical`` layout takes over, as in the
+    JAX package."""
+    mesh_sizes = rules.get("_mesh_sizes", {})
+
+    def one(d: ParamDecl) -> Spec:
+        spec, ok = dim_spec(d.shape, d.logical, rules, mesh_sizes)
+        if not ok and d.alt_logical is not None:
+            spec, _ = dim_spec(d.shape, d.alt_logical, rules, mesh_sizes)
+        return spec
+
+    return tree_map_decl(one, template)
 
 
 # --------------------------------------------------------------------- norms

@@ -12,7 +12,9 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.ctx import batch_rows, constrain, project, whole
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as ssd
 from repro_torch.models.common import rms_norm
@@ -44,17 +46,16 @@ def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.T
     return out + b
 
 
-def mamba_mixer(cfg, p, x: torch.Tensor, *, return_cache: bool = False,
-                impl: str = "kernel") -> Tuple[torch.Tensor, Optional[MambaCache]]:
-    """x: (B, S, d_model).  Full-sequence form (prefill)."""
-    B, S, d = x.shape
+def _core(cfg, p, zxbcdt: torch.Tensor, impl: str):
+    """The conv, the SSD scan and the gated norm of the input projection's
+    output: (y (B, S, d_inner), the pre-activation conv inputs, the final
+    state)."""
+    B, S, _ = zxbcdt.shape
     d_inner, G, N, H, Pd, conv_ch, _ = _dims(cfg)
-
-    zxbcdt = x @ p["w_in"].to(x.dtype)
     z, xBC, dt = torch.split(zxbcdt, [d_inner, conv_ch, H], dim=-1)
     xBC_raw = xBC
 
-    xBC = _causal_conv(xBC, p["conv_w"].to(x.dtype), p["conv_b"].to(x.dtype))
+    xBC = _causal_conv(xBC, p["conv_w"].to(zxbcdt.dtype), p["conv_b"].to(zxbcdt.dtype))
     xBC = F.silu(xBC)
     xs, Bm, Cm = torch.split(xBC, [d_inner, G * N, G * N], dim=-1)
     xs = xs.reshape(B, S, H, Pd)
@@ -69,8 +70,31 @@ def mamba_mixer(cfg, p, x: torch.Tensor, *, return_cache: bool = False,
     y = y + xs * p["D"].to(y.dtype)[None, None, :, None]
     y = y.reshape(B, S, d_inner)
     y = y * F.silu(z)
-    y = rms_norm(y, p["norm_w"], cfg.norm_eps)
-    out = y @ p["w_out"].to(y.dtype)
+    return rms_norm(y, p["norm_w"], cfg.norm_eps), xBC_raw, h
+
+
+def mamba_mixer(cfg, p, x: torch.Tensor, *, return_cache: bool = False,
+                impl: str = "kernel") -> Tuple[torch.Tensor, Optional[MambaCache]]:
+    """x: (B, S, d_model).  Full-sequence form (prefill).
+
+    On a mesh (DTensor x; training only, no cache) the core runs on each
+    rank's own sequences with its parameters whole: the conv's shifts, the
+    split of the conv channels into x, B and C (not aligned with a split
+    of the channels) and the scan's segment sums then need no sharding
+    rule (torch 2.11's DTensor fails to plan the conv's padding)."""
+    zxbcdt = project(x, constrain(p["w_in"].to(x.dtype), (None, "ssm_inner")))
+    if isinstance(zxbcdt, DTensor):
+        if return_cache:
+            raise ValueError("mamba_mixer on a mesh builds no decode cache")
+        rows = batch_rows(zxbcdt)
+        local = {k: whole(p[k], rows)
+                 for k in ("conv_w", "conv_b", "dt_bias", "A_log", "D", "norm_w")}
+        y, _, _ = _core(cfg, local, zxbcdt.redistribute(zxbcdt.device_mesh, rows).to_local(),
+                        impl)
+        y = DTensor.from_local(y, zxbcdt.device_mesh, rows, run_check=False)
+    else:
+        y, xBC_raw, h = _core(cfg, p, zxbcdt, impl)
+    out = project(y, constrain(p["w_out"].to(y.dtype), ("ssm_inner", None)))
 
     new_cache = None
     if return_cache:
@@ -86,7 +110,7 @@ def mamba_decode(cfg, p, x: torch.Tensor, cache: MambaCache
     B, _, d = x.shape
     d_inner, G, N, H, Pd, conv_ch, _ = _dims(cfg)
 
-    zxbcdt = x[:, 0] @ p["w_in"].to(x.dtype)  # (B, d_in_proj)
+    zxbcdt = x[:, 0] @ constrain(p["w_in"].to(x.dtype), (None, "ssm_inner"))  # (B, d_in_proj)
     z, xBC, dt = torch.split(zxbcdt, [d_inner, conv_ch, H], dim=-1)
 
     w, b = p["conv_w"].to(x.dtype), p["conv_b"].to(x.dtype)
@@ -106,5 +130,5 @@ def mamba_decode(cfg, p, x: torch.Tensor, cache: MambaCache
     y = y.reshape(B, d_inner)
     y = y * F.silu(z)
     y = rms_norm(y, p["norm_w"], cfg.norm_eps)
-    out = (y @ p["w_out"].to(y.dtype))[:, None, :]
+    out = (y @ constrain(p["w_out"].to(y.dtype), ("ssm_inner", None)))[:, None, :]
     return out, MambaCache(conv=window[:, 1:].to(cache.conv.dtype), ssm=h)

@@ -33,8 +33,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.ctx import constrain, project
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
@@ -63,16 +65,16 @@ ACT_DTYPE = torch.bfloat16
 def _attn_decl(cfg: ModelConfig) -> Dict[str, ParamDecl]:
     d, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     decl = {
-        "norm_w": ParamDecl((d,), -1.0),
-        "wq": ParamDecl((d, H * Dh)),
-        "wk": ParamDecl((d, KV * Dh)),
-        "wv": ParamDecl((d, KV * Dh)),
-        "wo": ParamDecl((H * Dh, d)),
+        "norm_w": ParamDecl((d,), ("embed",), -1.0),
+        "wq": ParamDecl((d, H * Dh), ("embed", "heads")),
+        "wk": ParamDecl((d, KV * Dh), ("embed", "kv_heads")),
+        "wv": ParamDecl((d, KV * Dh), ("embed", "kv_heads")),
+        "wo": ParamDecl((H * Dh, d), ("heads", "embed")),
     }
     if cfg.qkv_bias:
-        decl["bq"] = ParamDecl((H * Dh,), 0.0)
-        decl["bk"] = ParamDecl((KV * Dh,), 0.0)
-        decl["bv"] = ParamDecl((KV * Dh,), 0.0)
+        decl["bq"] = ParamDecl((H * Dh,), ("heads",), 0.0)
+        decl["bk"] = ParamDecl((KV * Dh,), ("kv_heads",), 0.0)
+        decl["bv"] = ParamDecl((KV * Dh,), ("kv_heads",), 0.0)
     return decl
 
 
@@ -80,32 +82,38 @@ def _xattn_decl(cfg: ModelConfig) -> Dict[str, ParamDecl]:
     """Cross-attention (whisper decoder); KV projected from encoder states."""
     d, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     return {
-        "norm_w": ParamDecl((d,), -1.0),
-        "wq": ParamDecl((d, H * Dh)),
-        "wk": ParamDecl((d, KV * Dh)),
-        "wv": ParamDecl((d, KV * Dh)),
-        "wo": ParamDecl((H * Dh, d)),
+        "norm_w": ParamDecl((d,), ("embed",), -1.0),
+        "wq": ParamDecl((d, H * Dh), ("embed", "heads")),
+        "wk": ParamDecl((d, KV * Dh), ("embed", "kv_heads")),
+        "wv": ParamDecl((d, KV * Dh), ("embed", "kv_heads")),
+        "wo": ParamDecl((H * Dh, d), ("heads", "embed")),
     }
 
 
 def _mlp_decl(cfg: ModelConfig) -> Dict[str, ParamDecl]:
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "norm_w": ParamDecl((d,), -1.0),
-        "w_gate": ParamDecl((d, f)),
-        "w_up": ParamDecl((d, f)),
-        "w_down": ParamDecl((f, d)),
+        "norm_w": ParamDecl((d,), ("embed",), -1.0),
+        "w_gate": ParamDecl((d, f), ("embed", "ff")),
+        "w_up": ParamDecl((d, f), ("embed", "ff")),
+        "w_down": ParamDecl((f, d), ("ff", "embed")),
     }
 
 
 def _moe_decl(cfg: ModelConfig) -> Dict[str, ParamDecl]:
+    """Expert weights: the EP layout first (experts over ``model``, expert
+    hidden over ``data``, d_model unsharded), the expert-TP layout (hidden
+    over ``model``, d_model over ``data``) when the expert count does not
+    divide the model axis (mixtral's 8 experts on 16)."""
     d, f, E = cfg.d_model, cfg.moe_d_ff_, cfg.n_experts
+    ep_in = (("experts", None, "moe_ff_ep"), ("experts", "embed", "moe_ff"))
+    ep_out = (("experts", "moe_ff_ep", None), ("experts", "moe_ff", "embed"))
     return {
-        "norm_w": ParamDecl((d,), -1.0),
-        "router": ParamDecl((d, E)),
-        "w_gate": ParamDecl((E, d, f)),
-        "w_up": ParamDecl((E, d, f)),
-        "w_down": ParamDecl((E, f, d)),
+        "norm_w": ParamDecl((d,), ("embed",), -1.0),
+        "router": ParamDecl((d, E), ("embed", None)),
+        "w_gate": ParamDecl((E, d, f), ep_in[0], alt_logical=ep_in[1]),
+        "w_up": ParamDecl((E, d, f), ep_in[0], alt_logical=ep_in[1]),
+        "w_down": ParamDecl((E, f, d), ep_out[0], alt_logical=ep_out[1]),
     }
 
 
@@ -113,15 +121,15 @@ def _mamba_decl(cfg: ModelConfig) -> Dict[str, ParamDecl]:
     d = cfg.d_model
     d_inner, G, N, H, Pd, conv_ch, d_in_proj = mamba_lib._dims(cfg)
     return {
-        "norm_w_in": ParamDecl((d,), -1.0),
-        "w_in": ParamDecl((d, d_in_proj)),
-        "conv_w": ParamDecl((cfg.ssm_conv, conv_ch)),
-        "conv_b": ParamDecl((conv_ch,), 0.0),
-        "A_log": ParamDecl((H,), -1.0),  # init A = -1
-        "D": ParamDecl((H,), -1.0),
-        "dt_bias": ParamDecl((H,), 0.0),
-        "norm_w": ParamDecl((d_inner,), -1.0),
-        "w_out": ParamDecl((d_inner, d)),
+        "norm_w_in": ParamDecl((d,), ("embed",), -1.0),
+        "w_in": ParamDecl((d, d_in_proj), ("embed", "ssm_inner")),
+        "conv_w": ParamDecl((cfg.ssm_conv, conv_ch), (None, "ssm_inner")),
+        "conv_b": ParamDecl((conv_ch,), ("ssm_inner",), 0.0),
+        "A_log": ParamDecl((H,), (None,), -1.0),  # init A = -1
+        "D": ParamDecl((H,), (None,), -1.0),
+        "dt_bias": ParamDecl((H,), (None,), 0.0),
+        "norm_w": ParamDecl((d_inner,), ("ssm_inner",), -1.0),
+        "w_out": ParamDecl((d_inner, d), ("ssm_inner", "embed")),
     }
 
 
@@ -129,8 +137,11 @@ _SLOT_DECL = {"attn": _attn_decl, "mamba": _mamba_decl, "mlp": _mlp_decl, "moe":
 
 
 def _stack(tree: PyTree, n: int) -> PyTree:
-    """Add a leading stacked-layers dim to every ParamDecl."""
-    return tree_map(lambda dl: ParamDecl((n,) + dl.shape, dl.scale), tree)
+    """Add a leading stacked-layers dim (logical ``"layers"``) to every
+    ParamDecl."""
+    return tree_map(lambda dl: ParamDecl(
+        (n,) + dl.shape, ("layers",) + dl.logical, dl.scale,
+        alt_logical=("layers",) + dl.alt_logical if dl.alt_logical else None), tree)
 
 
 def param_template(cfg: ModelConfig) -> PyTree:
@@ -144,19 +155,19 @@ def param_template(cfg: ModelConfig) -> PyTree:
             slot["ffn"] = _SLOT_DECL[ffn](cfg)
         blocks.append(slot)
     t: Dict[str, Any] = {
-        "embed": ParamDecl((V, d)),
+        "embed": ParamDecl((V, d), ("vocab", "embed")),
         "blocks": _stack(blocks, cfg.n_blocks),
-        "final_norm": ParamDecl((d,), -1.0),
+        "final_norm": ParamDecl((d,), ("embed",), -1.0),
     }
     if not cfg.tie_embeddings:
-        t["lm_head"] = ParamDecl((d, V))
+        t["lm_head"] = ParamDecl((d, V), ("embed", "vocab"))
     if cfg.is_encdec:
         # stub frontend: precomputed frame embeddings -> linear projection
         t["encoder"] = {
-            "frames_proj": ParamDecl((d, d)),
+            "frames_proj": ParamDecl((d, d), ("embed", None)),
             "blocks": _stack([{"mixer": _attn_decl(cfg), "ffn": _mlp_decl(cfg)}],
                              cfg.encoder_layers),
-            "final_norm": ParamDecl((d,), -1.0),
+            "final_norm": ParamDecl((d,), ("embed",), -1.0),
         }
     return t
 
@@ -214,15 +225,23 @@ def layer(tree: PyTree, i: int) -> PyTree:
 # ======================================================================
 
 
+def _wc(p, name, dtype, logical):
+    """Weight compute-copy: cast to the compute dtype and, on a mesh,
+    redistribute the copy to the gathered layout (the FSDP dim whole, the
+    TP dims kept), so the gather moves the bf16 copy, not the float32
+    master.  The weight itself outside a context."""
+    return constrain(p[name].to(dtype), logical)
+
+
 def _split_heads(x, n, d):
     return x.reshape(x.shape[:-1] + (n, d))
 
 
 def _qkv(cfg, p, h):
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    q = h @ p["wq"].to(h.dtype)
-    k = h @ p["wk"].to(h.dtype)
-    v = h @ p["wv"].to(h.dtype)
+    q = project(h, _wc(p, "wq", h.dtype, (None, "heads")))
+    k = project(h, _wc(p, "wk", h.dtype, (None, "kv_heads")))
+    v = project(h, _wc(p, "wv", h.dtype, (None, "kv_heads")))
     if cfg.qkv_bias:
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
@@ -246,10 +265,27 @@ def _attention(q, k, v, *, causal, window, impl):
     a multiple of 1024, as the JAX package's jnp path; the kernel takes any
     Skv, also for whisper's non-causal encoder and cross-attention over any
     number of frames (it masks a ragged last KV tile)."""
+    if isinstance(q, DTensor):
+        return _attention_mesh(q, k, v, causal=causal, window=window, impl=impl)
     if impl == "plain":
         return attn_lib.flash_attention(q, k, v, causal=causal, window=window,
                                         chunk=min(1024, k.shape[1]))
     return fa_ops.flash_attention(q, k, v, causal=causal, window=window, ragged_kv=True)
+
+
+def _attention_mesh(q, k, v, *, causal, window, impl):
+    """``_attention`` of DTensors (B, S, heads, D) on each rank's own
+    sequences and heads: the batch split where q's is, the heads where q's
+    are and the KV heads divide too (a rank's query heads are then the
+    groups of its KV heads), every sequence whole.  No sharding rule runs
+    inside, and no collective."""
+    mesh = q.device_mesh
+    KV = k.shape[2]
+    lay = [p if p == Shard(0) or (p == Shard(2) and KV % mesh.size(i) == 0) else Replicate()
+           for i, p in enumerate(q.placements)]
+    q, k, v = (t.redistribute(mesh, lay).to_local() for t in (q, k, v))
+    o = _attention(q, k, v, causal=causal, window=window, impl=impl)
+    return DTensor.from_local(o, mesh, lay, run_check=False)
 
 
 def attn_full(cfg, p, x, *, positions, mrope_pos=None, causal=True, impl="kernel"):
@@ -259,7 +295,7 @@ def attn_full(cfg, p, x, *, positions, mrope_pos=None, causal=True, impl="kernel
     q, k, v = _qkv(cfg, p, h)
     q, k = _rope(cfg, q, k, positions, mrope_pos)
     o = _attention(q, k, v, causal=causal, window=cfg.sliding_window, impl=impl)
-    out = o.reshape(B, S, -1) @ p["wo"].to(o.dtype)
+    out = project(o.reshape(B, S, -1), _wc(p, "wo", o.dtype, ("heads", None)))
     return x + out, (k, v)
 
 
@@ -268,25 +304,26 @@ def xattn_full(cfg, p, x, enc_kv, *, impl="kernel"):
     B, S, d = x.shape
     k, v = enc_kv
     h = rms_norm(x, p["norm_w"], cfg.norm_eps)
-    q = _split_heads(h @ p["wq"].to(h.dtype), cfg.n_heads, cfg.head_dim_)
+    q = _split_heads(project(h, _wc(p, "wq", h.dtype, (None, "heads"))), cfg.n_heads,
+                     cfg.head_dim_)
     o = _attention(q, k, v, causal=False, window=0, impl=impl)
-    return x + o.reshape(B, S, -1) @ p["wo"].to(o.dtype)
+    return x + project(o.reshape(B, S, -1), _wc(p, "wo", o.dtype, ("heads", None)))
 
 
 def xattn_decode(cfg, p, x, enc_kv):
     B, S1, d = x.shape
     k, v = enc_kv
     h = rms_norm(x, p["norm_w"], cfg.norm_eps)
-    q = _split_heads(h @ p["wq"].to(h.dtype), cfg.n_heads, cfg.head_dim_)
+    q = _split_heads(h @ _wc(p, "wq", h.dtype, (None, "heads")), cfg.n_heads, cfg.head_dim_)
     o = attn_lib.decode_attention(q, k, v)
-    return x + o.reshape(B, S1, -1) @ p["wo"].to(o.dtype)
+    return x + o.reshape(B, S1, -1) @ _wc(p, "wo", o.dtype, ("heads", None))
 
 
 def _build_xkv(cfg, p, enc_out):
     """Project encoder output to (k, v) for one decoder layer."""
     KV, Dh = cfg.n_kv_heads, cfg.head_dim_
-    k = _split_heads(enc_out @ p["wk"].to(enc_out.dtype), KV, Dh)
-    v = _split_heads(enc_out @ p["wv"].to(enc_out.dtype), KV, Dh)
+    k = _split_heads(project(enc_out, _wc(p, "wk", enc_out.dtype, (None, "kv_heads"))), KV, Dh)
+    v = _split_heads(project(enc_out, _wc(p, "wv", enc_out.dtype, (None, "kv_heads"))), KV, Dh)
     return k, v
 
 
@@ -312,15 +349,15 @@ def attn_decode(cfg, p, x, cache, *, pos, mrope_pos=None):
     cache["v"][rows, widx] = v[:, 0].to(cache["v"].dtype)
     valid = torch.clamp_max(pos + 1, C)
     o = attn_lib.decode_attention(q, cache["k"], cache["v"], valid_len=valid)
-    out = o.reshape(B, S1, -1) @ p["wo"].to(o.dtype)
+    out = o.reshape(B, S1, -1) @ _wc(p, "wo", o.dtype, ("heads", None))
     return x + out, cache
 
 
 def mlp_sublayer(cfg, p, x):
     h = rms_norm(x, p["norm_w"], cfg.norm_eps)
-    g = h @ p["w_gate"].to(h.dtype)
-    u = h @ p["w_up"].to(h.dtype)
-    return x + glu_act(cfg.mlp_act, g, u) @ p["w_down"].to(h.dtype)
+    g = project(h, _wc(p, "w_gate", h.dtype, (None, "ff")))
+    u = project(h, _wc(p, "w_up", h.dtype, (None, "ff")))
+    return x + project(glu_act(cfg.mlp_act, g, u), _wc(p, "w_down", h.dtype, ("ff", None)))
 
 
 def moe_sublayer(cfg, p, x, *, with_aux=True):
@@ -420,11 +457,12 @@ def encode(cfg: ModelConfig, params: PyTree, frames: torch.Tensor, *,
     (non-causal self-attention + MLP per layer, then the final norm)."""
     enc = params["encoder"]
     B, S, d = frames.shape
-    x = frames @ enc["frames_proj"].to(frames.dtype)
+    x = project(frames, enc["frames_proj"].to(frames.dtype))
     x = x + sinusoid_positions(S, d, frames.device).to(x.dtype)
     positions = torch.arange(S, device=frames.device)
     for i in range(cfg.encoder_layers):
         sp = layer(enc["blocks"][0], i)
+        x = constrain(x, ("batch", "seq", None))
         x, _ = attn_full(cfg, sp["mixer"], x, positions=positions, causal=False, impl=impl)
         x = mlp_sublayer(cfg, sp["ffn"], x)
     return rms_norm(x, enc["final_norm"], cfg.norm_eps)
@@ -435,8 +473,37 @@ def encode(cfg: ModelConfig, params: PyTree, frames: torch.Tensor, *,
 # ======================================================================
 
 
+def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]`` in the activation dtype.  On a mesh, vocab-parallel
+    on each rank's own shard of the bf16 table (its vocab rows over
+    ``model``, its d_model columns over ``data``): every rank takes all the
+    batch's tokens (a small gather), looks up those in its rows (zeros
+    for the rest) in its columns, and the rows are summed over the vocab
+    split (one nonzero term: exact) and gathered over the columns' split,
+    then laid out as the tokens are.  Each rank's table gradient is then
+    whole on its shard: no collective reduces it (DTensor's own rule for
+    the lookup's backward, an index_put, fails on a split table)."""
+    if not isinstance(tokens, DTensor):
+        return table.to(ACT_DTYPE)[tokens]
+    mesh = tokens.device_mesh
+    w = table.to(ACT_DTYPE)
+    wl, tok = w.to_local(), tokens.full_tensor()
+    n, lo = wl.shape[0], 0
+    for i, p in enumerate(w.placements):
+        if p == Shard(0):
+            lo += mesh.get_coordinate()[i] * n  # one mesh dim splits the vocab
+    idx = tok - lo
+    hit = (idx >= 0) & (idx < n)
+    rows = torch.where(hit[..., None], wl[idx.clamp(0, n - 1)], 0.0)
+    parts = [Partial() if p == Shard(0) else Shard(2) if p == Shard(1) else Replicate()
+             for p in w.placements]
+    rows = DTensor.from_local(rows, mesh, parts, run_check=False)
+    rows = rows.redistribute(mesh, [Replicate()] * mesh.ndim)
+    return rows.redistribute(mesh, tokens.placements)
+
+
 def _embed_tokens(cfg, params, tokens):
-    x = params["embed"].to(ACT_DTYPE)[tokens]
+    x = _lookup(params["embed"], tokens)
     if cfg.scale_embeds:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x
@@ -483,6 +550,7 @@ def forward(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor, *,
     plan = cfg.layer_plan()
 
     def block(blk, x, aux):
+        x = constrain(x, ("batch", "seq", None))  # keep batch sharded in-loop
         for i, (mixer, ffn) in enumerate(plan):
             sp = layer(params["blocks"][i], blk)
             if mixer == "attn":
@@ -530,6 +598,7 @@ def prefill(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor, *,
     W = cfg.sliding_window
     per_layer: List[List[Dict[str, torch.Tensor]]] = [[] for _ in plan]
     for blk in range(cfg.n_blocks):
+        x = constrain(x, ("batch", "seq", None))
         for i, (mixer, ffn) in enumerate(plan):
             sp = layer(params["blocks"][i], blk)
             if mixer == "attn":
@@ -570,6 +639,7 @@ def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree, token: torch.Te
         x = x + sinusoid_rows(pos, cfg.d_model).to(x.dtype)[:, None, :]
     plan = cfg.layer_plan()
     for blk in range(cfg.n_blocks):
+        x = constrain(x, ("batch", "seq", None))
         for i, (mixer, ffn) in enumerate(plan):
             sp = layer(params["blocks"][i], blk)
             ci = layer(cache[i], blk)

@@ -32,8 +32,10 @@ def adamw_init(params: PyTree) -> AdamWState:
     leaves, treedef = tree_flatten(params)
 
     def zeros():
-        return tree_unflatten(treedef, [torch.zeros(p.shape, dtype=torch.float32,
-                                                    device=p.device) for p in leaves])
+        # zeros_like: a DTensor parameter's moments take its placements
+        return tree_unflatten(treedef, [torch.zeros_like(p, dtype=torch.float32,
+                                                         requires_grad=False)
+                                        for p in leaves])
 
     dev = leaves[0].device if leaves else None
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev), mu=zeros(),

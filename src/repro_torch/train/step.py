@@ -22,12 +22,16 @@ kernels nor the port's CUDA kernels have a backward pass.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, Tuple
 
 import torch
 import torch.utils.checkpoint
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.ctx import batch_rows, constrain, project
 from repro_torch.models import transformer
 from repro_torch.models.common import tree_flatten, tree_unflatten
 from repro_torch.optim import adamw_update, clip_by_global_norm, cosine_schedule
@@ -47,43 +51,25 @@ def _check_impl(impl: str) -> None:
         raise ValueError(f"impl {impl!r}: training takes 'plain'")
 
 
-class _F32Logits(torch.autograd.Function):
-    """``h @ w`` of two bf16 matrices with a float32 result, as the JAX
-    package's ``einsum(..., preferred_element_type=float32)``: the products of
-    bf16 values are exact in float32 and summed in float32, so the logits
-    carry no bf16 rounding.  On the card through ``torch.mm(out_dtype=)``
-    (tensor cores, float32 accumulation), elsewhere as a float32 product of
-    the widened operands.  The backward pass contracts the float32 gradient
-    with the other operand widened to float32 and rounds the result to the
-    operand's dtype, as JAX's transpose of that product does."""
-
-    @staticmethod
-    def forward(ctx, h, w):
-        ctx.save_for_backward(h, w)
-        if h.is_cuda and h.dtype in (torch.bfloat16, torch.float16):
-            return torch.mm(h, w, out_dtype=torch.float32)
-        return h.float() @ w.float()
-
-    @staticmethod
-    def backward(ctx, g):
-        h, w = ctx.saved_tensors
-        gh = gw = None
-        if ctx.needs_input_grad[0]:
-            gh = (g @ w.float().T).to(h.dtype)
-        if ctx.needs_input_grad[1]:
-            gw = (h.float().T @ g).to(w.dtype)
-        return gh, gw
-
-
 def _xent_chunk(h: torch.Tensor, head_w: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """Sum over one chunk of (logsumexp - gold logit), float32."""
+    """Sum over one chunk of (logsumexp - gold logit), float32: the logits
+    a float32 product of bf16 operands (``ctx.project``), as the JAX
+    package's ``einsum(..., preferred_element_type=float32)``."""
     B, c, d = h.shape
-    logits = _F32Logits.apply(h.reshape(B * c, d), head_w.to(h.dtype)).view(B, c, -1)
+    wc = constrain(head_w.to(h.dtype), (None, "vocab"))
+    logits = project(h.reshape(B * c, d), wc, out_dtype=torch.float32).view(B, c, -1)
+    logits = constrain(logits, ("batch", None, "vocab"))
     m = logits.amax(dim=-1, keepdim=True).detach()
     lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
-    # the gold logit by a gather: the JAX package's one-hot sum adds one
-    # logit to zeros, exactly, so both give the same value and gradient
-    gold = torch.gather(logits, -1, t[..., None])[..., 0]
+    if isinstance(logits, DTensor):
+        # the JAX package's one-hot contraction: DTensor's gather across a
+        # split vocab dim (a masked partial) fails in its reduction
+        onehot = torch.arange(logits.shape[-1], device=t.device) == t[..., None]
+        gold = torch.sum(torch.where(onehot, logits, 0.0), dim=-1)
+    else:
+        # the gold logit by a gather: the one-hot sum adds one logit to
+        # zeros, exactly, so both give the same value and gradient
+        gold = torch.gather(logits, -1, t[..., None])[..., 0]
     return torch.sum(lse - gold)
 
 
@@ -93,12 +79,21 @@ def chunked_softmax_xent(hidden: torch.Tensor, head_w: torch.Tensor,
     logits: a loop over sequence chunks, each chunk's float32 logits
     consumed by the logsumexp (its max detached) and the gold logit, each
     chunk recomputed in the backward pass (``torch.utils.checkpoint``), so
-    one chunk's logits exist at a time."""
+    one chunk's logits exist at a time.
+
+    On a mesh the head's bf16 compute copy is laid out (gathered over the
+    FSDP axis) once, before the loop, and every chunk and its recomputation
+    read that copy; its gradient then sums over the chunks in bf16 (off a
+    mesh each chunk casts the float32 master, as the JAX package's loop
+    body, and the chunks' gradients sum in float32)."""
     B, S, d = hidden.shape
     chunk = min(chunk, S)
     if S % chunk:
         raise ValueError(f"sequence {S} is no multiple of the loss chunk {chunk}")
     targets = targets.long()
+    if isinstance(hidden, DTensor):  # whole sequences: the chunks slice them
+        hidden = hidden.redistribute(hidden.device_mesh, batch_rows(hidden))
+        head_w = constrain(head_w.to(hidden.dtype), (None, "vocab"))
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for lo in range(0, S, chunk):
         total = total + torch.utils.checkpoint.checkpoint(
@@ -124,14 +119,52 @@ def loss_fn(cfg: ModelConfig, params: PyTree, batch: Dict[str, torch.Tensor], *,
 
 def _microbatches(batch: Dict[str, torch.Tensor], accum: int):
     """``accum`` equal slices of the batch; ``mrope_pos`` (3, B, S) is split
-    on its batch axis 1."""
+    on its batch axis 1.  A DTensor batch is sliced rank by rank: the
+    microbatches then group other sequences than the meshless run's, and
+    the averaged gradient is the same mean over the whole batch."""
     def split(name, x):
+        if isinstance(x, DTensor):
+            parts = split(name, x.to_local())
+            return [DTensor.from_local(v, x.device_mesh, x.placements, run_check=False)
+                    for v in parts]
         if name == "mrope_pos":
             return x.reshape(x.shape[0], accum, x.shape[1] // accum, x.shape[2]).movedim(1, 0)
         return x.reshape((accum, x.shape[0] // accum) + tuple(x.shape[1:]))
 
     parts = {k: split(k, v) for k, v in batch.items()}
     return [{k: v[i] for k, v in parts.items()} for i in range(accum)]
+
+
+def _full(x: torch.Tensor) -> torch.Tensor:
+    """A metric as a plain tensor: a DTensor's whole value."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def _as_param(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A gradient in its parameter's layout: a DTensor gradient comes back
+    in whatever placements the backward pass left it (a ``Partial`` sum over
+    the ranks that split the batch), and is reduced to the parameter's
+    shards once, here (the reduce-scatter)."""
+    if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def loss_and_grads(cfg: ModelConfig, params: PyTree, batch: Dict[str, torch.Tensor], *,
+                   aux_weight: float = 0.01, remat: bool = True, impl: str = "plain"
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], list]:
+    """(loss, metrics, gradients) of ``loss_fn``, the gradients in the
+    order of ``tree_flatten(params)``'s leaves, each in its parameter's
+    placements on a mesh (``_as_param``); run under the launcher's
+    ``ctx.use_rules`` there."""
+    leaves = tree_flatten(params)[0]
+    on_mesh = isinstance(leaves[0], DTensor)
+    with implicit_replication() if on_mesh else contextlib.nullcontext():
+        loss, metrics = loss_fn(cfg, params, batch, aux_weight=aux_weight, remat=remat,
+                                impl=impl)
+        grads = torch.autograd.grad(loss, leaves)
+        grads = [_as_param(g, p) for g, p in zip(grads, leaves)]
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
 def make_train_step(cfg: ModelConfig, *, peak_lr: float = 3e-4, warmup_steps: int = 100,
@@ -142,25 +175,36 @@ def make_train_step(cfg: ModelConfig, *, peak_lr: float = 3e-4, warmup_steps: in
     microbatches, whose gradients and losses are averaged).  Metrics:
     ``loss``, ``xent``, ``moe_aux``, ``grad_norm`` (before clipping) and
     ``lr``, float32 0-d tensors on the parameters' device (reading one
-    waits for the step)."""
+    waits for the step).
+
+    On a mesh the parameters and moments are DTensors, the batch too
+    (``launch/train.py``), and the step runs under the launcher's
+    ``ctx.use_rules``; plain tensors the model makes (positions, masks) take
+    part as replicated values (``implicit_replication``).  Each gradient is
+    brought to its parameter's placements before clipping, whose norm is
+    then the global one, and AdamW updates each rank's shards; the metrics
+    come back whole on every rank."""
     _check_impl(impl)
 
-    def grads_of(params, leaves, batch):
-        loss, metrics = loss_fn(cfg, params, batch, aux_weight=aux_weight, remat=remat,
-                                impl=impl)
-        grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, list(grads)
+    def grads_of(params, batch):
+        return loss_and_grads(cfg, params, batch, aux_weight=aux_weight, remat=remat,
+                              impl=impl)
 
     def step(params, opt_state, batch):
         leaves, treedef = tree_flatten(params)
+        on_mesh = isinstance(leaves[0], DTensor)
+        with implicit_replication() if on_mesh else contextlib.nullcontext():
+            new_params, new_opt, metrics = _step(params, leaves, treedef, opt_state, batch)
+        return new_params, new_opt, {k: _full(v) for k, v in metrics.items()}
+
+    def _step(params, leaves, treedef, opt_state, batch):
         if accum == 1:
-            loss, metrics, grads = grads_of(params, leaves, batch)
+            loss, metrics, grads = grads_of(params, batch)
         else:
-            grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                     for p in leaves]
+            grads = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
             loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
             for mb in _microbatches(batch, accum):
-                mb_loss, _, mb_grads = grads_of(params, leaves, mb)
+                mb_loss, _, mb_grads = grads_of(params, mb)
                 grads = [a + g for a, g in zip(grads, mb_grads)]
                 loss = loss + mb_loss
             grads = [g / accum for g in grads]

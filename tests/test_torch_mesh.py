@@ -466,8 +466,10 @@ def test_refusals(world_of_one):
         dse.DSEService(engine=eng, mesh=mesh)
     from repro_torch.launch import train
 
-    with pytest.raises(ValueError, match="Multi-device: the LM on a mesh"):
-        train.main(["--device", "cpu", "--data", "2"])
+    # the LM launcher no longer refuses a mesh: --data 2 clamps to this world
+    assert train.main(["--device", "cpu", "--data", "2", "--d-model", "64", "--layers", "2",
+                       "--seq", "32", "--batch", "2", "--steps", "1"]) == 0
+    assert dist.is_initialized()  # the fixture's world, left as it was
 
 
 def test_cli_search_mesh_in_a_world_of_one(world_of_one, tmp_path, capsys):

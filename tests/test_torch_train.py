@@ -58,7 +58,6 @@ from repro_torch import optim as topt
 from repro_torch.checkpoint import store
 from repro_torch.configs.base import get_config as tget
 from repro_torch.configs.base import list_configs
-from repro_torch.core.engine import NOT_PORTED
 from repro_torch.launch import cells as tcells
 from repro_torch.launch import train as tlaunch
 from repro_torch.models import transformer as tt
@@ -466,11 +465,18 @@ def test_launcher_runs_and_resumes_bitwise(tmp_path):
     assert all(np.array_equal(a, b) for a, b in zip(final_full, final_run))
 
 
-def test_launcher_refuses_a_mesh_and_defaults_to_the_card():
-    for flag in ("--data", "--model"):
-        with pytest.raises(ValueError, match="Multi-device"):
-            tlaunch.main(TRAIN_ARGS + [flag, "2"])
-    assert "Multi-device" in NOT_PORTED
+def test_launcher_refuses_a_mesh_and_defaults_to_the_card(capsys):
+    """In a world of one, ``--data 2 --model 2`` clamps to a 1x1 mesh and
+    gives the meshless losses, and leaves no process group behind; without
+    ``--device`` the launcher runs on the card (raises without one)."""
+    args = [a if a != str(TRAIN_STEPS) else "3" for a in TRAIN_ARGS]
+    assert tlaunch.main(args) == 0
+    want = _losses(capsys.readouterr().out)
+    assert tlaunch.main(args + ["--data", "2", "--model", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "mesh data=1xmodel=1 (1 ranks, gloo)" in out
+    assert _losses(out) == want and sorted(want) == [0, 1, 2]
+    assert not torch.distributed.is_initialized()
     if not torch.cuda.is_available():
         no_device = [a for a in TRAIN_ARGS if a not in ("--device", "cpu")]
         with pytest.raises(RuntimeError, match="cuda"):
