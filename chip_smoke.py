@@ -214,15 +214,37 @@ first fault exits non-zero and prints no result:
      of the last step logged (``--count-comm``), a 2x1 checkpoint resumed at 1x2 repeating the
      unbroken run's losses; with one card that gloo cannot share it logs
      so and ``python3 chip_smoke.py --train-mesh`` runs (b) alone on two
-     cards or more;
+     cards or more, and then serves llama and mamba2 (full width, 2
+     layers, B=4, S=256, 4 decode steps, ``impl="kernel"``) at 2x1 and 1x2
+     through ``cells.build_step``: every rank's logits within
+     ``LM_LOGIT_TOL`` of the meshless run's, each rank's measured peak and
+     a decode step's collectives logged beside the dry-run's prediction;
+ 10d. serving on a mesh and the dry-run: (a) ``llama3.2-1b`` and
+     ``mamba2-780m`` at full width and depth, a prefill of 8 prompts of
+     1024 tokens and 8 decode steps through ``launch.cells.build_step(...,
+     impl="kernel")``, meshless and then on a 1x1 mesh in a world of one
+     under NCCL, every launch count set to 0 just before the mesh run: its
+     logits within ``LM_LOGIT_TOL`` of the meshless kernel path's (the
+     largest gap logged), its prefill launching flash_attention 16 or
+     ssd_scan 48 times and no other kernel (``launches_by_path.serve_mesh``);
+     (b) the dry-run of phase 10b's llama step (B=4, S=1024, remat) on a 1x1
+     fake mesh of fake tensors claiming the card (``--dryrun-step``, a
+     process of its own): its per-device peak beside phase 10b's measured
+     ``max_memory_allocated``, its counted FLOPs beside ``model_flops``, and
+     the step's ``mfu`` (``model_flops`` over phase 10b's step time at 989
+     TFLOP/s) and counted-FLOPs share; (c) ``launch.dryrun`` of
+     llama3.2-1b's ``train_4k``, ``prefill_32k``, ``decode_32k`` and
+     mamba2-780m's ``long_500k`` on the fake 16x16 mesh, every cell OK,
+     ``trace_s`` logged; (b) and (c) run on the host in the background from
+     phase 10b on, within ``DRYRUN_DEADLINE_S``;
  11. one JSON line ``{"kernels": [...]}``: launches on the main paths
      (``launches_by_path``: the search CLI, the service, phase 9b's
      paths and phase 9c's, ``search_threefry`` and ``serve_threefry``,
      and phase 9d's, ``search_mesh`` and ``serve_mesh``: the 1x1 runs and
      every rank of the two-rank runs;
-     for flash_attention and ssd_scan each model of phase 10; the
-     training path, ``train``, and training on a mesh, ``train_mesh``, 0
-     for each),
+     for flash_attention and ssd_scan each model of phase 10, and
+     phase 10d's 1x1 mesh, ``serve_mesh``; the training path, ``train``,
+     and training on a mesh, ``train_mesh``, 0 for each),
      max error, kernel and plain times per call (CUDA events, after a
      warm-up, in turns plain/kernel/kernel/plain; at small sizes they
      include the host's launch overhead), the same work's device time
@@ -2744,6 +2766,7 @@ def phase_lm_steps(torch, dev, name, card, timings):
     flash_attention launches its count per prefill and no other kernel
     launches; every token in range; the kernel path's prefill logits
     within LM_LOGIT_TOL of the plain path's; peak memory logged."""
+    from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch.cells import make_inputs
     from repro_torch.launch.serve import build_params
     from repro_torch.models import transformer
@@ -2757,7 +2780,7 @@ def phase_lm_steps(torch, dev, name, card, timings):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     gen = _gen(torch, dev, 5)
-    batches = [make_inputs(cfg, "prefill", 1, n, gen) for n in lengths]
+    batches = [make_inputs(cfg, ShapeSpec("prompt", n, 1, "prefill"), gen) for n in lengths]
     prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
     counters = _counters()
     for c in counters.values():
@@ -3002,6 +3025,7 @@ def phase_train_card_vs_cpu(torch, dev, card, timings):
     gradient within TRAIN_GRAD_REL_L2 and its update within
     TRAIN_UPDATE_REL_L2 (relative L2); no kernel launches."""
     from repro_torch.data.pipeline import make_batch_fn, to_device
+    from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch.cells import input_specs
     from repro_torch.models import transformer
     from repro_torch.models.common import tree_flatten, tree_leaves, tree_unflatten
@@ -3021,7 +3045,7 @@ def phase_train_card_vs_cpu(torch, dev, card, timings):
                 slot["ffn"]["router"].zero_()
         for p in tree_leaves(params):
             p.requires_grad_()
-        extras = {k: v for k, v in input_specs(cfg, "train", 4, 64).items()
+        extras = {k: v for k, v in input_specs(cfg, ShapeSpec("t", 64, 4, "train")).items()
                   if k not in ("inputs", "targets")}
         host = make_batch_fn(cfg.vocab_size, 64, 4, seed=0, extras=extras)(0)
         kw = dict(peak_lr=1e-3, warmup_steps=2, total_steps=10)
@@ -3292,6 +3316,7 @@ def train_mesh_worker(outdir: str) -> int:
         shutil.rmtree(ckpt / "step_000000004")
     torch.distributed.barrier()
     one("llama3.2-1b", (1, 2), ("--ckpt-dir", str(ckpt)), "resume")
+    rec["serve"] = serve_rank_cells(torch, dev, rank, outdir)
     torch.distributed.destroy_process_group()
     Path(outdir, f"rank{rank}.json").write_text(json.dumps(rec))
     return 0
@@ -3329,6 +3354,9 @@ def phase_train_mesh_ranks(torch, dev, card, timings, gloo: str):
                      "peak": torch.cuda.max_memory_allocated()}
         del state
         torch.cuda.empty_cache()
+    serve_ref = {name: serve_cells(torch, dev, _model_cfg(name, MESH_TRAIN_DEPTH), None,
+                                   SERVE_RANK_BATCH, SERVE_RANK_SEQ, SERVE_RANK_STEPS, "kernel")
+                 for name in MESH_TRAIN_MODELS}
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         tmp = Path(tmp)
         t0 = time.perf_counter()
@@ -3340,6 +3368,7 @@ def phase_train_mesh_ranks(torch, dev, card, timings, gloo: str):
             check(rc == 0, f"train mesh rank {r} exited {rc}: " + "\n".join(frames[-40:])
                   + text[-1500:])
         ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(2)]
+        timings["serve_mesh/ranks"] = _check_serve_ranks(torch, tmp, ranks, serve_ref, card)
     launches = dict.fromkeys(counters, 0)
     out = {"card": card, "backend": ranks[0]["backend"], "wall_s": wall, "runs": []}
     for i, run0 in enumerate(ranks[0]["runs"]):
@@ -3412,6 +3441,84 @@ def phase_train_mesh_ranks(torch, dev, card, timings, gloo: str):
             + f" (meshless peak {ref[name]['peak'] / 1e9:.2f} GB); no kernel launched")
     timings["train_mesh/ranks"] = out
     return launches
+
+
+def serve_rank_cells(torch, dev, rank, outdir, device_type="cuda") -> list:
+    """One rank's serving cells of ``--train-mesh``: each
+    ``MESH_TRAIN_MODELS`` model at each ``MESH_TRAIN_SHAPES`` mesh through
+    ``serve_cells`` (impl="kernel"), every launch count set to 0 just
+    before; the logits to ``outdir/serve_<name>_<d>x<m>_<rank>.pt``.
+    Returns [{name, shape, prefill_ms, decode_ms, peak_bytes, decode_comm,
+    launches}]."""
+    from repro_torch.launch.mesh import make_test_mesh
+
+    counters, out = _counters(), []
+    for shape in MESH_TRAIN_SHAPES:
+        mesh = make_test_mesh(*shape, device_type=device_type)
+        for name in MESH_TRAIN_MODELS:
+            for c in counters.values():
+                c.launches = 0
+            r = serve_cells(torch, dev, _model_cfg(name, MESH_TRAIN_DEPTH), mesh,
+                            SERVE_RANK_BATCH, SERVE_RANK_SEQ, SERVE_RANK_STEPS, "kernel")
+            torch.save(r.pop("logits"), Path(outdir, f"serve_{name}_{shape[0]}x{shape[1]}_"
+                                                     f"{rank}.pt"))
+            out.append({"name": name, "shape": list(shape), **r,
+                        "launches": {k: c.launches for k, c in counters.items()}})
+    return out
+
+
+def _dryrun_serve(cfg, shape):
+    """The dry-run of ``serve_cells``' two cells on a fake mesh of
+    ``shape`` (the plain attention and SSD: fake tensors take no kernel):
+    (the larger of the prefill's and the decode's peak per device, a decode
+    step's collective calls and bytes per device)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import cells, dryrun
+    from repro_torch.launch.mesh import fake_world, make_test_mesh
+
+    B, S, T = SERVE_RANK_BATCH, SERVE_RANK_SEQ, SERVE_RANK_STEPS
+    with fake_world(shape[0] * shape[1], "cuda"):
+        mesh = make_test_mesh(*shape, device_type="cuda")
+        pre, dec = (dryrun.dryrun_cell(cells.Cell(cfg, s), mesh, save=False, device="cuda")
+                    for s in (ShapeSpec("prefill", S, B, "prefill"),
+                              ShapeSpec("decode", S + T, B, "decode")))
+    coll = dec["collectives"]
+    return (max(pre["memory"]["per_device_bytes"], dec["memory"]["per_device_bytes"]),
+            (sum(coll["counts"].values()), coll["total_bytes"]))
+
+
+def _check_serve_ranks(torch, tmp, ranks, refs, card) -> list:
+    """--train-mesh's serving cells: each rank's prefill and decode logits
+    (``serve_cells`` on its mesh) within LM_LOGIT_TOL of the meshless run
+    (``refs``); each rank's measured peak logged beside the dry-run's
+    prediction for that mesh."""
+    out = []
+    for i, s0 in enumerate(ranks[0]["serve"]):
+        name, shape = s0["name"], tuple(s0["shape"])
+        cfg = _model_cfg(name, MESH_TRAIN_DEPTH)
+        want, want_comm = _dryrun_serve(cfg, shape)
+        for rk in ranks:
+            got = {"logits": torch.load(tmp / f"serve_{name}_{shape[0]}x{shape[1]}_"
+                                              f"{rk['rank']}.pt")}
+            gap = _logit_gap(got, refs[name])
+            check(gap <= LM_LOGIT_TOL, f"serve mesh {name} {shape} rank {rk['rank']}: logits "
+                  f"{gap} from the meshless run's > {LM_LOGIT_TOL}")
+            s = rk["serve"][i]
+            out.append({"name": name, "shape": list(shape), "rank": rk["rank"], "gap": gap,
+                        "peak_bytes": s["peak_bytes"], "dryrun_peak_bytes": want,
+                        "prefill_ms": s["prefill_ms"], "decode_ms": s["decode_ms"],
+                        "decode_comm": s["decode_comm"], "dryrun_decode_comm": want_comm,
+                        "launches": s["launches"]})
+            log(f"serve mesh (ranks) {name} {shape[0]}x{shape[1]} rank {rk['rank']} "
+                f"({MESH_TRAIN_DEPTH} layers, B={SERVE_RANK_BATCH}, S={SERVE_RANK_SEQ}, "
+                f"{SERVE_RANK_STEPS} decode steps, impl=kernel, {card}): logits within "
+                f"{gap:.4g} of the meshless run; peak {s['peak_bytes'] / 1e9:.3f} GB beside the "
+                f"dry-run's {want / 1e9:.3f} GB; prefill {s['prefill_ms']:.1f} ms, decode "
+                f"{s['decode_ms']:.1f} ms a step (meshless {refs[name]['prefill_ms']:.1f} / "
+                f"{refs[name]['decode_ms']:.1f}); a decode step's collectives "
+                f"{s['decode_comm'][0]} calls {s['decode_comm'][1]} B (the dry-run's "
+                f"{want_comm[0]} calls {want_comm[1]} B); launches {s['launches']}")
+    return out
 
 
 def _traced_1x1_step(torch, dev, name):
@@ -3553,6 +3660,287 @@ def phase_train_mesh(torch, dev, card, timings):
     return launches
 
 
+# ------------------------------------------------------ serving on a mesh
+# phase 10d: (a) llama and mamba2 prefill and decode through cells.build_step
+# (impl="kernel") on a 1x1 mesh in a world of one under NCCL, held to the
+# meshless kernel path; (b) the dry-run of phase 10b's llama step on a 1x1
+# fake mesh beside that step's measured peak, time and FLOPs; (c) the
+# dry-run of four production cells on the fake 16x16 mesh, run in the
+# background from before phase 10 (host work: it overlaps the card's)
+SERVE_MESH_MODELS = ("llama3.2-1b", "mamba2-780m")
+SERVE_MESH_BATCH, SERVE_MESH_SEQ, SERVE_MESH_STEPS = 8, 1024, 8
+# (a)'s kernel launches per prefill at full depth (decode launches none)
+SERVE_MESH_LAUNCHES = {"llama3.2-1b": {"flash_attention": 16},
+                       "mamba2-780m": {"ssd_scan": 48}}
+# --train-mesh's cells on two ranks: full width, 2 layers
+SERVE_RANK_BATCH, SERVE_RANK_SEQ, SERVE_RANK_STEPS = 4, 256, 4
+# (arch, shape or None for all of its cells) dry-run on the fake 16x16 mesh
+DRYRUN_CELLS = (("llama3.2-1b", None), ("mamba2-780m", "long_500k"))
+DRYRUN_DEADLINE_S = 900
+_DRY_LINE = re.compile(r"^\[(\S+) @ (\S+)\] (OK|FAIL) (.*)$")
+
+
+def serve_cells(torch, dev, cfg, mesh, batch, seq, steps, impl):
+    """A prefill of ``batch`` prompts of ``seq`` tokens and ``steps`` decode
+    steps through ``cells.build_step`` on ``mesh`` (None: meshless), the
+    float32 masters from seed 0 on ``dev`` (on a mesh cut to this rank's
+    shards, the whole tree freed before the prefill), the tokens from seed
+    1 (each decode step fed the next token, not a sampled one); the
+    prefill cache gathered, padded to ``seq + steps`` rows and laid out by
+    the decode bundle.  Returns {"logits": [prefill (B, 1, V), each decode
+    step's], float32 on the host, "prefill_ms", "decode_ms" (per step; host
+    clock, synchronised; the last step, which counts its collectives, not
+    timed), "peak_bytes" (``max_memory_allocated`` from the prefill on: the
+    shards, the cache, the temporaries), "decode_comm" (the last decode
+    step's collective calls and bytes on this rank)}."""
+    import contextlib
+    import gc
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import ctx, sharding
+    from repro_torch.launch import cells
+    from repro_torch.models import transformer
+
+    def whole(x):
+        return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+    def place(tree, places):
+        if mesh is None:
+            return tree
+        return cells.map_placed(lambda x, pl: x if pl is None else ctx.distribute(x, mesh, pl),
+                                tree, places)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = transformer.init(cfg, gen, device=dev)
+    gen.manual_seed(1)
+    toks = torch.randint(0, min(cfg.vocab_size, 1000), (batch, seq + steps), generator=gen,
+                         device=dev)
+    scope = (ctx.use_rules(mesh, sharding.make_rules(mesh)) if mesh is not None
+             else contextlib.nullcontext())
+    with scope:
+        pre = cells.build_step(cfg, ShapeSpec("prefill", seq, batch, "prefill"), mesh, impl=impl)
+        params, tokens = place((params, {"tokens": toks[:, :seq]}), pre.in_placements)
+        gc.collect()  # what an earlier phase left unreachable is not this peak's
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, cache = pre.fn(params, tokens)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        out = [whole(logits).float().cpu()]
+        padded = transformer.pad_cache(
+            cfg, [{k: whole(v) for k, v in s.items()} for s in cache], seq + steps)
+        del cache, tokens
+        decode_ms = []
+        dec = cells.build_step(cfg, ShapeSpec("decode", seq + steps, batch, "decode"), mesh)
+        run = place(padded, dec.in_placements[1])
+        del padded
+        for t in range(steps):
+            b = place({"token": toks[:, seq + t:seq + t + 1],
+                       "pos": torch.full((batch,), seq + t, dtype=torch.int64, device=dev)},
+                      dec.in_placements[2])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if t == steps - 1:
+                sharding.COMM.reset()
+                with sharding.count_collectives():
+                    lg, run = dec.fn(params, run, b)
+                comm = (sharding.COMM.calls, sharding.COMM.bytes)
+            else:
+                lg, run = dec.fn(params, run, b)
+                torch.cuda.synchronize()
+                decode_ms.append((time.perf_counter() - t0) * 1e3)
+            out.append(whole(lg).float().cpu())
+    peak = torch.cuda.max_memory_allocated()
+    del params, run
+    torch.cuda.empty_cache()
+    return {"logits": out, "prefill_ms": prefill_ms, "decode_ms": sum(decode_ms) / len(decode_ms),
+            "peak_bytes": peak, "decode_comm": comm}
+
+
+def _logit_gap(a, b) -> float:
+    return max(float((x - y).abs().max()) for x, y in zip(a["logits"], b["logits"]))
+
+
+def start_dryruns(tmp: Path):
+    """Phase 10d's dry-runs in the background, each a process of its own
+    (fake tensors claiming the card: nothing is allocated there): (b)'s
+    train step (``--dryrun-step``, its record to ``tmp/step.json``), then
+    (c), one ``launch.dryrun`` per ``DRYRUN_CELLS`` entry on the fake
+    16x16 mesh, records to ``tmp``.  Returns (the start's host clock,
+    [(proc, log path)])."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    with open(tmp / "step.log", "w") as f:
+        procs = [(subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                    "--dryrun-step", str(tmp / "step.json")], env=env,
+                                   cwd=str(ROOT), stdout=f, stderr=subprocess.STDOUT),
+                  tmp / "step.log")]
+    for i, (arch, shape) in enumerate(DRYRUN_CELLS):
+        argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                "--mesh", "single", "--device", "cuda", "--out", str(tmp)]
+        if shape:
+            argv += ["--shape", shape]
+        logf = tmp / f"dryrun{i}.log"
+        with open(logf, "w") as f:
+            procs.append((subprocess.Popen(argv, env=env, cwd=str(ROOT), stdout=f,
+                                           stderr=subprocess.STDOUT), logf))
+    return time.perf_counter(), procs
+
+
+def stop_dryruns(started) -> None:
+    for p, _ in started[1]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def phase_serve_mesh(torch, dev, card, timings):
+    """Phase 10d (a): each ``SERVE_MESH_MODELS`` model at full width and
+    depth, ``SERVE_MESH_BATCH`` prompts of ``SERVE_MESH_SEQ`` tokens and
+    ``SERVE_MESH_STEPS`` decode steps through ``cells.build_step(...,
+    impl="kernel")``, meshless and then on a 1x1 mesh in a world of one
+    under NCCL, every launch count set to 0 just before the mesh run: its
+    prefill and decode logits within LM_LOGIT_TOL of the meshless run's,
+    its prefill's kernel launches ``SERVE_MESH_LAUNCHES`` and no other.
+    Returns {kernel: launches of the mesh runs}."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_world, make_test_mesh
+
+    counters = _counters()
+    launches = dict.fromkeys(counters, 0)
+    out = {}
+    for name in SERVE_MESH_MODELS:
+        cfg = _model_cfg(name)
+        shape = (SERVE_MESH_BATCH, SERVE_MESH_SEQ, SERVE_MESH_STEPS)
+        ref = serve_cells(torch, dev, cfg, None, *shape, "kernel")
+        init_world("cuda")
+        try:
+            mesh = make_test_mesh(1, 1, device_type="cuda")
+            for c in counters.values():
+                c.launches = 0
+            got = serve_cells(torch, dev, cfg, mesh, *shape, "kernel")
+            mine = {k: c.launches for k, c in counters.items()}
+        finally:
+            dist.destroy_process_group()
+        _check_launches(f"{name} prefill on a 1x1 mesh", mine, SERVE_MESH_LAUNCHES[name])
+        for k, v in mine.items():
+            launches[k] += v
+        gap = _logit_gap(got, ref)
+        check(gap <= LM_LOGIT_TOL, f"{name} 1x1 mesh: logits {gap} from the meshless kernel "
+              f"path's > {LM_LOGIT_TOL}")
+        check(all(bool(torch.isfinite(x).all()) for x in got["logits"]),
+              f"{name} 1x1 mesh: logits not finite")
+        out[name] = {"gap": gap, "launches": mine, **{k: got[k] for k in
+                                                       ("prefill_ms", "decode_ms", "peak_bytes")},
+                     "meshless": {k: ref[k] for k in ("prefill_ms", "decode_ms", "peak_bytes")}}
+        log(f"serve mesh (a) {name} ({cfg.n_layers} layers, B={SERVE_MESH_BATCH}, "
+            f"S={SERVE_MESH_SEQ}, {SERVE_MESH_STEPS} decode steps) through cells.build_step "
+            f"impl=kernel on a 1x1 mesh under NCCL ({card}): prefill and decode logits within "
+            f"{gap:.4g} of the meshless kernel path (bound {LM_LOGIT_TOL}); launches {mine}; "
+            f"prefill {got['prefill_ms']:.1f} ms (meshless {ref['prefill_ms']:.1f}), decode "
+            f"{got['decode_ms']:.1f} ms a step (meshless {ref['decode_ms']:.1f}), peak "
+            f"{got['peak_bytes'] / 1e9:.2f} GB (meshless {ref['peak_bytes'] / 1e9:.2f})")
+    timings["serve_mesh/1x1"] = out
+    return launches
+
+
+def dryrun_step_worker(path: str) -> int:
+    """``chip_smoke.py --dryrun-step FILE``: the dry-run of phase 10b's
+    llama3.2-1b step (B=4, S=1024, remat, one microbatch) on a 1x1 fake
+    mesh of fake tensors on the card's device type; writes its record to
+    FILE (phase 10d (b) reads it), with the meshless step's dry-run memory
+    (``meshless``) beside."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import cells, dryrun
+    from repro_torch.launch.mesh import fake_world, make_test_mesh
+
+    cell = cells.Cell(_model_cfg("llama3.2-1b"), ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH,
+                                                           "train"))
+    with fake_world(1, "cuda"):
+        mesh = make_test_mesh(1, 1, device_type="cuda")
+        rec = dryrun.dryrun_cell(cell, mesh, save=False, device="cuda",
+                                 build_kwargs={"accum": 1})
+    rec["meshless"] = dryrun.dryrun_cell(cell, None, save=False, device="cuda",
+                                         build_kwargs={"accum": 1})["memory"]
+    Path(path).write_text(json.dumps(rec, default=str))
+    return 0
+
+
+def phase_dryrun_step(started, card, timings):
+    """Phase 10d (b): the dry-run of phase 10b's llama3.2-1b step
+    (``dryrun_step_worker``, in the background since the training phases
+    began), its per-device peak beside phase 10b's measured
+    ``max_memory_allocated`` of that step, its counted FLOPs beside
+    ``model_flops``; and the step's ``mfu`` (model FLOPs over the measured
+    step time at the bf16 peak) and the counted FLOPs' share of the same."""
+    from repro_torch.analysis.roofline import PEAK_FLOPS
+
+    name = "llama3.2-1b"
+    p, logf = _wait_dryrun(started, 0)
+    check(p.returncode == 0, f"dry-run of the train step exited {p.returncode}: "
+          + logf.read_text()[-1500:])
+    rec = json.loads((logf.parent / "step.json").read_text())
+    measured = timings[f"train/{name}"]["remat"]["on"]
+    step_s = measured["ms"] / 1e3
+    mf, counted = rec["cost"]["model_flops_global"], rec["cost"]["flops_per_device"]
+    mfu, share = mf / (step_s * PEAK_FLOPS), counted / (step_s * PEAK_FLOPS)
+    peak, got = measured["peak_memory_bytes"], rec["memory"]["per_device_bytes"]
+    timings["dryrun/train_step"] = {"card": card, "mfu": mfu, "counted_share": share,
+                                    "step_ms": measured["ms"], "model_flops": mf,
+                                    "counted_flops": counted, "dryrun_peak_bytes": got,
+                                    "measured_peak_bytes": peak, "trace_s": rec["trace_s"],
+                                    "memory": rec["memory"], "meshless_memory": rec["meshless"]}
+    log(f"{name} train step (B={TRAIN_BATCH}, S={TRAIN_SEQ}, remat) on {card}: "
+        f"{measured['ms']:.1f} ms (phase 10b), mfu {mfu:.4f} (model_flops {mf:.4e} over the "
+        f"step at {PEAK_FLOPS:.3g} FLOP/s), counted FLOPs' share {share:.4f}")
+    log(f"dry-run (b) {name} train step on a 1x1 fake mesh (trace {rec['trace_s']:.1f}s): "
+        f"peak per device {got / 1e9:.2f} GB beside phase 10b's measured "
+        f"{peak / 1e9:.2f} GB (dry-run / measured {got / peak:.3f}; the meshless step's "
+        f"dry-run {rec['meshless']['per_device_bytes'] / 1e9:.2f} GB); counted FLOPs "
+        f"{counted:.4e} beside model_flops {mf:.4e} (ratio {counted / mf:.3f})")
+
+
+def _wait_dryrun(started, i):
+    """The ``i``-th background dry-run, waited for within DRYRUN_DEADLINE_S
+    of the start (killed past it): (its process, its log path)."""
+    t0, procs = started
+    p, logf = procs[i]
+    try:
+        p.wait(timeout=max(1.0, DRYRUN_DEADLINE_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.wait()
+    return p, logf
+
+
+def phase_dryrun_cells(started, card, timings):
+    """Phase 10d (c): wait for the background dry-runs (``start_dryruns``)
+    within DRYRUN_DEADLINE_S of their start, each exiting 0 with every
+    cell OK: llama3.2-1b's train_4k, prefill_32k, decode_32k and
+    mamba2-780m's long_500k on the fake 16x16 mesh; each cell's line
+    (trace seconds, memory, FLOPs, collective bytes, bottleneck) logged."""
+    t0, procs = started
+    lines = []
+    for i in range(1, len(procs)):
+        p, logf = _wait_dryrun(started, i)
+        text = logf.read_text()
+        lines += [m for m in map(_DRY_LINE.match, text.splitlines()) if m]
+        check(p.returncode == 0, f"dry-run {p.args[4:]} exited {p.returncode}: "
+              + text[-1500:])
+    ok = [m for m in lines if m.group(3) == "OK"]
+    check(len(ok) == 4 and len(lines) == 4, f"dry-run cells: {[m.group(0) for m in lines]}")
+    timings["dryrun/16x16"] = {"card": card, "wall_s": time.perf_counter() - t0,
+                               "cells": [m.group(0) for m in lines]}
+    for m in ok:
+        log(f"dry-run (c) {m.group(1)} on the fake 16x16 mesh ({card}'s host): {m.group(4)}")
+
+
 def train_mesh_main() -> int:
     """``chip_smoke.py --train-mesh``: phase 10c (b) alone, on two cards or
     more under NCCL (a card per rank); prints its lines and the last line
@@ -3566,6 +3954,7 @@ def train_mesh_main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         dev = torch.device("cuda", 0)
         card, name = phase_card(torch)
+        phase_build()  # the serving cells' kernels, built before anything is timed
         timings = {"card": card}
         phase_train_mesh_ranks(torch, dev, card, timings, "not asked (a card per rank)")
         log("timings " + json.dumps(timings))
@@ -3575,6 +3964,29 @@ def train_mesh_main() -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def lm_phases(torch, dev, card, timings):
+    """Phases 10 to 10d: (per-model LM launches, training launches,
+    training-mesh launches, serving-mesh launches).  Phase 10d (c)'s
+    dry-runs run in the background from the training phases on (host
+    work beside mostly device-bound steps; phase 10's host-bound serving
+    clocks run alone)."""
+    lm = {name: phase_lm(torch, dev, name, card, timings) for name in LM_PATHS}
+    lm.update({name: phase_lm_steps(torch, dev, name, card, timings) for name in STEP_PATHS})
+    with tempfile.TemporaryDirectory(dir=ROOT) as dry_dir:
+        dry = start_dryruns(Path(dry_dir))
+        try:
+            train_runs = [phase_train(torch, dev, name, card, timings) for name in TRAIN_PATHS]
+            train_runs.append(phase_train_card_vs_cpu(torch, dev, card, timings))
+            train = {k: sum(r[k] for r in train_runs) for k in train_runs[0]}
+            train_mesh = phase_train_mesh(torch, dev, card, timings)
+            serve_mesh = phase_serve_mesh(torch, dev, card, timings)
+            phase_dryrun_step(dry, card, timings)
+            phase_dryrun_cells(dry, card, timings)
+        finally:
+            stop_dryruns(dry)
+    return lm, train, train_mesh, serve_mesh
 
 
 def run() -> dict:
@@ -3612,16 +4024,12 @@ def run() -> dict:
     mesh = phase_mesh(torch, dev, card, timings)
     fam_b1 = {k: v["imc_eval"] for k, v in fam.items() if v["imc_eval"]}
     fam_b2 = {k: v["ga_gen_step"] for k, v in fam.items() if v["ga_gen_step"]}
-    lm = {name: phase_lm(torch, dev, name, card, timings) for name in LM_PATHS}
-    lm.update({name: phase_lm_steps(torch, dev, name, card, timings) for name in STEP_PATHS})
+    lm, train, train_mesh, serve_mesh = lm_phases(torch, dev, card, timings)
     lm_b3 = {k: v["flash_attention"] for k, v in lm.items() if "flash_attention" in v}
     lm_b4 = {k: v["ssd_scan"] for k, v in lm.items() if "ssd_scan" in v}
-    train_runs = [phase_train(torch, dev, name, card, timings) for name in TRAIN_PATHS]
-    train_runs.append(phase_train_card_vs_cpu(torch, dev, card, timings))
-    train = {k: sum(r[k] for r in train_runs) for k in train_runs[0]}
-    train_mesh = phase_train_mesh(torch, dev, card, timings)
 
     log("timings " + json.dumps(timings))
+
 
     t1, t2 = timings["imc_eval/main"], timings["ga_gen_step/main"]
     s1, s2 = timings["imc_eval/separate"], timings["ga_gen_step/separate"]
@@ -3674,9 +4082,10 @@ def run() -> dict:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:33",
-         "launches": sum(lm_b3.values()),
+         "launches": sum(lm_b3.values()) + serve_mesh["flash_attention"],
          "launches_by_path": {**lm_b3, "train": train["flash_attention"],
-                              "train_mesh": train_mesh["flash_attention"]},
+                              "train_mesh": train_mesh["flash_attention"],
+                              "serve_mesh": serve_mesh["flash_attention"]},
          "max_abs_err": b3_err["s1024"],
          "ms": t3["ms"], "plain_ms": t3["plain_ms"], "bound_ms": t3["bound_ms"],
          "bound_by": t3["bound_by"], "library_ms": t3["library_ms"],
@@ -3686,9 +4095,10 @@ def run() -> dict:
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/kernel.py:33",
-         "launches": sum(lm_b4.values()),
+         "launches": sum(lm_b4.values()) + serve_mesh["ssd_scan"],
          "launches_by_path": {**lm_b4, "train": train["ssd_scan"],
-                              "train_mesh": train_mesh["ssd_scan"]},
+                              "train_mesh": train_mesh["ssd_scan"],
+                              "serve_mesh": serve_mesh["ssd_scan"]},
          "max_abs_err": b4_err["bf16_s1024"][0],
          "max_abs_err_f32": b4_err["s1024"][0], "device_kernels_per_call": len(t4["device_parts"]),
          "ms": t4["ms"], "plain_ms": t4["plain_ms"], "bound_ms": t4["bound_ms"],
@@ -3719,6 +4129,8 @@ if __name__ == "__main__":
         sys.exit(train_mesh_worker(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--gloo-probe":
         sys.exit(_gloo_probe_worker(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--dryrun-step":
+        sys.exit(dryrun_step_worker(sys.argv[2]))
     if sys.argv[1:] == ["--train-mesh"]:
         sys.exit(train_mesh_main())
     sys.exit(main())

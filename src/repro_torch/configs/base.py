@@ -6,8 +6,10 @@ of (mixer, ffn) sub-layer kinds.  Dense transformers have period 1 =
 own gating).  The fields are the JAX package's, so a configuration carried
 across compares field by field.  The registry holds all ten of the JAX
 package's configurations: every one exports its layers as an IMC workload
-(``workloads/lm.py``) and runs in ``models.transformer``.  The dry-run
-shape cells of the JAX package have no counterpart here.
+(``workloads/lm.py``) and runs in ``models.transformer``.  The four
+shape cells (``ALL_SHAPES``) are the JAX package's, and each configuration
+names the ones it runs (``supported_shapes``) and skips (``shape_skips``):
+``launch/cells.py`` and ``launch/dryrun.py`` read them.
 """
 from __future__ import annotations
 
@@ -28,6 +30,15 @@ class ShapeSpec:
     seq_len: int
     global_batch: int
     kind: str
+
+
+# The four assigned shape cells (identical across LM archs).
+TRAIN_4K = ShapeSpec("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeSpec("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeSpec("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeSpec("long_500k", 524_288, 1, "decode")
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}
 
 
 @dataclass(frozen=True)
@@ -98,6 +109,27 @@ class ModelConfig:
     def is_encdec(self) -> bool:
         return self.encoder_layers > 0
 
+    @property
+    def supports_long_context(self) -> bool:
+        """True if decode at 500k is sub-quadratic / bounded-memory: SSM
+        state is O(1), hybrids attend in 1/attn_every layers, and a sliding
+        window bounds the cache.  Pure full-attention archs skip
+        ``long_500k``."""
+        return self.family in ("ssm", "hybrid") or self.sliding_window > 0
+
+    def supported_shapes(self) -> List[ShapeSpec]:
+        return [s for s in ALL_SHAPES
+                if s.name != "long_500k" or self.supports_long_context]
+
+    def shape_skips(self) -> List[Tuple[str, str]]:
+        """(shape, reason) pairs for cells that are intentionally not run
+        (the JAX package's reasons, word for word)."""
+        if self.supports_long_context:
+            return []
+        return [("long_500k",
+                 "pure full-attention arch: O(S) KV cache at 524k infeasible; "
+                 "needs sub-quadratic attention (see DESIGN.md §4)")]
+
     def layer_plan(self) -> List[Tuple[str, str]]:
         """The repeating (mixer, ffn) period; len divides n_layers."""
         if self.family == "ssm":
@@ -152,6 +184,15 @@ class ModelConfig:
             n += self.encoder_layers * (attn + mlp + 2 * d)
             n += self.n_layers * (attn + d)
         return n
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top-k experts only)."""
+        if not self.n_experts:
+            return self.param_count()
+        full_moe = self.n_experts * 3 * self.d_model * self.moe_d_ff_
+        act_moe = self.topk * 3 * self.d_model * self.moe_d_ff_
+        n_moe_layers = sum(1 for _, f in self.layer_plan() if f == "moe") * self.n_blocks
+        return self.param_count() - n_moe_layers * (full_moe - act_moe)
 
     def reduced(self, **overrides) -> "ModelConfig":
         """A tiny same-family config for CPU smoke tests (the JAX

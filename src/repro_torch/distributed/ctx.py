@@ -105,8 +105,11 @@ def local_shard(full: torch.Tensor, mesh, places: Sequence) -> torch.Tensor:
 
 def distribute(full: torch.Tensor, mesh, places: Sequence) -> DTensor:
     """A DTensor of ``full`` (the same value on every rank), each rank
-    keeping its own shard: no communication."""
-    local = local_shard(full, mesh, places).contiguous()
+    keeping its own shard, a copy (a view would keep all of ``full``
+    alive): no communication."""
+    local = local_shard(full, mesh, places)
+    local = local.clone(memory_format=torch.contiguous_format) if (
+        local.numel() != full.numel()) else local.contiguous()
     return DTensor.from_local(local, mesh, tuple(places), run_check=False)
 
 
@@ -124,6 +127,33 @@ def whole(w: DTensor, rows: Sequence) -> torch.Tensor:
     mesh = w.device_mesh
     grad = [Partial() if p == Shard(0) else Replicate() for p in rows]
     return w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(grad_placements=grad)
+
+
+def local_rows(c: DTensor, dim: int) -> Tuple[torch.Tensor, int, list]:
+    """(this rank's local tensor of ``c``, the global index of its first
+    row along ``dim``, the mesh dims that split ``dim``): a dim split over
+    several mesh dims is split in mesh order, as ``placements`` lays it."""
+    mesh = c.device_mesh
+    split = [i for i, p in enumerate(c.placements) if p == Shard(dim)]
+    idx = 0
+    for i in split:
+        idx = idx * mesh.size(i) + mesh.get_coordinate()[i]
+    local = c.to_local()
+    return local, idx * local.shape[dim], split
+
+
+def all_reduce_over(mesh, dims: Sequence[int]):
+    """``f(t, op)``: ``t`` reduced ("max" / "sum") over the ranks of mesh
+    ``dims``, one functional all-reduce per dim of more than one rank;
+    ``t`` itself for none."""
+    import torch.distributed._functional_collectives as funcol
+
+    def f(t: torch.Tensor, op: str) -> torch.Tensor:
+        for i in dims:
+            if mesh.size(i) > 1:
+                t = funcol.all_reduce(t, op, mesh.get_group(i))
+        return t
+    return f
 
 
 def constrain(x: torch.Tensor, logical: Sequence[Optional[str]]) -> torch.Tensor:

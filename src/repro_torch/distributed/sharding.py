@@ -180,26 +180,46 @@ def cache_spec(cfg, shape, mesh, *, seq_axis: Any = "model") -> PyTree:
 # ----------------------------------------------------------------- collectives
 @dataclasses.dataclass
 class CommStats:
-    """Collectives that DTensor ran under ``count_collectives``: calls, and
-    the bytes they brought in (each call's output), by op name."""
+    """Collectives run under ``count_collectives``: calls, and the bytes
+    they brought in (each call's output), by op name, and each call's
+    (op, bytes) in order."""
 
     calls: int = 0
     bytes: int = 0
     by_op: Dict[str, List[int]] = dataclasses.field(default_factory=dict)
+    sizes: List[Tuple[str, int]] = dataclasses.field(default_factory=list)
 
     def reset(self) -> None:
         self.calls = self.bytes = 0
         self.by_op = {}
+        self.sizes = []
 
 
 COMM = CommStats()
-_COLLECTIVE_NS = ("_c10d_functional", "c10d_functional")
+# DTensor's functional collectives, and the plain ones that ``dist.all_reduce``
+# and the other ``torch.distributed`` calls dispatch to
+COLLECTIVE_NAMESPACES = ("_c10d_functional", "c10d_functional", "c10d")
+
+
+def _outputs(ns: str, args, out) -> list:
+    """The tensors a collective writes: a functional one's result, a plain
+    ``c10d`` one's first argument (its output buffers, in place)."""
+    outs = args[0] if ns == "c10d" else out
+    flat, stack = [], [outs]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, torch.Tensor):
+            flat.append(x)
+        elif isinstance(x, (list, tuple)):
+            stack.extend(x)
+    return flat
 
 
 class count_collectives(TorchDispatchMode):
-    """Counts into ``COMM`` every functional collective (the ops DTensor
-    lowers its redistributions to) run while it is entered, on the calling
-    thread and in the backward passes it starts."""
+    """Counts into ``COMM`` every collective run while it is entered, on the
+    calling thread and in the backward passes it starts: DTensor's
+    functional collectives (the ops it lowers its redistributions to) and
+    the plain ``c10d`` ones, each call once."""
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -209,14 +229,15 @@ class count_collectives(TorchDispatchMode):
         out = func(*args, **(kwargs or {}))
         ns = getattr(func, "namespace", "")
         name = func.__name__.split(".")[0]
-        # not wait_tensor, nor the helpers (``_wrap_tensor_autograd`` wraps
-        # each collective's output for autograd: counting it counts twice)
-        if ns in _COLLECTIVE_NS and name != "wait_tensor" and not name.startswith("_"):
-            outs = out if isinstance(out, (list, tuple)) else [out]
-            n = sum(o.numel() * o.element_size() for o in outs
-                    if isinstance(o, torch.Tensor))
+        # not wait_tensor, nor the functional helpers (``_wrap_tensor_autograd``
+        # wraps each collective's output for autograd: counting it counts
+        # twice); ``c10d._allgather_base_`` is a collective
+        if (ns in COLLECTIVE_NAMESPACES and name != "wait_tensor"
+                and (ns == "c10d" or not name.startswith("_"))):
+            n = sum(o.numel() * o.element_size() for o in _outputs(ns, args, out))
             COMM.calls += 1
             COMM.bytes += n
+            COMM.sizes.append((name, n))
             c = COMM.by_op.setdefault(name, [0, 0])
             c[0] += 1
             c[1] += n

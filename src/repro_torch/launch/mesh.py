@@ -28,10 +28,15 @@ degrades to 1x1 in a world of one.  ``make_mesh`` and
 makes the default process group from torchrun's ``RANK`` / ``WORLD_SIZE``
 / ``LOCAL_RANK`` (``MASTER_ADDR`` / ``MASTER_PORT``), or a world of one
 when they are not set, and puts the rank on ``cuda:LOCAL_RANK``.  Library
-functions take a mesh and never make a group.
+functions take a mesh and never make a group.  ``fake_world`` makes a
+default group of ``n`` ranks with no ranks behind it (the ``fake``
+backend): this process is its rank 0, and every collective returns at once
+without moving data, so a step traced under ``FakeTensorMode`` on a
+production mesh runs on one host (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import math
 import os
@@ -75,6 +80,26 @@ def init_world(device: str = "cuda", *,
             dist.init_process_group(backend, store=dist.HashStore(), rank=0,
                                     world_size=1, timeout=timeout)
     return dist.get_rank(), dist.get_world_size(), dev
+
+
+@contextlib.contextmanager
+def fake_world(n: int, device_type: str = "cuda"):
+    """A ``fake`` default process group of ``n`` ranks (this process rank
+    0, a ``FakeStore``), destroyed on exit; refuses when a default group
+    already exists, so no run joins a fake world by mistake (or a test
+    another's).  The group serves collectives on ``device_type`` only,
+    where the (fake) tensors of the steps traced inside claim to live:
+    fake tensors need no card."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a default process group exists already")
+    dist.init_process_group(f"{device_type}:fake", store=FakeStore(), rank=0,
+                            world_size=int(n))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def _world() -> int:

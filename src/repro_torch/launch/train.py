@@ -103,11 +103,12 @@ def batch_source(cfg, seq: int, batch: int, seed: int, dev: torch.device, mesh=N
     ``step``'s batch (the synthetic pipeline's, a pure function of ``(seed,
     step)``; on a mesh this rank's ``input_sharding`` slice of it), and
     ``placed(arrays)`` them on ``dev`` (DTensors on a mesh)."""
-    extras = {k: v for k, v in input_specs(cfg, "train", batch, seq).items()
+    shape = ShapeSpec("train", seq, batch, "train")
+    extras = {k: v for k, v in input_specs(cfg, shape).items()
               if k not in ("inputs", "targets")}
     batch_fn = make_batch_fn(cfg.vocab_size, seq, batch, seed=seed, extras=extras)
     if mesh is not None:
-        specs = sharding.input_sharding(cfg, ShapeSpec("train", seq, batch, "train"), mesh)
+        specs = sharding.input_sharding(cfg, shape, mesh)
         places = {k: dist_ctx.placements(mesh, v) for k, v in specs.items()}
         whole = batch_fn
 

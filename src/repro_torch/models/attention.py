@@ -155,3 +155,22 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     p = torch.softmax(s, dim=-1)
     out = _decode_values(p.to(v_cache.dtype), v_cache)
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
+def decode_attention_parts(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                           ok: torch.Tensor, reduce) -> torch.Tensor:
+    """``decode_attention`` over a cache whose rows are split across ranks:
+    q (B, 1, H, D) against this rank's rows (B, S_loc, KV, D), ``ok``
+    (B, S_loc) its valid rows, and ``reduce(t, op)`` a float32 tensor
+    reduced ("max" / "sum") over the ranks that split the rows.  The max
+    and the softmax's sum are taken over every rank's rows, so each rank's
+    probabilities are the single-cache ones (rounded to v's dtype as
+    there), and the ranks' ``p @ V`` partial sums add up in float32."""
+    B, Sq, H, D = q.shape
+    KV = k_cache.shape[2]
+    qf = (q * D ** -0.5).to(k_cache.dtype).reshape(B, Sq, KV, H // KV, D)
+    s = torch.where(ok[:, None, None, None, :], _decode_scores(qf, k_cache), NEG_INF)
+    e = torch.exp(s - reduce(s.amax(dim=-1, keepdim=True), "max"))
+    p = e / reduce(e.sum(dim=-1, keepdim=True), "sum")
+    out = reduce(_decode_values(p.to(v_cache.dtype), v_cache), "sum")
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)

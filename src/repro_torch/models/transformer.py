@@ -36,7 +36,14 @@ import torch.utils.checkpoint
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.ctx import constrain, project
+from repro_torch.distributed.ctx import (
+    all_reduce_over,
+    batch_rows,
+    constrain,
+    local_rows,
+    logical_axis_size,
+    project,
+)
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
@@ -220,6 +227,36 @@ def layer(tree: PyTree, i: int) -> PyTree:
     return tree_map(lambda t: t[i], tree)
 
 
+def _unbind(t: torch.Tensor) -> List[torch.Tensor]:
+    """The layers of one stacked leaf (views).  A DTensor is unbound on its
+    local tensor (the stacked dim is never split) and each layer wrapped
+    with the placements of the dims that remain."""
+    if not isinstance(t, DTensor):
+        return list(torch.unbind(t, 0))
+    places = [Shard(p.dim - 1) if isinstance(p, Shard) else p for p in t.placements]
+    return [DTensor.from_local(x, t.device_mesh, places, run_check=False,
+                               shape=t.shape[1:], stride=t.stride()[1:])
+            for x in torch.unbind(t.to_local(), 0)]
+
+
+def layers(tree: PyTree, n: int) -> List[PyTree]:
+    """The ``n`` layers of a tree stacked over blocks, each leaf unbound
+    once (views, no copies; in-place writes reach the stack).  Its backward
+    stacks the layers' gradients once, where ``layer(tree, i)`` for every
+    ``i`` makes each layer's gradient a zero tensor of the whole stack, a
+    step's bytes quadratic in depth."""
+    def walk(t) -> List[PyTree]:  # the n per-layer trees of ``t``
+        if isinstance(t, dict):
+            subs = {k: walk(v) for k, v in t.items()}
+            return [{k: v[i] for k, v in subs.items()} for i in range(n)]
+        if isinstance(t, (list, tuple)):
+            subs = [walk(v) for v in t]
+            return [[v[i] for v in subs] for i in range(n)]
+        return _unbind(t)
+
+    return walk(tree)
+
+
 # ======================================================================
 # sub-layers
 # ======================================================================
@@ -237,15 +274,25 @@ def _split_heads(x, n, d):
     return x.reshape(x.shape[:-1] + (n, d))
 
 
+def _heads(name: str, n: int):
+    """The logical name of a projection's head dim (``"heads"`` or
+    ``"kv_heads"``) when its ``n`` heads divide the mesh axes the name maps
+    to, else None: the weight's bf16 copy is then laid out whole along
+    those axes, so the projection's output is too and a rank never holds
+    part of a head (DTensor cannot split (..., n * Dh) into heads unevenly).
+    The name itself off a mesh."""
+    return name if n % logical_axis_size(name) == 0 else None
+
+
 def _qkv(cfg, p, h):
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    q = project(h, _wc(p, "wq", h.dtype, (None, "heads")))
-    k = project(h, _wc(p, "wk", h.dtype, (None, "kv_heads")))
-    v = project(h, _wc(p, "wv", h.dtype, (None, "kv_heads")))
-    if cfg.qkv_bias:
-        q = q + p["bq"].to(q.dtype)
-        k = k + p["bk"].to(k.dtype)
-        v = v + p["bv"].to(v.dtype)
+    q = project(h, _wc(p, "wq", h.dtype, (None, _heads("heads", H))))
+    k = project(h, _wc(p, "wk", h.dtype, (None, _heads("kv_heads", KV))))
+    v = project(h, _wc(p, "wv", h.dtype, (None, _heads("kv_heads", KV))))
+    if cfg.qkv_bias:  # each bias laid out as its projection's output
+        q = q + _wc(p, "bq", q.dtype, (_heads("heads", H),))
+        k = k + _wc(p, "bk", k.dtype, (_heads("kv_heads", KV),))
+        v = v + _wc(p, "bv", v.dtype, (_heads("kv_heads", KV),))
     return _split_heads(q, H, Dh), _split_heads(k, KV, Dh), _split_heads(v, KV, Dh)
 
 
@@ -304,8 +351,8 @@ def xattn_full(cfg, p, x, enc_kv, *, impl="kernel"):
     B, S, d = x.shape
     k, v = enc_kv
     h = rms_norm(x, p["norm_w"], cfg.norm_eps)
-    q = _split_heads(project(h, _wc(p, "wq", h.dtype, (None, "heads"))), cfg.n_heads,
-                     cfg.head_dim_)
+    q = _split_heads(project(h, _wc(p, "wq", h.dtype, (None, _heads("heads", cfg.n_heads)))),
+                     cfg.n_heads, cfg.head_dim_)
     o = _attention(q, k, v, causal=False, window=0, impl=impl)
     return x + project(o.reshape(B, S, -1), _wc(p, "wo", o.dtype, ("heads", None)))
 
@@ -314,17 +361,22 @@ def xattn_decode(cfg, p, x, enc_kv):
     B, S1, d = x.shape
     k, v = enc_kv
     h = rms_norm(x, p["norm_w"], cfg.norm_eps)
-    q = _split_heads(h @ _wc(p, "wq", h.dtype, (None, "heads")), cfg.n_heads, cfg.head_dim_)
-    o = attn_lib.decode_attention(q, k, v)
-    return x + o.reshape(B, S1, -1) @ _wc(p, "wo", o.dtype, ("heads", None))
+    q = _split_heads(project(h, _wc(p, "wq", h.dtype, (None, _heads("heads", cfg.n_heads)))),
+                     cfg.n_heads, cfg.head_dim_)
+    if isinstance(q, DTensor):
+        o = _decode_attention_mesh(q, k, v)
+    else:
+        o = attn_lib.decode_attention(q, k, v)
+    return x + project(o.reshape(B, S1, -1), _wc(p, "wo", o.dtype, ("heads", None)))
 
 
 def _build_xkv(cfg, p, enc_out):
     """Project encoder output to (k, v) for one decoder layer."""
     KV, Dh = cfg.n_kv_heads, cfg.head_dim_
-    k = _split_heads(project(enc_out, _wc(p, "wk", enc_out.dtype, (None, "kv_heads"))), KV, Dh)
-    v = _split_heads(project(enc_out, _wc(p, "wv", enc_out.dtype, (None, "kv_heads"))), KV, Dh)
-    return k, v
+    wk = _wc(p, "wk", enc_out.dtype, (None, _heads("kv_heads", KV)))
+    wv = _wc(p, "wv", enc_out.dtype, (None, _heads("kv_heads", KV)))
+    return (_split_heads(project(enc_out, wk), KV, Dh),
+            _split_heads(project(enc_out, wv), KV, Dh))
 
 
 def attn_decode(cfg, p, x, cache, *, pos, mrope_pos=None):
@@ -334,7 +386,8 @@ def attn_decode(cfg, p, x, cache, *, pos, mrope_pos=None):
     of each sequence.  ``pos``: (B,) absolute position of each sequence's
     new token (every slot decodes at its own position); rows past each
     sequence's length are masked by its valid length.  With mrope and no
-    ``mrope_pos`` (3, B, 1), the three streams all take ``pos``.
+    ``mrope_pos`` (3, B, 1), the three streams all take ``pos``.  On a mesh
+    (DTensors) the cache stays in its layout: ``_attn_decode_mesh``.
     """
     B, S1, d = x.shape
     C = cache["k"].shape[1]
@@ -343,14 +396,75 @@ def attn_decode(cfg, p, x, cache, *, pos, mrope_pos=None):
     if cfg.rope_type == "mrope" and mrope_pos is None:
         mrope_pos = pos.expand(3, B)[..., None]
     q, k = _rope(cfg, q, k, pos[:, None], mrope_pos)
-    rows = torch.arange(B, device=x.device)
-    widx = torch.remainder(pos, C)
-    cache["k"][rows, widx] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, widx] = v[:, 0].to(cache["v"].dtype)
-    valid = torch.clamp_max(pos + 1, C)
-    o = attn_lib.decode_attention(q, cache["k"], cache["v"], valid_len=valid)
-    out = o.reshape(B, S1, -1) @ _wc(p, "wo", o.dtype, ("heads", None))
+    if isinstance(q, DTensor):
+        o = _attn_decode_mesh(q, k, v, cache, pos)
+    else:
+        rows = torch.arange(B, device=x.device)
+        widx = torch.remainder(pos, C)
+        cache["k"][rows, widx] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, widx] = v[:, 0].to(cache["v"].dtype)
+        valid = torch.clamp_max(pos + 1, C)
+        o = attn_lib.decode_attention(q, cache["k"], cache["v"], valid_len=valid)
+    out = project(o.reshape(B, S1, -1), _wc(p, "wo", o.dtype, ("heads", None)))
     return x + out, cache
+
+
+def _same_batch_rows(rows, c: DTensor, dim: int) -> None:
+    """A cache's batch dim ``dim`` must be split where the activations'
+    batch is (``input_sharding`` and ``cache_spec`` both split it over
+    ``batch_axes`` when it divides; a mesh dim of one rank splits
+    nothing, and ``constrain`` leaves it whole)."""
+    mesh = c.device_mesh
+    mine = [pl == Shard(0) and mesh.size(i) > 1 for i, pl in enumerate(rows)]
+    theirs = [pl == Shard(dim) and mesh.size(i) > 1 for i, pl in enumerate(c.placements)]
+    if mine != theirs:
+        raise ValueError(f"cache batch placements {c.placements} differ from the "
+                         f"activations' {rows}")
+
+
+def _attn_decode_mesh(q, k, v, cache, pos):
+    """The decode step's cache write and attention on DTensors, the cache
+    (B, C, KV, Dh) in its ``cache_spec`` layout (batch split as the
+    activations', the sequence over ``model``) and never moved: each rank
+    takes its sequences' query and new (k, v) with all heads (one token:
+    small gathers), the rank that holds row ``pos % C`` writes it (a masked
+    write of its local rows, the ring layout kept), and the attention is
+    a softmax split over the ranks that hold rows
+    (``attention.decode_attention_parts``: max, sum and ``p @ V`` over each
+    rank's valid rows, combined in float32)."""
+    mesh = q.device_mesh
+    rows = batch_rows(q)
+    ql = q.redistribute(mesh, rows).to_local()
+    kl, vl = (t.redistribute(mesh, rows).to_local()[:, 0] for t in (k, v))
+    posl = pos.redistribute(mesh, batch_rows(pos)).to_local()
+    _same_batch_rows(rows, cache["k"], 0)
+    kc, lo, split = local_rows(cache["k"], 1)
+    vc = cache["v"].to_local()
+    C, n = cache["k"].shape[1], kc.shape[1]
+    li = torch.remainder(posl, C) - lo
+    hit = ((li >= 0) & (li < n))[:, None, None]
+    li = li.clamp(0, n - 1)
+    b = torch.arange(kc.shape[0], device=kc.device)
+    kc[b, li] = torch.where(hit, kl.to(kc.dtype), kc[b, li])
+    vc[b, li] = torch.where(hit, vl.to(vc.dtype), vc[b, li])
+    ok = (lo + torch.arange(n, device=kc.device))[None, :] < torch.clamp_max(posl + 1, C)[:, None]
+    o = attn_lib.decode_attention_parts(ql, kc, vc, ok, all_reduce_over(mesh, split))
+    return DTensor.from_local(o, mesh, rows, run_check=False)
+
+
+def _decode_attention_mesh(q, k_cache: DTensor, v_cache: DTensor):
+    """``decode_attention(q, k, v)`` of a query DTensor against a cache
+    (B, S, KV, Dh) in its ``cache_spec`` layout, every row valid (whisper's
+    cross-attention over the encoder frames): the split softmax of
+    ``_attn_decode_mesh``, no write."""
+    mesh = q.device_mesh
+    rows = batch_rows(q)
+    _same_batch_rows(rows, k_cache, 0)
+    kc, _, split = local_rows(k_cache, 1)
+    ok = torch.ones((kc.shape[0], kc.shape[1]), dtype=torch.bool, device=kc.device)
+    o = attn_lib.decode_attention_parts(q.redistribute(mesh, rows).to_local(), kc,
+                                        v_cache.to_local(), ok, all_reduce_over(mesh, split))
+    return DTensor.from_local(o, mesh, rows, run_check=False)
 
 
 def mlp_sublayer(cfg, p, x):
@@ -460,8 +574,7 @@ def encode(cfg: ModelConfig, params: PyTree, frames: torch.Tensor, *,
     x = project(frames, enc["frames_proj"].to(frames.dtype))
     x = x + sinusoid_positions(S, d, frames.device).to(x.dtype)
     positions = torch.arange(S, device=frames.device)
-    for i in range(cfg.encoder_layers):
-        sp = layer(enc["blocks"][0], i)
+    for sp in layers(enc["blocks"][0], cfg.encoder_layers):
         x = constrain(x, ("batch", "seq", None))
         x, _ = attn_full(cfg, sp["mixer"], x, positions=positions, causal=False, impl=impl)
         x = mlp_sublayer(cfg, sp["ffn"], x)
@@ -523,8 +636,10 @@ def _embed(cfg, params, tokens, vision_embeds=None):
 
 
 def _logits(cfg, params, x):
+    """The head product; on a mesh its bf16 copy gathered over the FSDP
+    axis (``_wc``'s layout), the vocab split over ``model``."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ head_weight(cfg, params).to(x.dtype)
+    return project(x, constrain(head_weight(cfg, params).to(x.dtype), (None, "vocab")))
 
 
 def forward(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor, *,
@@ -548,11 +663,12 @@ def forward(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor, *,
     enc_out = encode(cfg, params, frames, impl=impl) if cfg.is_encdec else None
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     plan = cfg.layer_plan()
+    slots = [layers(slot, cfg.n_blocks) for slot in params["blocks"]]
 
     def block(blk, x, aux):
         x = constrain(x, ("batch", "seq", None))  # keep batch sharded in-loop
         for i, (mixer, ffn) in enumerate(plan):
-            sp = layer(params["blocks"][i], blk)
+            sp = slots[i][blk]
             if mixer == "attn":
                 x, _ = attn_full(cfg, sp["mixer"], x, positions=positions,
                                  mrope_pos=mrope_pos, impl=impl)
@@ -584,12 +700,15 @@ def prefill(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor, *,
             vision_embeds: Optional[torch.Tensor] = None,
             mrope_pos: Optional[torch.Tensor] = None,
             frames: Optional[torch.Tensor] = None,
-            impl: str = "kernel", cache_dtype=ACT_DTYPE) -> Tuple[torch.Tensor, PyTree]:
+            impl: str = "kernel", cache_dtype=None) -> Tuple[torch.Tensor, PyTree]:
     """Process the whole prompt; returns (last-token logits (B, 1, V), the
     decode cache).  The cache length equals the prompt length
     (ring-truncated to the sliding window when the arch uses one); enc-dec
-    archs encode ``frames`` and keep each layer's cross-KV in the cache."""
+    archs encode ``frames`` and keep each layer's cross-KV in the cache.
+    The cache is in ``cache_dtype``, by default the activation dtype
+    (``ACT_DTYPE`` when called)."""
     B, S = tokens.shape
+    cache_dtype = cache_dtype or ACT_DTYPE
     x = _embed(cfg, params, tokens, vision_embeds)
     positions = torch.arange(S, device=tokens.device)
     enc_out = encode(cfg, params, frames, impl=impl) if cfg.is_encdec else None
@@ -597,19 +716,18 @@ def prefill(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor, *,
     plan = cfg.layer_plan()
     W = cfg.sliding_window
     per_layer: List[List[Dict[str, torch.Tensor]]] = [[] for _ in plan]
+    slots = [layers(slot, cfg.n_blocks) for slot in params["blocks"]]
     for blk in range(cfg.n_blocks):
         x = constrain(x, ("batch", "seq", None))
         for i, (mixer, ffn) in enumerate(plan):
-            sp = layer(params["blocks"][i], blk)
+            sp = slots[i][blk]
             if mixer == "attn":
                 x, (k, v) = attn_full(cfg, sp["mixer"], x, positions=positions,
                                       mrope_pos=mrope_pos, impl=impl)
                 if W and S > W:
                     # keep the trailing window, rolled so that absolute
                     # position p lives at index p % W (ring layout)
-                    shift = (S - W) % W
-                    k = torch.roll(k[:, -W:], shift, dims=1)
-                    v = torch.roll(v[:, -W:], shift, dims=1)
+                    k, v = _ring_window(k, W), _ring_window(v, W)
                 slot_cache = {"k": k.to(cache_dtype), "v": v.to(cache_dtype)}
                 if cfg.is_encdec:
                     xk, xv = _build_xkv(cfg, sp["xattn"], enc_out)
@@ -625,6 +743,18 @@ def prefill(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor, *,
     return _logits(cfg, params, x[:, -1:]), cache
 
 
+def _ring_window(k: torch.Tensor, W: int) -> torch.Tensor:
+    """The trailing ``W`` rows of (B, S, KV, Dh) rolled so that absolute
+    position p sits at index p % W.  On a mesh each rank rolls its own
+    whole sequences (no sharding rule runs)."""
+    S = k.shape[1]
+    if isinstance(k, DTensor):
+        rows = batch_rows(k)
+        local = _ring_window(k.redistribute(k.device_mesh, rows).to_local(), W)
+        return DTensor.from_local(local, k.device_mesh, rows, run_check=False)
+    return torch.roll(k[:, -W:], (S - W) % W, dims=1)
+
+
 def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree, token: torch.Tensor,
                 pos) -> Tuple[torch.Tensor, PyTree]:
     """One decode step.  token: (B, 1) integer; pos: int or (B,) absolute
@@ -632,17 +762,20 @@ def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree, token: torch.Te
     in place.  mrope models rotate all three streams by ``pos``; enc-dec
     models attend to the cross-KV in the cache."""
     B = token.shape[0]
-    pos = torch.as_tensor(pos, device=token.device).to(torch.int64).expand(B)
+    if not isinstance(pos, DTensor):
+        pos = torch.as_tensor(pos, device=token.device).to(torch.int64).expand(B)
     x = _embed_tokens(cfg, params, token)
     if cfg.is_encdec and cfg.rope_type == "none":
         # sinusoid positions: add each sequence's pos-th row
         x = x + sinusoid_rows(pos, cfg.d_model).to(x.dtype)[:, None, :]
     plan = cfg.layer_plan()
+    slots = [layers(slot, cfg.n_blocks) for slot in params["blocks"]]
+    caches = [layers(slot, cfg.n_blocks) for slot in cache]
     for blk in range(cfg.n_blocks):
         x = constrain(x, ("batch", "seq", None))
         for i, (mixer, ffn) in enumerate(plan):
-            sp = layer(params["blocks"][i], blk)
-            ci = layer(cache[i], blk)
+            sp = slots[i][blk]
+            ci = caches[i][blk]
             if mixer == "attn":
                 x, _ = attn_decode(cfg, sp["mixer"], x, ci, pos=pos)
                 if cfg.is_encdec:
@@ -650,7 +783,8 @@ def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree, token: torch.Te
             else:
                 mc = mamba_lib.MambaCache(conv=ci["conv"], ssm=ci["ssm"])
                 x, mc = mamba_decode_sub(cfg, sp["mixer"], x, mc)
-                ci["conv"].copy_(mc.conv)
-                ci["ssm"].copy_(mc.ssm)
+                if mc.ssm is not ci["ssm"]:  # on a mesh it was stepped in place
+                    ci["conv"].copy_(mc.conv)
+                    ci["ssm"].copy_(mc.ssm)
             x, _ = _ffn(cfg, ffn, sp.get("ffn"), x, None)
     return _logits(cfg, params, x), cache

@@ -57,7 +57,10 @@ def _xent_chunk(h: torch.Tensor, head_w: torch.Tensor, t: torch.Tensor) -> torch
     package's ``einsum(..., preferred_element_type=float32)``."""
     B, c, d = h.shape
     wc = constrain(head_w.to(h.dtype), (None, "vocab"))
-    logits = project(h.reshape(B * c, d), wc, out_dtype=torch.float32).view(B, c, -1)
+    if isinstance(h, DTensor):  # no (B, c) merge: DTensor cannot view a split B of 1
+        logits = project(h, wc, out_dtype=torch.float32)
+    else:
+        logits = project(h.reshape(B * c, d), wc, out_dtype=torch.float32).view(B, c, -1)
     logits = constrain(logits, ("batch", None, "vocab"))
     m = logits.amax(dim=-1, keepdim=True).detach()
     lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
@@ -127,6 +130,10 @@ def _microbatches(batch: Dict[str, torch.Tensor], accum: int):
             parts = split(name, x.to_local())
             return [DTensor.from_local(v, x.device_mesh, x.placements, run_check=False)
                     for v in parts]
+        rows = x.shape[1 if name == "mrope_pos" else 0]
+        if rows % accum:
+            raise ValueError(f"a batch of {rows} rows (on this rank) does not split into "
+                             f"{accum} microbatches")
         if name == "mrope_pos":
             return x.reshape(x.shape[0], accum, x.shape[1] // accum, x.shape[2]).movedim(1, 0)
         return x.reshape((accum, x.shape[0] // accum) + tuple(x.shape[1:]))

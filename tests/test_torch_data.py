@@ -15,13 +15,13 @@ import pytest
 import torch
 
 from repro.data import pipeline as jdata
-from repro_torch.configs.base import get_config
+from repro_torch.configs.base import ShapeSpec, get_config
 from repro_torch.data import pipeline as tdata
 from repro_torch.launch.cells import input_specs
 
 
 def _extras(cfg, batch, seq):
-    return {k: v for k, v in input_specs(cfg, "train", batch, seq).items()
+    return {k: v for k, v in input_specs(cfg, ShapeSpec("t", seq, batch, "train")).items()
             if k not in ("inputs", "targets")}
 
 

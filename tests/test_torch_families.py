@@ -75,7 +75,7 @@ from repro.configs.base import get_config as jget
 from repro.launch import cells as jcells
 from repro.models import transformer as jt
 from repro_torch import convert
-from repro_torch.configs.base import ModelConfig, get_config as tget
+from repro_torch.configs.base import ModelConfig, ShapeSpec as TShape, get_config as tget
 from repro_torch.launch import cells as tcells
 from repro_torch.launch import serve as tserve
 from repro_torch.models import transformer as tt
@@ -368,15 +368,16 @@ def test_make_inputs_match_reference_specs():
         jc, tc = _cfgs(name, None)
         for kind in ("train", "prefill", "decode"):
             js = jcells.input_specs(jc, ShapeSpec("t", 24, 2, kind))
-            ts = tcells.input_specs(tc, kind, 2, 24)
+            ts = tcells.input_specs(tc, TShape("t", 24, 2, kind))
             assert list(ts) == list(js), (name, kind)
             for k, (shape, _) in ts.items():
                 assert shape == tuple(js[k].shape), (name, kind, k)
-            got = tcells.make_inputs(tc, kind, 2, 24, torch.Generator().manual_seed(0))
+            got = tcells.make_inputs(tc, TShape("t", 24, 2, kind),
+                                     torch.Generator().manual_seed(0))
             for k, (shape, dtype) in ts.items():
                 assert tuple(got[k].shape) == shape and got[k].dtype == dtype
     with pytest.raises(ValueError, match="kind"):
-        tcells.input_specs(tc, "score", 1, 8)
+        tcells.input_specs(tc, TShape("s", 8, 1, "score"))
 
 
 def test_sliding_window_ring_matches_reference_package():

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs.base import get_config
+from repro_torch.configs.base import ShapeSpec, get_config
 from repro_torch.core import ga, search, space
 from repro_torch.imc.cost import DesignArrays, evaluate_designs_arrays
 from repro_torch.imc.tables import WorkloadTables, build_tables_arrays
@@ -765,7 +765,7 @@ def _train_state(cfg, seed=0):
             slot["ffn"]["router"].zero_()
     for p in tree_leaves(params):
         p.requires_grad_()
-    extras = {k: v for k, v in input_specs(cfg, "train", 4, 64).items()
+    extras = {k: v for k, v in input_specs(cfg, ShapeSpec("t", 64, 4, "train")).items()
               if k not in ("inputs", "targets")}
     return params, make_batch_fn(cfg.vocab_size, 64, 4, seed=seed, extras=extras)(0)
 

@@ -29,6 +29,14 @@ def test_training_modules_are_held():
             "examples/train_lm.py"} <= held
 
 
+def test_mesh_cell_modules_are_held():
+    """The cells, the dry-run, the roofline and the census are among the
+    files held below."""
+    held = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES[:-1]}
+    assert {"analysis/__init__.py", "analysis/census.py", "analysis/roofline.py",
+            "launch/cells.py", "launch/dryrun.py", "launch/roofline.py"} <= held
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
     text = path.read_text()

@@ -57,6 +57,7 @@ from repro_torch import convert
 from repro_torch import optim as topt
 from repro_torch.checkpoint import store
 from repro_torch.configs.base import get_config as tget
+from repro_torch.configs.base import ShapeSpec as TShape
 from repro_torch.configs.base import list_configs
 from repro_torch.launch import cells as tcells
 from repro_torch.launch import train as tlaunch
@@ -330,7 +331,7 @@ def test_accumulation_equivalence(name):
     cfg = tget(name).reduced()
     gen = torch.Generator().manual_seed(0)
     params = tt.init(cfg, gen)
-    batch = tcells.make_inputs(cfg, "train", 4, 32, gen)
+    batch = tcells.make_inputs(cfg, TShape("t", 32, 4, "train"), gen)
     outs = []
     for accum in (1, 2):
         p = tree_unflatten(tree_flatten(params)[1],
@@ -351,7 +352,7 @@ def test_loss_decreases():
     params = tt.init(cfg, gen)
     for leaf in tree_leaves(params):
         leaf.requires_grad_()
-    batch = tcells.make_inputs(cfg, "train", 4, 32, gen)
+    batch = tcells.make_inputs(cfg, TShape("t", 32, 4, "train"), gen)
     step = tstep.make_train_step(cfg, peak_lr=1e-3, total_steps=30, warmup_steps=2)
     opt = topt.adamw_init(params)
     losses = []
@@ -375,11 +376,12 @@ def test_train_inputs_and_accum_match_reference(name):
     jcfg, tcfg = jget(name).reduced(), tget(name).reduced()
     shape = ShapeSpec("t", 32, 4, "train")
     want = jcells.input_specs(jcfg, shape)
-    got = tcells.input_specs(tcfg, "train", 4, 32)
+    tshape = TShape("t", 32, 4, "train")
+    got = tcells.input_specs(tcfg, tshape)
     assert list(got) == list(want)
     assert all(tuple(got[k][0]) == tuple(want[k].shape) for k in got)
-    assert tcells.default_accum(tget(name), "train") == jcells.default_accum(jget(name), shape)
-    assert tcells.default_accum(tget(name), "prefill") == 1
+    assert tcells.default_accum(tget(name), tshape) == jcells.default_accum(jget(name), shape)
+    assert tcells.default_accum(tget(name), TShape("p", 32, 4, "prefill")) == 1
 
 
 @pytest.mark.parametrize("name", ["llama3.2-1b", "mamba2-780m"])
