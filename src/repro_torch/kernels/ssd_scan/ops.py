@@ -2,17 +2,21 @@
 
 * On CPU tensors it runs the plain version (``ref.ssd_chunked``).
 * On CUDA tensors it launches ``csrc/ssd_scan.cu``, or raises.  There is
-  no fallback.  One call runs four kernels back to back on the current
-  stream, three of them on a grid of chunks x heads x batch:
-  ``ssd_scan_state_kernel`` (chunk states), ``ssd_scan_pass_kernel`` (the
-  state pass), ``ssd_scan_intra_kernel`` (the intra-chunk term) and
-  ``ssd_scan_out_kernel`` (y), with float32 scratch this wrapper allocates.
-  They sum every product in the plain version's order, in float32 for
-  bf16 and float32 inputs alike.
+  no fallback.  One call runs three kernels back to back on the current
+  stream: ``ssd_scan_chunk_state_kernel`` (each chunk's state, on the
+  tensor cores), ``ssd_scan_pass_kernel`` (the state pass over chunks)
+  and ``ssd_scan_chunk_out_kernel`` (C B^T, C h_in and L x on the tensor
+  cores, y written once), with scratch this wrapper allocates.  The
+  products take bf16 operands and float32 sums; a float32 operand goes in
+  as two bf16 terms, so y is not the plain version's bits: it lies within
+  ~1e-5 of the output's scale of it for float32 inputs and within one
+  bf16 rounding for bf16 inputs (``tests/test_torch_ssd.py`` emulates the
+  arithmetic).  A (batch row, head)'s result does not depend on the rest
+  of the call.
 
 ``ssd_chunked.launches`` counts wrapper calls that launched the kernel
 (never plain runs): one call counts one launch, also when it runs the
-four kernels.
+three kernels.
 """
 from __future__ import annotations
 
@@ -35,10 +39,12 @@ def _lib():
     fn = lib.ssd_scan_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
         fn.restype = i
         lib.ssd_scan_smem_bytes.argtypes = [i, i, i, i]
         lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
+        lib.ssd_scan_work_bytes.argtypes = [i, i, i, i, i, i]
+        lib.ssd_scan_work_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -97,17 +103,15 @@ def ssd_chunked(
     h0c = None if h0 is None else h0.to(torch.float32).contiguous()
     y = torch.empty_like(xc)
     h = torch.empty((B, H, N, P), dtype=torch.float32, device=dev)
-    # scratch: the chunk states (entering states after the state pass), the
-    # cumsums and the intra-chunk term
-    states = torch.empty((B, H, S // Q, N, P), dtype=torch.float32, device=dev)
-    cum = torch.empty((B, H, S // Q, Q), dtype=torch.float32, device=dev)
-    y_intra = torch.empty((B, S, H, P), dtype=torch.float32, device=dev)
+    # scratch: the cumsums, each chunk's state and the entering states' bf16
+    # terms
+    work = torch.empty(lib.ssd_scan_work_bytes(B, S, H, P, N, Q), dtype=torch.uint8,
+                       device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.ssd_scan_launch(
         xc.data_ptr(), dtc.data_ptr(), Ac.data_ptr(), bc.data_ptr(), cc.data_ptr(),
         None if h0c is None else h0c.data_ptr(), y.data_ptr(), h.data_ptr(),
-        states.data_ptr(), cum.data_ptr(), y_intra.data_ptr(),
-        B, S, H, P, N, Q, dtype, dev.index, stream)
+        work.data_ptr(), B, S, H, P, N, Q, dtype, dev.index, stream)
     _build.check(_NAME, rc)
     ssd_chunked.launches += 1
     return y, h

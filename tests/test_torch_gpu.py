@@ -492,6 +492,55 @@ def _check_ssd(cuda, B, S, H, P, N, chunk, dtype):
         assert float((h - hr).abs().max()) <= 1e-4 * max(1.0, float(hr.abs().max()))
 
 
+def _ssd_model_inputs(cuda, B, S, H, N, seed):
+    """bf16 inputs at a model's widths (P=64), the kernel tests'
+    distributions, and an initial state."""
+    gen = _gen(cuda, seed)
+    x = torch.randn((B, S, H, 64), generator=gen, device=cuda).bfloat16()
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=gen, device=cuda))
+    A = -torch.exp(torch.randn((H,), generator=gen, device=cuda) * 0.5)
+    Bm = torch.randn((B, S, 1, N), generator=gen, device=cuda).bfloat16()
+    Cm = torch.randn((B, S, 1, N), generator=gen, device=cuda).bfloat16()
+    h0 = torch.randn((B, H, N, 64), generator=gen, device=cuda)
+    return x, dt, A, Bm, Cm, h0
+
+
+@pytest.mark.parametrize("H,N", [(48, 128), (128, 16)])  # mamba2-780m, jamba
+def test_ssd_scan_rows_and_heads_keep_their_bits(cuda, H, N):
+    """A (batch row, head)'s y and final state do not depend on the rest of
+    the call: each row of a B=4 call, and heads 0..7, equal bit for bit
+    the same row or heads run alone (the mesh paths rely on it)."""
+    x, dt, A, Bm, Cm, h0 = _ssd_model_inputs(cuda, 4, 1024, H, N, 11)
+    y, h = ssd_chunked(x, dt, A, Bm, Cm, h0)
+    for b in range(4):
+        r = slice(b, b + 1)
+        yb, hb = ssd_chunked(x[r], dt[r], A, Bm[r], Cm[r], h0[r])
+        assert torch.equal(yb, y[r]) and torch.equal(hb, h[r]), b
+    hs = slice(0, 8)
+    yh, hh = ssd_chunked(x[:, :, hs].contiguous(), dt[:, :, hs].contiguous(), A[hs].contiguous(),
+                         Bm, Cm, h0[:, hs].contiguous())
+    assert torch.equal(yh, y[:, :, hs]) and torch.equal(hh, h[:, hs])
+
+
+@pytest.mark.parametrize("H,N", [(48, 128), (128, 16)])  # mamba2-780m, jamba
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssd_scan_within_the_float64_margin(cuda, H, N, with_h0):
+    """At a model's widths, the kernel's y lies at most one bf16 ulp (2^-7
+    of the largest |y|, ``chip_smoke.py``'s ``SSD_Y_MARGIN``) further from
+    the scan in float64 than the plain scan's y, and its final state
+    within 1e-4 of the plain one's scale."""
+    x, dt, A, Bm, Cm, h0 = _ssd_model_inputs(cuda, 1, 1024, H, N, 12)
+    h0 = h0 if with_h0 else None
+    y, h = ssd_chunked(x, dt, A, Bm, Cm, h0)
+    yp, hp = sref.ssd_chunked(x, dt, A, Bm, Cm, h0)
+    f64 = [None if t is None else t.double() for t in (x, dt, A, Bm, Cm, h0)]
+    y64, _ = sref.ssd_chunked(*f64, compute_dtype=torch.float64)
+    scale = y64.abs().max()
+    extra = float(((y.double() - y64).abs().max() - (yp.double() - y64).abs().max()) / scale)
+    assert extra <= 2.0 ** -7
+    assert float((h - hp).abs().max()) <= 1e-4 * max(1.0, float(hp.abs().max()))
+
+
 def test_ssd_scan_kernel_refuses(cuda):
     x = torch.zeros((1, 64, 2, 8), device=cuda)
     dt = torch.zeros((1, 64, 2), device=cuda)

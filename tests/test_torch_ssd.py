@@ -168,3 +168,150 @@ def test_ssd_float64_scan_matches_reference_package(B, S, H, P, N, chunk, dtype)
         h = (h * torch.exp(dt_[:, t] * A_)[..., None, None]
              + torch.einsum("bn,bh,bhp->bhnp", B_[:, t, 0], dt_[:, t], x_[:, t]))
     assert (h64 - h).abs().max() < (h32.double() - h).abs().max()
+
+
+# ------------------------------------------- the CUDA kernel's arithmetic
+# ``csrc/ssd_scan.cu`` runs every product on the tensor cores: bf16
+# operands, float32 sums.  An operand that is float32 (L, B o w, h_in; and
+# x, B, C for float32 inputs) goes in as a sum of bf16 terms, hi = bf16(v),
+# lo = bf16(v - hi), ...; a product of two split operands keeps the term
+# pairs (a, b) with a + b < the number of terms (hi.hi + hi.lo + lo.hi for
+# two).  This emulation repeats that arithmetic with float32 matmuls of
+# bf16-exact values (exact products, float32 sums, another summation order
+# than the card's) so the number of terms is chosen here, before the card.
+SPLIT_TERMS = 2
+# chip_smoke.py's per-call margin: a scan's y may lie this much (of the
+# call's largest |y|) further from the float64 scan than the plain scan's y
+SSD_Y_MARGIN = 2.0 ** -7
+
+
+def _terms(v, k):
+    out, rest = [], v.float()
+    for _ in range(k):
+        hi = rest.to(torch.bfloat16).float()
+        out.append(hi)
+        rest = rest - hi
+    return out
+
+
+def _split_mm(eq, a_terms, b_terms):
+    k = max(len(a_terms), len(b_terms))
+    acc = None
+    for ia, a in enumerate(a_terms):
+        for ib, b in enumerate(b_terms):
+            if ia + ib < k:
+                part = torch.einsum(eq, a, b)
+                acc = part if acc is None else acc + part
+    return acc
+
+
+def _emulate_kernel(x, dt, A, Bm, Cm, h0=None, *, chunk=128, terms=SPLIT_TERMS):
+    """The kernel's chunked scan: chunk states h^T = (x o w)^T B, the state
+    pass in float32, then per chunk y = exp(cum) o (C h_in) + L x with
+    L = (C B^T) o exp(cum_i - cum_j) o dt_j (j <= i), every product of
+    split operands as above.  bf16 x, B, C are exact operands."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    nc = S // Q
+    k_in = 1 if x.dtype == torch.bfloat16 else terms
+    xs = _terms(x.reshape(Bsz, nc, Q, H, P), k_in)
+    bs = _terms(Bm[:, :, 0].reshape(Bsz, nc, Q, N), k_in)
+    cs = _terms(Cm[:, :, 0].reshape(Bsz, nc, Q, N), k_in)
+    dtf = dt.float().reshape(Bsz, nc, Q, H)
+    cum = torch.cumsum(dtf * A.float(), dim=2)
+    total = cum[:, :, -1]
+    w = torch.exp(total[:, :, None] - cum) * dtf  # (B, nc, Q, H)
+    xw = x.float().reshape(Bsz, nc, Q, H, P) * w[..., None]
+    s_c = _split_mm("bcjhp,bcjn->bchpn", _terms(xw, terms), bs)  # h^T per chunk
+    h = (torch.zeros((Bsz, H, P, N)) if h0 is None else h0.float().transpose(-1, -2))
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = h * torch.exp(total[:, c])[..., None, None] + s_c[:, c]
+    h_in = torch.stack(h_in, 1)  # (B, nc, H, P, N)
+    cb = _split_mm("bcin,bcjn->bcij", cs, bs)
+    y = _split_mm("bcin,bchpn->bcihp", cs, _terms(h_in, terms)) * torch.exp(cum)[..., None]
+    li = torch.arange(Q)
+    causal = (li[:, None] >= li[None, :])[None, None, :, :, None]
+    diff = torch.where(causal, cum[:, :, :, None, :] - cum[:, :, None, :, :], -torch.inf)
+    L = cb[..., None] * torch.exp(diff) * dtf[:, :, None, :, :]  # (B, nc, Qi, Qj, H)
+    y = y + _split_mm("bcijh,bcjhp->bcihp", _terms(L, terms), xs)
+    return y.reshape(Bsz, S, H, P).to(x.dtype), h.transpose(-1, -2)
+
+
+def _gap(y, y64):
+    """max |y - y64| over the largest |y64|."""
+    return float((y.double() - y64).abs().max() / y64.abs().max())
+
+
+EMULATED = [  # B, S, H, P, N, chunk: N=128 (mamba2) and N=16 (jamba), ragged chunk
+    (1, 256, 3, 16, 128, 128),
+    (2, 256, 4, 16, 16, 128),
+    (1, 96, 2, 16, 128, 128),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", EMULATED)
+def test_kernel_emulation_within_the_float64_margin(B, S, H, P, N, chunk, dtype):
+    """With the split of ``SPLIT_TERMS`` bf16 terms the kernel's
+    arithmetic stays within the per-call margin of the float64 scan
+    (``chip_smoke.py``'s check) and within the kernel's tolerances of the
+    plain scan and of the JAX package's ``ssd_chunked``: float32 y within
+    1e-4 of the output's scale (``chip_smoke.py``'s B4 cases; two terms
+    read ~1e-5 of it, three ~4e-7, one ~5e-3), bf16 y within 2e-2, the
+    state within 1e-4 of its scale."""
+    x, dt, A, Bm, Cm = _inputs(B + S + N, B, S, H, P, N)
+    h0 = np.random.default_rng(N).standard_normal((B, H, N, P)).astype(np.float32)
+    args = (*_t([x], dtype), torch.from_numpy(dt), torch.from_numpy(A),
+            *_t([Bm, Cm], dtype))
+    for init in (None, torch.from_numpy(h0)):
+        y, h = _emulate_kernel(*args, init, chunk=chunk)
+        yp, hp = tref.ssd_chunked(*args, init, chunk=chunk)
+        y64, h64 = tref.ssd_chunked(*(t.double() for t in args),
+                                    None if init is None else init.double(),
+                                    chunk=chunk, compute_dtype=torch.float64)
+        assert y.dtype == dtype and h.dtype == torch.float32
+        assert _gap(y, y64) - _gap(yp, y64) <= SSD_Y_MARGIN
+        assert float((h.double() - h64).abs().max()) <= 1e-4 * max(1.0, float(h64.abs().max()))
+        if dtype == torch.float32:
+            scale = max(1.0, float(yp.abs().max()))
+            assert float((y - yp).abs().max()) <= 1e-4 * scale
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jy, jh = jref.ssd_chunked(*_j([x], jdt), jnp.asarray(dt), jnp.asarray(A),
+                              *_j([Bm, Cm], jdt), chunk=chunk)
+    y, h = _emulate_kernel(*args, chunk=chunk)
+    np.testing.assert_allclose(_np(h), _np(jh), rtol=0,
+                               atol=1e-4 * max(1.0, float(np.abs(_np(jh)).max())))
+    if dtype == torch.bfloat16:
+        np.testing.assert_allclose(_np(y), _np(jy), rtol=2e-2, atol=2e-2)
+    else:
+        np.testing.assert_allclose(_np(y), _np(jy), rtol=0,
+                                   atol=1e-4 * max(1.0, float(np.abs(_np(jy)).max())))
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", EMULATED[:2])
+def test_kernel_emulation_with_one_bf16_term(B, S, H, P, N, chunk):
+    """Why the split: with one bf16 term per float32 operand the float32
+    scan misses its 1e-4 tolerance by far (~5e-3 of the output's scale),
+    and the bf16 scan comes close: its y lies ~1.7e-3 of its largest |y|
+    further from float64 than the plain scan's, a fifth of the per-call
+    margin on its own, where two terms read as the plain scan within a
+    hundredth of the margin."""
+    x, dt, A, Bm, Cm = _inputs(B + S + N, B, S, H, P, N)
+    a32 = (*_t([x]), torch.from_numpy(dt), torch.from_numpy(A), *_t([Bm, Cm]))
+    yp, _ = tref.ssd_chunked(*a32, chunk=chunk)
+    tol = 1e-4 * max(1.0, float(yp.abs().max()))
+    assert float((_emulate_kernel(*a32, chunk=chunk, terms=1)[0] - yp).abs().max()) > 10 * tol
+    assert float((_emulate_kernel(*a32, chunk=chunk)[0] - yp).abs().max()) <= tol
+    a16 = (*_t([x], torch.bfloat16), torch.from_numpy(dt), torch.from_numpy(A),
+           *_t([Bm, Cm], torch.bfloat16))
+    y64, _ = tref.ssd_chunked(*(t.double() for t in a16), chunk=chunk,
+                              compute_dtype=torch.float64)
+    plain = _gap(tref.ssd_chunked(*a16, chunk=chunk)[0], y64)
+    one = _gap(_emulate_kernel(*a16, chunk=chunk, terms=1)[0], y64) - plain
+    two = _gap(_emulate_kernel(*a16, chunk=chunk)[0], y64) - plain
+    print(f"extra gap to float64: one term {one:.3g}, two terms {two:.3g}")
+    assert two <= SSD_Y_MARGIN / 100
+    assert SSD_Y_MARGIN / 10 < one <= SSD_Y_MARGIN
