@@ -12,7 +12,10 @@ first fault exits non-zero and prints no result:
      summary; count the wgmma (HGMMA) and mma.sync (HMMA) instructions in
      each ssd_scan kernel's SASS (``cuobjdump --dump-sass``): every kernel
      that computes a product must have some, and the CUDA-core kernels
-     it replaced must be gone;
+     it replaced must be gone; in flash_attention's, every head-dim tier
+     of ``flash_attention_wgmma_kernel`` must issue wgmma and TMA loads
+     (UTMALDG), the mma.sync kernel it replaced must be gone, and no B3
+     kernel may issue mma.sync;
   3. imc_eval against its plain version on the card, rtol 1e-5 on the
      energy and latency sums, exact demand and equal fits / valid, at the
      search path's two shapes (joint: B=8, P=40, W=4, L=64; separate: B=4,
@@ -48,12 +51,16 @@ first fault exits non-zero and prints no result:
      own 1500 and 200, Sq=Skv and Sq=200 against Skv=1500, as the models
      call it with ``ragged_kv=True``) and edges
      (ragged Sq and Skv, window 96, q_offset, D=80, 128 and 16,
-     non-causal, rows with no valid key) within 3e-2 in bf16 (the
-     tensor-core kernel; as ``tests/test_kernels.py``), the JAX kernel
-     sweep and the same edges in float32 (the CUDA-core kernel) within
-     2e-5; timed at the three llama shapes and mixtral's beside the plain
-     version and ``scaled_dot_product_attention`` (timed only, never on the
-     path);
+     non-causal, rows with no valid key), gemma-7b's prefill (H=KV=16,
+     D=256, S=1024) and D=256 with a window, a ragged Sq and keyless rows,
+     a D of 36 that the wrapper pads for TMA, and causal calls whose query
+     tiles the kernel pairs (an odd count with a q_offset; a real window)
+     within 3e-2 in bf16 (the wgmma kernel; as ``tests/test_kernels.py``),
+     the JAX kernel sweep, the same edges and D=256 in float32 (the
+     CUDA-core kernel) within 2e-5; timed at the three llama shapes,
+     mixtral's and gemma's beside the plain version and
+     ``scaled_dot_product_attention`` (timed only, never on the path), with
+     the host's cost of encoding a call's four TMA descriptors;
   6. ssd_scan against ``ref.ssd_chunked`` on the card: mamba2's prefill
      (B=1, H=48, P=64, N=128, S = 96, 128, 1024, 2048) and the JAX kernel
      sweep in float32, y and h within 1e-4 of the output's scale (max(1,
@@ -148,12 +155,13 @@ first fault exits non-zero and prints no result:
      the next loads, random weights from seed 0, peak device memory under
      ``MEM_LIMIT`` (70 GB) and logged.  ``llama3.2-1b`` (16 layers),
      ``mamba2-780m`` (48), ``mixtral-8x7b`` (8 of 32 layers),
-     ``qwen3-moe-235b-a22b`` (4 of 94) and ``jamba-v0.1-52b`` (one period,
-     8 of 32): 8 requests from seed 0 (prompts of 128-1024 tokens, 16-32
-     new tokens) through ``Engine`` with 4 slots and max_len 2048.  Every
-     launch count is set to 0 just before the burst; every request must
-     get its max_new tokens, and each prefill must launch flash_attention
-     16 (llama), 8 (mixtral), 4 (qwen3-moe) or 1 (jamba) times and
+     ``qwen3-moe-235b-a22b`` (4 of 94), ``jamba-v0.1-52b`` (one period,
+     8 of 32) and ``gemma-7b`` (28, head dim 256): 8 requests from seed 0
+     (prompts of 128-1024 tokens, 16-32 new tokens) through ``Engine``
+     with 4 slots and max_len 2048.  Every launch count is set to 0 just
+     before the burst; every request must get its max_new tokens, and each
+     prefill must launch flash_attention 16 (llama), 8 (mixtral), 4
+     (qwen3-moe), 1 (jamba) or 28 (gemma) times and
      ssd_scan 48 (mamba) or 7 (jamba) times, no other kernel at all.  Then
      the kernel path's prefill logits against the plain path's (same
      weights, plain attention / SSD called directly) within 0.05, except
@@ -262,10 +270,12 @@ first fault exits non-zero and prints no result:
      from the profiler (``device_ms``, ``plain_device_ms``), the bound
      for this run's inputs and, for flash_attention, the SDPA time; B1 and
      B2 also at the separate search's and the service's shapes
-     (``separate_ms``, ``service_ms``, ...), B3 at mixtral's prefill shape
-     (``mixtral_shape``) and B4 at jamba's (``jamba_shape``), B4's
-     device time by kernel at both shapes (``device_ms_by_kernel``) and
-     its SASS census (``tensor_core_instructions``);
+     (``separate_ms``, ``service_ms``, ...), B3 at mixtral's and gemma's
+     prefill shapes (``mixtral_shape``, ``gemma_shape``) with its
+     descriptors' host cost (``encode_us``) and B4 at jamba's
+     (``jamba_shape``), B4's device time by kernel at both shapes
+     (``device_ms_by_kernel``), and both kernels' SASS census
+     (``tensor_core_instructions``);
  12. the last line: ``{"ok": true, "device": {...}}``.
 
 Timings at every shape and the traces are printed as one
@@ -388,8 +398,8 @@ def device_parts(torch, fn, iters: int, name: str = "") -> dict:
     """Per-call device time (ms) of each device activity ``fn`` enqueues
     whose name contains ``name``, keyed by its kernel's name where it has
     one (``ssd_scan_chunk_out_kernel``); empty if not traced.  A trace
-    that holds none of them is taken once more (the profiler has returned
-    an empty trace between two that were not)."""
+    that holds none of them is taken again, up to three in all (the
+    profiler has returned an empty trace between two that were not)."""
     fn()
 
     def many():
@@ -397,7 +407,7 @@ def device_parts(torch, fn, iters: int, name: str = "") -> dict:
             fn()
 
     out: dict = {}
-    for _ in range(2):
+    for _ in range(3):
         prof, _ = _profiled(torch, many)
         for n, (ms, _) in device_kernels(prof, iters).items():
             if name in n:
@@ -465,29 +475,40 @@ def _cublaslt_version(torch) -> str:
 # instructions) and the CUDA-core kernels they replaced (gone from the build)
 B4_PRODUCT_KERNELS = ("ssd_scan_chunk_state_kernel", "ssd_scan_chunk_out_kernel")
 B4_REMOVED_KERNELS = ("ssd_scan_state_kernel", "ssd_scan_intra_kernel", "ssd_scan_out_kernel")
+# B3's bf16 kernel, one instantiation per padded head-dim tier, and the
+# mma.sync kernel it replaced (gone from the build)
+B3_KERNEL = "flash_attention_wgmma_kernel"
+B3_TIERS = (64, 128, 256)
+B3_REMOVED_KERNELS = ("flash_attention_mma_kernel",)
+# WARPGROUP.DEPBAR in each tier when no wgmma chain is serialized
+B3_MAX_DEPBAR = 4
 
 
 def sass_census(lib: Path) -> dict:
-    """{kernel instantiation: {"HGMMA": n, "HMMA": m}} from ``cuobjdump
-    --dump-sass`` of a built library: wgmma and mma.sync instructions."""
+    """{kernel instantiation: {"HGMMA": n, "HMMA": m, "UTMALDG": t, "DEPBAR": w}}
+    from ``cuobjdump --dump-sass`` of a built library: wgmma, mma.sync, TMA
+    load and wgmma wait instructions."""
     import shutil
 
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([exe, "--dump-sass", str(lib)], capture_output=True, text=True,
                          timeout=300)
     check(out.returncode == 0, f"cuobjdump failed on {lib}: {out.stderr.strip()[:400]}")
+    ops = {"HGMMA": r"\bHGMMA\.", "HMMA": r"\bHMMA\.", "UTMALDG": r"\bUTMALDG\.",
+           "DEPBAR": r"\bWARPGROUP\.DEPBAR\."}
     counts: dict = {}
     cur = None
     for line in out.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             # the kernel's name follows its length in the mangled symbol
-            name = re.search(r"\d(ssd_scan_[a-z_]+?_kernel)(I\w+?E)?", m.group(1))
+            name = re.search(r"\d((?:ssd_scan|flash_attention)_[a-z0-9_]+?_kernel)(I\w+?E)?",
+                             m.group(1))
             cur = (name.group(1) + (name.group(2) or "")) if name else m.group(1)
-            counts[cur] = {"HGMMA": 0, "HMMA": 0}
+            counts[cur] = {op: 0 for op in ops}
         elif cur is not None:
-            for op in ("HGMMA", "HMMA"):
-                if re.search(rf"\b{op}\.", line):
+            for op, pat in ops.items():
+                if re.search(pat, line):
                     counts[cur][op] += 1
     return counts
 
@@ -516,6 +537,28 @@ def phase_build(timings):
     gone = [k for k in sass if k.startswith(B4_REMOVED_KERNELS)]
     check(not gone, f"B4: CUDA-core kernels still built: {gone}")
     timings["ssd_scan/sass"] = sass
+    # B3's bf16 kernel on wgmma fed by TMA, in each head-dim tier; the
+    # mma.sync kernel it replaced is gone, and no B3 kernel issues mma.sync
+    sass = sass_census(_build.lib_path("flash_attention"))
+    for k, c in sorted(sass.items()):
+        log(f"B3 SASS {k}: HGMMA {c['HGMMA']}, HMMA {c['HMMA']}, UTMALDG {c['UTMALDG']}, "
+            f"WARPGROUP.DEPBAR {c['DEPBAR']}")
+    tiers = {k: c for k, c in sass.items() if k.startswith(B3_KERNEL)}
+    check(len(tiers) == len(B3_TIERS), f"B3: {sorted(tiers)} built, want {B3_KERNEL} "
+          f"for D tiers {B3_TIERS}")
+    for k, c in tiers.items():
+        check(c["HGMMA"] > 0, f"B3: {k} issues no wgmma")
+        check(c["UTMALDG"] > 0, f"B3: {k} issues no TMA load")
+        # ptxas puts a wait behind every wgmma of a chain it serializes
+        # (C7512): the library still builds and runs, only slower
+        check(c["DEPBAR"] <= B3_MAX_DEPBAR,
+              f"B3: {k} has {c['DEPBAR']} WARPGROUP.DEPBAR (at most {B3_MAX_DEPBAR}): "
+              f"its wgmma chains were serialized")
+    check(not any(k.startswith(B3_REMOVED_KERNELS) for k in sass),
+          f"B3: {B3_REMOVED_KERNELS} still built")
+    mma = [k for k, c in sass.items() if c["HMMA"]]
+    check(not mma, f"B3: mma.sync (HMMA) in {mma}")
+    timings["flash_attention/sass"] = sass
 
 
 def _paper_ws():
@@ -2245,6 +2288,20 @@ B3_CASES = [
     ("bf16_d16", 1, 128, 128, 4, 2, 16, True, 0, 0, "bf16", False),
     ("bf16_noncausal", 1, 128, 256, 4, 2, 64, False, 0, 0, "bf16", False),
     ("bf16_keyless_rows", 1, 64, 128, 4, 2, 64, True, 32, 400, "bf16", False),
+    # gemma-7b's prefill shape (MHA, D=256) and D=256 at the edges: a
+    # window, a ragged Sq, rows with no valid key; float32 at D=256; a D
+    # that TMA cannot address as it is (the wrapper pads it to 40)
+    ("gemma_s1024", 1, 1024, 1024, 16, 16, 256, True, 0, 0, "bf16", True),
+    ("d256_window96", 1, 256, 256, 4, 2, 256, True, 96, 0, "bf16", False),
+    ("d256_ragged_sq100", 2, 100, 128, 4, 2, 256, True, 0, 0, "bf16", False),
+    ("bf16_d256_keyless_rows", 1, 64, 128, 4, 2, 256, True, 32, 400, "bf16", False),
+    ("d256_f32", 1, 256, 256, 4, 2, 256, True, 96, 0, "f32", False),
+    ("bf16_d36_padded", 1, 96, 96, 2, 1, 36, True, 0, 0, "bf16", False),
+    # causal calls of more query tiles than SMs pair tiles in a block: an
+    # odd tile count (the middle tile alone) with a q_offset, a real window
+    ("paired_s990_q_offset128", 1, 990, 1118, 32, 8, 64, True, 0, 128, "bf16", False),
+    ("paired_window256_d128", 1, 1024, 1024, 32, 8, 128, True, 256, 0, "bf16", False),
+    ("paired_d256_g4", 1, 1024, 1024, 32, 8, 256, True, 0, 0, "bf16", False),
 ]
 
 
@@ -2307,7 +2364,27 @@ def phase_b3(torch, dev, timings):
         log(f"B3 {label}: kernel {k_ms:.4f} ms per call ({_ms(k_dev)} on the device), "
             f"plain {p_ms:.4f} ms ({_ms(p_dev)}), SDPA {l_ms:.4f} ms ({_ms(l_dev)}), "
             f"bound {b_ms:.6f} ms ({b_by})")
+        if dt == "bf16":
+            # the host cost a call adds for its four TMA descriptors
+            enc = _b3_encode_us(B, Sq, Skv, H, KV, D)
+            timings[f"flash_attention/{label}"]["encode_us"] = enc
+            log(f"B3 {label}: encoding the four tensor maps takes {enc:.3f} us on the host")
     return errs
+
+
+def _b3_encode_us(B, Sq, Skv, H, KV, D, iters=2000) -> float:
+    """Host microseconds to encode one call's four TMA descriptors (the
+    library's own clock, no launch)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    fn = _build.load("flash_attention").flash_attention_encode_us
+    fn.argtypes = [ctypes.c_int] * 7
+    fn.restype = ctypes.c_double
+    us = fn(B, Sq, Skv, H, KV, D, iters)
+    check(us >= 0, f"B3: the tensor-map encoder refused B={B}, Sq={Sq}, H={H}, KV={KV}, D={D}")
+    return us
 
 
 def ssd_inputs(torch, B, S, H, P, N, gen, dev, dtype):
@@ -2446,12 +2523,14 @@ def b4_batch_invariance(torch, dev, gen):
 # model -> (layers run on the card, {kernel: launches per prefill}), served
 # as a burst through Engine; depth is cut only where one card forces it
 # (bf16 weights: mixtral 8 of 32 layers 23.7 GB, qwen3-moe 4 of 94 22.4 GB,
-# jamba one period, 8 of 32, 26.5 GB)
+# jamba one period, 8 of 32, 26.5 GB; gemma-7b runs all 28, 17.1 GB, its
+# head dim of 256 through B3's largest tier)
 LM_PATHS = {"llama3.2-1b": (16, {"flash_attention": 16}),
             "mamba2-780m": (48, {"ssd_scan": 48}),
             "mixtral-8x7b": (8, {"flash_attention": 8}),
             "qwen3-moe-235b-a22b": (4, {"flash_attention": 4}),
-            "jamba-v0.1-52b": (8, {"flash_attention": 1, "ssd_scan": 7})}
+            "jamba-v0.1-52b": (8, {"flash_attention": 1, "ssd_scan": 7}),
+            "gemma-7b": (28, {"flash_attention": 28})}
 # model -> (prompt lengths, flash_attention launches per prefill), each
 # prompt prefilled alone (B = 1) through serve.steps with its own frames
 # or vision inputs, then DECODE_STEPS decode steps; at full depth
@@ -4196,8 +4275,9 @@ def run() -> dict:
     v1, v2 = timings["imc_eval/service"], timings["ga_gen_step/service"]
     # B3 and B4 at the longest prompt of the main path, in the model's dtype
     t3, t4 = timings["flash_attention/s1024"], timings["ssd_scan/bf16_s1024"]
-    # ... and at mixtral's and jamba's prefill shapes
+    # ... and at mixtral's, gemma's and jamba's prefill shapes
     m3, j4 = timings["flash_attention/mixtral_s1024"], timings["ssd_scan/jamba_bf16_s1024"]
+    g3 = timings["flash_attention/gemma_s1024"]
     times = ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms", "plain_device_ms",
              "max_abs_err")
     kernels = [
@@ -4250,8 +4330,11 @@ def run() -> dict:
          "ms": t3["ms"], "plain_ms": t3["plain_ms"], "bound_ms": t3["bound_ms"],
          "bound_by": t3["bound_by"], "library_ms": t3["library_ms"],
          "device_ms": t3["device_ms"], "plain_device_ms": t3["plain_device_ms"],
-         "library_device_ms": t3["library_device_ms"],
-         "mixtral_shape": {k: m3[k] for k in times + ("library_ms", "library_device_ms")}},
+         "library_device_ms": t3["library_device_ms"], "encode_us": t3["encode_us"],
+         "tensor_core_instructions": timings["flash_attention/sass"],
+         **{f"{shape}_shape": {k: r[k] for k in times + ("library_ms", "library_device_ms",
+                                                           "encode_us")}
+            for shape, r in (("mixtral", m3), ("gemma", g3))}},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/kernel.py:33",

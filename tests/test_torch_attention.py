@@ -9,6 +9,12 @@ Same inputs (numpy, seeded) through both packages:
   outputs of magnitude ~1 is ~4e-3, the rest is the order of sums).
 * ``decode_attention`` with per-sequence valid lengths and a window,
   caches in bf16, at 3e-2.
+* The bf16 kernel's numerics, emulated (``_emulate_tensor_core_attention``),
+  in each head-dim tier and at the models' GQA ratios, against the JAX
+  package's reference and its Pallas wrapper in interpret mode at 3e-2;
+  every config's head dim within the wrapper's ``MAX_HEAD_DIM``; and a
+  reduced gemma-7b at its own head dim of 256, the port's kernel path (its
+  plain version on the CPU) against the JAX package's Pallas path.
 """
 from __future__ import annotations
 
@@ -17,11 +23,18 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
+from repro.configs.base import get_config as jget
 from repro.kernels.flash_attention import ops as jfa
 from repro.models import attention as jattn
+from repro.models import transformer as jt
+from repro_torch import convert
+from repro_torch.configs.base import get_config as tget, list_configs
 from repro_torch.kernels.flash_attention import ops as tfa
 from repro_torch.kernels.flash_attention import ref as tref
 from repro_torch.models import attention as tattn
+from repro_torch.models import transformer as tt
 
 SWEEP = [  # tests/test_kernels.py:11-17
     (2, 128, 128, 4, 2, 64, True, 0),
@@ -138,14 +151,24 @@ def test_decode_attention_matches_reference_package(window):
 
 # ---------------------------------------------------------------------------
 # The bf16 kernel's numerics, emulated in plain torch before the card: the
-# loop of csrc/flash_attention.cu over 64-key tiles.  q * D**-0.5 rounded to
-# bf16 (as the plain version computes it in q's dtype), bf16 q K^T summed in
-# float32, the online softmax in float32 with the -1e30 sentinel, p rounded
-# to bf16 per tile for P V while the running sum adds the unrounded p.
+# loop of csrc/flash_attention.cu (flash_attention_wgmma_kernel) over KV
+# tiles of its head-dim tier's length (128 keys up to D=128, 80 at D=256).
+# q * D**-0.5 rounded to bf16 (as the plain version computes it in q's
+# dtype), bf16 q K^T summed in float32, the online softmax in float32 with
+# the -1e30 sentinel, p rounded to bf16 per tile for P V while the running
+# sum adds the unrounded p.  The kernel packs a KV head's g query heads as
+# rows in (position, head) order; every row is its own softmax, so the
+# packing reorders rows and changes no number, and the emulation keeps the
+# (KV head, group) layout.
+def _tile_keys(D):
+    return 128 if D <= 128 else 80
+
+
 def _emulate_tensor_core_attention(q, k, v, *, causal=True, window=0, q_offset=0,
-                                   tile=64):
+                                   tile=None):
     B, Sq, H, D = q.shape
     _, Skv, KV, _ = k.shape
+    tile = _tile_keys(D) if tile is None else tile
     G = H // KV
     qs = (q * D ** -0.5).float().reshape(B, Sq, KV, G, D)
     q_pos = q_offset + torch.arange(Sq)
@@ -180,3 +203,59 @@ def test_tensor_core_attention_numerics_match_reference_package(D, window, q_off
     ref = _np(jattn.attention_reference(*(_j(a, jnp.bfloat16) for a in (q, k, v)), **kw))
     out = _emulate_tensor_core_attention(*(_t(a, torch.bfloat16) for a in (q, k, v)), **kw)
     assert np.abs(_np(out) - ref).max() <= 3e-2
+
+
+# each head-dim tier (64, 128, 256: gemma) x the models' GQA ratios g = 1
+# (whisper, gemma), 4 (llama, mixtral, jamba), 6 (qwen2-vl)
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("g", [1, 4, 6])
+@pytest.mark.parametrize("window,q_offset", [(0, 0), (48, 64)])
+def test_tensor_core_attention_tiers_match_reference_package(D, g, window, q_offset):
+    """The emulated kernel at its tier's KV tile length, causal over a
+    ragged Sq (136: neither tile length divides it) and a cached prefix of
+    q_offset keys, against the JAX package's attention_reference and its
+    Pallas wrapper in interpret mode (which pads D to a multiple of 128
+    itself), at 3e-2."""
+    B, Sq, KV = 1, 136, 2
+    Skv, H = Sq + q_offset, g * KV
+    q, k, v = _qkv(D + 7 * g + window, B, Sq, Skv, H, KV, D)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    jq, jk, jv = (_j(a, jnp.bfloat16) for a in (q, k, v))
+    out = _np(_emulate_tensor_core_attention(*(_t(a, torch.bfloat16) for a in (q, k, v)),
+                                             **kw))
+    assert np.abs(out - _np(jattn.attention_reference(jq, jk, jv, **kw))).max() <= 3e-2
+    assert np.abs(out - _np(jfa.flash_attention(jq, jk, jv, **kw))).max() <= 3e-2
+
+
+@pytest.mark.parametrize("name", [n for n in list_configs() if tget(n).n_heads])
+def test_config_head_dim_within_the_kernel(name):
+    """Every config with attention runs it through the kernel wrapper on
+    the card (whisper and qwen2-vl through serve.steps, the rest through
+    Engine), so its head dim must be one the wrapper takes."""
+    cfg = tget(name)
+    assert 0 < cfg.head_dim_ <= tfa.MAX_HEAD_DIM, (name, cfg.head_dim_)
+
+
+def test_gemma_prefill_at_its_head_dim_matches_reference_package():
+    """gemma-7b reduced at its own head dim of 256 (the plain reduction sets
+    16): the port's prefill with impl="kernel" (the wrapper's plain
+    version on the CPU) against the JAX package's attn_impl="pallas" (the
+    Pallas kernel in interpret mode), the JAX package's initialised
+    parameters carried across.  Logits within 0.1 and caches within 0.1 of
+    their largest magnitude, as tests/test_torch_lm.py holds prefill."""
+    jcfg, tcfg = (get("gemma-7b").reduced(head_dim=256) for get in (jget, tget))
+    assert tcfg.head_dim_ == 256 and tcfg.n_kv_heads == tcfg.n_heads
+    params = jt.init(jcfg, jax.random.PRNGKey(0))
+    tparams = convert.lm_params_from_numpy(tcfg, jax.tree.map(np.asarray, params), "cpu")
+    toks = np.random.default_rng(0).integers(0, jcfg.vocab_size, (2, 40)).astype(np.int32)
+    lj, cj = jt.prefill(jcfg, params, jnp.asarray(toks), attn_impl="pallas")
+    lt, ct = tt.prefill(tcfg, tparams, torch.from_numpy(toks).long(), impl="kernel")
+    assert lt.shape == lj.shape and lt.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(lt), _np(lj), atol=0.1)
+    for a, b in zip(ct, cj):
+        assert set(a) == set(b)
+        for key in a:
+            pa, rb = _np(a[key]), _np(b[key])
+            assert pa.shape == rb.shape, (key, pa.shape, rb.shape)
+            np.testing.assert_allclose(pa, rb, rtol=0,
+                                       atol=0.1 * max(np.abs(rb).max(), 1.0), err_msg=key)

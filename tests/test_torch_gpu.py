@@ -333,6 +333,12 @@ def test_async_service_worker_keeps_the_card(cuda, ws):
     (1, 100, 200, 4, 2, 128, 0, 100, torch.bfloat16),
     (1, 64, 128, 4, 2, 32, 32, 400, torch.bfloat16),
     (1, 96, 96, 2, 1, 36, 0, 0, torch.bfloat16),        # D not a multiple of 8
+    # gemma's head dim (256): a window, a ragged Skv, rows with no valid key
+    (1, 256, 256, 4, 2, 256, 96, 0, torch.bfloat16),
+    (1, 200, 328, 4, 4, 256, 0, 128, torch.bfloat16),
+    (1, 64, 128, 4, 2, 256, 32, 400, torch.bfloat16),
+    (1, 256, 256, 4, 2, 256, 96, 0, torch.float32),
+    (1, 64, 128, 4, 2, 256, 32, 400, torch.float32),
 ])
 def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Skv, H, KV, D, window,
                                               q_offset, dtype):
@@ -355,6 +361,7 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Skv, H, KV, D, window
 # (non-causal MHA), and a cross-attention of fewer queries than frames
 @pytest.mark.parametrize("Sq,Skv,H,KV,D,causal,window", [
     (1024, 1024, 32, 8, 128, True, 4096),
+    (1024, 1024, 16, 16, 256, True, 0),  # gemma-7b
     (1024, 1024, 64, 4, 128, True, 0),
     (2048, 2048, 12, 2, 128, True, 0),
     (1024, 1024, 16, 16, 64, False, 0),
@@ -442,8 +449,27 @@ def test_flash_attention_kernel_refuses(cuda):
     with pytest.raises(ValueError, match="non-causal"):
         flash_attention(q, k, k, causal=False)
     with pytest.raises(ValueError, match="head dim"):
-        big = torch.zeros((1, 8, 2, 160), device=cuda)
+        big = torch.zeros((1, 8, 2, 264), device=cuda)
         flash_attention(big, big, big)
+
+
+def test_flash_attention_on_a_second_card(cuda):
+    """The kernels' shared-memory opt-in is kept per (device, size): the
+    D=128 bf16 kernel (225 KB) and the float32 kernel, launched on cuda:0
+    first, launch on cuda:1 too and match the plain version there."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    for dtype in (torch.bfloat16, torch.float32):
+        for dev in (cuda, torch.device("cuda", 1)):
+            gen = _gen(dev, 5)
+            q = torch.randn((1, 256, 8, 128), generator=gen, device=dev).to(dtype)
+            k = torch.randn((1, 256, 2, 128), generator=gen, device=dev).to(dtype)
+            v = torch.randn((1, 256, 2, 128), generator=gen, device=dev).to(dtype)
+            before = flash_attention.launches
+            o = flash_attention(q, k, v)
+            assert flash_attention.launches == before + 1 and o.device == dev
+            tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
+            assert float((o.float() - attention_reference(q, k, v).float()).abs().max()) <= tol
 
 
 @pytest.mark.parametrize("B,S,H,P,N,chunk,dtype", [
