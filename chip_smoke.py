@@ -7,10 +7,12 @@ Needs one CUDA card and the CUDA toolkit (nvcc).  Phases, in order; the
 first fault exits non-zero and prints no result:
 
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
-  2. build the four kernels from ``src/repro_torch/kernels/csrc`` (one
-     nvcc each, in parallel) and print the build's seconds and ptxas
-     summary; count the wgmma (HGMMA) and mma.sync (HMMA) instructions in
-     each ssd_scan kernel's SASS (``cuobjdump --dump-sass``): every kernel
+  2. build the four kernels from ``src/repro_torch/kernels/csrc``, each a
+     kernel library and its ``repro_torch::`` operator's (one nvcc each,
+     all in parallel), and print the build's seconds and ptxas summary;
+     each operator must have its CUDA implementation once loaded; count
+     the wgmma (HGMMA) and mma.sync (HMMA) instructions in each ssd_scan
+     kernel's SASS (``cuobjdump --dump-sass``): every kernel
      that computes a product must have some, and the CUDA-core kernels
      it replaced must be gone; in flash_attention's, every head-dim tier
      of ``flash_attention_wgmma_kernel`` must issue wgmma and TMA loads
@@ -38,9 +40,12 @@ first fault exits non-zero and prints no result:
      joint (B=8, W=4) and separate (B=4, W=1) shapes, at the service's
      (B=64 searches over the 9 subsets of its request mix, W=4 tables) and
      at P=1024; then
-     the host's share of one B1 and one B2 wrapper call, step by step
-     beside the steps the PR 13 wrappers took instead, at both shapes
-     (logged; ``host_split_us`` in the timings line);
+     the host's share of one B1 and one B2 wrapper call at both shapes:
+     the whole call, the ``repro_torch::`` operator call alone, the same
+     launch through ``ctypes`` (the binding before the operators), the
+     wrapper's own steps, and B1 bound as a Python CUDA kernel
+     (``Library.impl``) and as a ``custom_op`` (logged; ``host_split_us``
+     in the timings line);
   5. flash_attention against ``attention_reference`` on the card: llama's
      prefill (B=1, H=32, KV=8, D=64, bf16, S = 128, 1024, 2048), the other
      models' prefill shapes in bf16 (mixtral H=32, KV=8, D=128, S=1024,
@@ -254,8 +259,11 @@ first fault exits non-zero and prints no result:
      TFLOP/s) and counted-FLOPs share; (c) ``launch.dryrun`` of
      llama3.2-1b's ``train_4k``, ``prefill_32k``, ``decode_32k`` and
      mamba2-780m's ``long_500k`` on the fake 16x16 mesh, every cell OK,
-     ``trace_s`` logged; (b) and (c) run on the host in the background from
-     phase 10b on, within ``DRYRUN_DEADLINE_S``;
+     ``trace_s`` logged; (d) ``launch.dryrun --search-mesh 1x1 --backend
+     kernel`` (the fleet DSE evaluation through B1's ``repro_torch::``
+     operator on fake CUDA tensors) exits 0 with its OK line; (b), (c) and
+     (d) run on the host in the background from phase 10b on, within
+     ``DRYRUN_DEADLINE_S``;
  11. one JSON line ``{"kernels": [...]}``: launches on the main paths
      (``launches_by_path``: the search CLI, the service, phase 9b's
      paths and phase 9c's, ``search_threefry`` and ``serve_threefry``,
@@ -280,6 +288,7 @@ first fault exits non-zero and prints no result:
 
 Timings at every shape and the traces are printed as one
 ``[smoke] timings {...}`` JSON line before the kernels line.
+
 """
 from __future__ import annotations
 
@@ -514,16 +523,26 @@ def sass_census(lib: Path) -> dict:
 
 
 def phase_build(timings):
+    import importlib
+
+    import torch
+
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
     secs = _build.build()
     log(f"built {sorted(secs) or 'nothing (cached)'} in "
-        f"{time.perf_counter() - t0:.2f}s ({secs})")
+        f"{time.perf_counter() - t0:.2f}s ({secs}: one library a kernel, its kernel and its operator)")
     for name in _build.KERNELS:
         for line in _build.build_log(name).splitlines():
             if ("registers" in line and "Used" in line) or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
+        # its schema defined and its library loaded, each kernel is an
+        # operator with a CUDA implementation
+        importlib.import_module(f"repro_torch.kernels.{name}.ops")
+        _build.load(name)
+        check(torch._C._dispatch_has_kernel_for_dispatch_key(f"repro_torch::{name}", "CUDA"),
+              f"repro_torch::{name} has no CUDA implementation after its library loaded")
     # B4 on the tensor cores: every product kernel's SASS holds wgmma
     # (HGMMA) or mma.sync (HMMA) instructions; the CUDA-core kernels are gone
     sass = sass_census(_build.lib_path("ssd_scan"))
@@ -847,19 +866,31 @@ def per_call_us(torch, fn, n: int = 2000, sync_every: int = 200) -> float:
 
 
 def phase_host_split(torch, dev, paper, timings):
-    """Where the host's share of one B1 / B2 wrapper call goes, step by
-    step, at the search path's two shapes: each step the wrapper takes now,
-    the step it replaced (``PR 13:``, what the PR 13 wrapper did instead),
-    the ctypes launch alone and the whole call.  Host clock only (the
-    device work of a step is not waited for)."""
+    """Where the host's share of one B1 / B2 wrapper call goes, at the
+    search path's two shapes: the whole call, the operator call alone
+    (``repro_torch::imc_eval`` / ``ga_gen_step``, C++ CUDA implementation:
+    checks, outputs, stream, launch), the same launch through ``ctypes``
+    with its output buffer made from Python (the binding the wrappers had
+    before the kernels were operators), and the wrapper's own steps around
+    the operator.  Host clock only (the device work of a step is not
+    waited for)."""
+    import ctypes
+
     from repro_torch.imc.tech import TECH
-    from repro_torch.kernels import _launch
+    from repro_torch.kernels import _build
     from repro_torch.kernels.ga_gen_step import ops as gops
     from repro_torch.kernels.imc_eval import ops as iops
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     idx = dev.index
+    p, i = ctypes.c_void_p, ctypes.c_int
+    b1_launch = ctypes.CDLL(str(_build.lib_path("imc_eval"))).imc_eval_launch
+    b1_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, ctypes.POINTER(ctypes.c_float), i, i, p]
+    b1_launch.restype = i
+    b2_launch = ctypes.CDLL(str(_build.lib_path("ga_gen_step"))).ga_gen_step_launch
+    b2_launch.argtypes = [p] * 19 + [i] * 10 + [ctypes.POINTER(ctypes.c_float), i, i, p]
+    b2_launch.restype = i
     split = {}
     for label, B, W, subsets in (("joint", 8, 4, [[0, 1, 2, 3]] * 8),
                                  ("separate", 4, 1, [[0], [1], [2], [3]])):
@@ -867,82 +898,44 @@ def phase_host_split(torch, dev, paper, timings):
         designs, feats, mask = b1_inputs(torch, B, P, W, L, gen, dev, paper, label)
         res = torch.empty((3, B, W, P), device=dev)
         c1 = iops.consts(TECH)
+        c1_array = (ctypes.c_float * len(c1))(*c1)
         o = res.data_ptr()
         args1 = (designs.data_ptr(), feats.data_ptr(), mask.data_ptr(), o,
-                 o + 4 * B * W * P, o + 8 * B * W * P, B, P, W, L, c1, len(c1), idx,
-                 _launch.stream(idx))
-
-        def device_ctx():
-            with torch.cuda.device(dev):
-                pass
-
+                 o + 4 * B * W * P, o + 8 * B * W * P, B, P, W, L, c1_array, len(c1), idx,
+                 torch._C._cuda_getCurrentRawStream(idx))
         b1 = {
-            "PR 13: to().contiguous() x3": lambda: [
-                x.to(t).contiguous() for x, t in ((designs, torch.float32),
-                                                  (feats, torch.float32),
-                                                  (mask, torch.bool))],
-            "contiguous checks x3": lambda: [
-                _launch.contiguous(x, t) for x, t in ((designs, torch.float32),
-                                                      (feats, torch.float32),
-                                                      (mask, torch.bool))],
-            "PR 13: constants rebuilt": lambda: iops.build_consts(TECH),
-            "constants cached": lambda: iops.consts(TECH),
-            "PR 13: torch.cuda.current_stream().cuda_stream":
-                lambda: torch.cuda.current_stream(dev).cuda_stream,
-            "raw stream handle": lambda: _launch.stream(idx),
-            "PR 13: torch.cuda.device entered": device_ctx,
-            "output buffer": lambda: torch.empty((3, B, W, P), device=dev),
-            "ctypes launch (kernel enqueue)": lambda: iops._lib().imc_eval_launch(*args1),
-            "unbind into 3 sums": lambda: res.unbind(0),
             "whole wrapper call": lambda: iops.imc_eval_multi(designs, feats, mask),
+            "operator call (C++ CUDA implementation)":
+                lambda: iops.IMC_EVAL(designs, feats, mask, c1),
+            "ctypes launch alone (kernel enqueue)": lambda: b1_launch(*args1),
+            "output buffer from Python": lambda: torch.empty((3, B, W, P), device=dev),
+            "constants cached": lambda: iops.consts(TECH),
+            "unbind into 3 sums": lambda: res.unbind(0),
         }
 
         tables, kind, area, pop, scores, u = b2_case(torch, dev, P, subsets, gen)
         ctx = (tables, kind, area)
-        grids, sizes, vt = gops._grid_args(TECH, idx)
+        grids, sizes, vt = gops._grid_args(TECH, dev)
         dims = (grids.shape[1], *tables.demand.shape[2:], tables.spill.shape[-1],
                 *vt.shape)
         n_pop, n_sc = B * P * 9, B * P
         buf = torch.empty(2 * (n_pop + n_sc), device=dev)
         o = buf.data_ptr()
         c2 = gops.consts(TECH, gops.SBX_PROB, 9)
-        ins = (pop, scores, u[0], *tables, grids, sizes, vt, kind, area)
+        c2_array = (ctypes.c_float * len(c2))(*c2)
+        kind64 = kind.to(torch.int64)
+        ins = (pop, scores, u[0], *tables, grids, sizes, vt, kind64, area)
         args2 = (*[t.data_ptr() for t in ins], o, o + 8 * n_pop, o + 4 * n_pop,
-                 o + 4 * (2 * n_pop + n_sc), B, P, W, *dims, c2, len(c2), idx,
-                 _launch.stream(idx))
-        lib = gops._lib()
-
-        def four_outputs():
-            for shape in ((B, P, 9), (B, P, 9), (B, P), (B, P)):
-                torch.empty(shape, device=dev)
-
-        def one_buffer():
-            a, b, c, d = torch.empty(2 * (n_pop + n_sc), device=dev).split(
-                (n_pop, n_pop, n_sc, n_sc))
-            return a.view(B, P, 9), b.view(B, P, 9), c.view(B, P), d.view(B, P)
-
+                 o + 4 * (2 * n_pop + n_sc), B, P, W, *dims, c2_array, len(c2), idx,
+                 torch._C._cuda_getCurrentRawStream(idx))
         b2 = {
-            "PR 13: to().contiguous() x11": lambda: [
-                x.to(torch.float32).contiguous() for x in (pop, scores, u[0], *tables, area)],
-            "PR 13: kind to int32 (a copy kernel)":
-                lambda: kind.to(device=dev, dtype=torch.int32).contiguous(),
-            "contiguous checks x12": lambda: (
-                [_launch.contiguous(x, torch.float32)
-                 for x in (pop, scores, u[0], *tables, area)],
-                _launch.contiguous(kind, torch.int64)),
-            "PR 13: 4 output buffers": four_outputs,
-            "1 buffer, 4 views": one_buffer,
-            "PR 13: constants rebuilt": lambda: gops.build_consts(TECH, gops.SBX_PROB, 9),
-            "constants cached": lambda: gops.consts(TECH, gops.SBX_PROB, 9),
-            "PR 13: 2 shared-memory queries (ctypes)": lambda: (
-                lib.ga_gen_step_smem_bytes(P, W, *dims), lib.ga_gen_step_max_smem_bytes(idx)),
-            "shared-memory check cached": lambda: gops._check_smem(P, W, idx, dims),
-            "shape and device checks of 7 table leaves": lambda: [
-                leaf.shape[:2] != (B, W) or leaf.device != dev for leaf in tables],
-            "grid lookups cached": lambda: gops._grid_args(TECH, idx),
-            "ctypes launch, 33 arguments (kernel enqueue)":
-                lambda: lib.ga_gen_step_launch(*args2),
             "whole wrapper call": lambda: gops.ga_gen_step(pop, scores, u[0], ctx),
+            "operator call (C++ CUDA implementation)": lambda: gops.GA_GEN_STEP(
+                pop, scores, u[0], *tables, kind, area, grids, sizes, vt, c2),
+            "ctypes launch alone, 33 arguments (kernel enqueue)": lambda: b2_launch(*args2),
+            "grid lookups cached": lambda: gops._grid_args(TECH, dev),
+            "constants cached": lambda: gops.consts(TECH, gops.SBX_PROB, 9),
+            "active-grid check": lambda: gops._active_grid(tables),
         }
         for name, steps in (("imc_eval", b1), ("ga_gen_step", b2)):
             rec = {k: per_call_us(torch, f) for k, f in steps.items()}
@@ -3917,6 +3910,9 @@ SERVE_RANK_BATCH, SERVE_RANK_SEQ, SERVE_RANK_STEPS = 4, 256, 4
 DRYRUN_CELLS = (("llama3.2-1b", None), ("mamba2-780m", "long_500k"))
 DRYRUN_DEADLINE_S = 900
 _DRY_LINE = re.compile(r"^\[(\S+) @ (\S+)\] (OK|FAIL) (.*)$")
+# (d) the fleet DSE evaluation on B1's operator, traced with fake CUDA tensors
+FLEET_DRYRUN = ("--search-mesh", "1x1", "--backend", "kernel", "--device", "cuda", "--no-save")
+_FLEET_LINE = re.compile(r"^\[paper-dse-fleet (\S+)\] ok searches=(\d+) backend=kernel (.*)$")
 
 
 def serve_cells(torch, dev, cfg, mesh, batch, seq, steps, impl):
@@ -4008,8 +4004,9 @@ def start_dryruns(tmp: Path):
     (fake tensors claiming the card: nothing is allocated there): (b)'s
     train step (``--dryrun-step``, its record to ``tmp/step.json``), then
     (c), one ``launch.dryrun`` per ``DRYRUN_CELLS`` entry on the fake
-    16x16 mesh, records to ``tmp``.  Returns (the start's host clock,
-    [(proc, log path)])."""
+    16x16 mesh, records to ``tmp``, then (d), ``launch.dryrun`` of the
+    fleet DSE evaluation on the kernel backend (``FLEET_DRYRUN``).
+    Returns (the start's host clock, [(proc, log path)])."""
     import os
 
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
@@ -4027,6 +4024,11 @@ def start_dryruns(tmp: Path):
         with open(logf, "w") as f:
             procs.append((subprocess.Popen(argv, env=env, cwd=str(ROOT), stdout=f,
                                            stderr=subprocess.STDOUT), logf))
+    logf = tmp / "fleet.log"
+    with open(logf, "w") as f:
+        procs.append((subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun",
+                                        *FLEET_DRYRUN], env=env, cwd=str(ROOT), stdout=f,
+                                       stderr=subprocess.STDOUT), logf))
     return time.perf_counter(), procs
 
 
@@ -4163,10 +4165,12 @@ def phase_dryrun_cells(started, card, timings):
     within DRYRUN_DEADLINE_S of their start, each exiting 0 with every
     cell OK: llama3.2-1b's train_4k, prefill_32k, decode_32k and
     mamba2-780m's long_500k on the fake 16x16 mesh; each cell's line
-    (trace seconds, memory, FLOPs, collective bytes, bottleneck) logged."""
+    (trace seconds, memory, FLOPs, collective bytes, bottleneck) logged.
+    Then (d): the fleet DSE dry-run on the kernel backend exits 0 with
+    its OK line (B1's operator traced with fake CUDA tensors)."""
     t0, procs = started
     lines = []
-    for i in range(1, len(procs)):
+    for i in range(1, len(procs) - 1):
         p, logf = _wait_dryrun(started, i)
         text = logf.read_text()
         lines += [m for m in map(_DRY_LINE.match, text.splitlines()) if m]
@@ -4178,6 +4182,14 @@ def phase_dryrun_cells(started, card, timings):
                                "cells": [m.group(0) for m in lines]}
     for m in ok:
         log(f"dry-run (c) {m.group(1)} on the fake 16x16 mesh ({card}'s host): {m.group(4)}")
+    p, logf = _wait_dryrun(started, len(procs) - 1)
+    text = logf.read_text()
+    fleet = [m for m in map(_FLEET_LINE.match, text.splitlines()) if m]
+    check(p.returncode == 0 and len(fleet) == 1,
+          f"dry-run {' '.join(FLEET_DRYRUN)} exited {p.returncode}: " + text[-1500:])
+    timings["dryrun/fleet_kernel"] = {"card": card, "line": fleet[0].group(0)}
+    log(f"dry-run (d) the fleet DSE evaluation on B1's operator ({card}'s host): "
+        f"{fleet[0].group(0)}")
 
 
 def train_mesh_main() -> int:

@@ -3,7 +3,9 @@ counterpart of ``src/repro/analysis/hlo.py``).
 
 The JAX package parses the optimized HLO text of a compiled step for its
 collective traffic and an op census.  An eager PyTorch step has no such
-program; every aten operator it runs passes the dispatcher instead, where a
+program; every operator it runs passes the dispatcher instead, aten's and
+the port's kernels alike (``repro_torch::imc_eval`` ...: operators with
+fake implementations, ``kernels/_launch.py``), where a
 ``TorchDispatchMode`` sees it with its tensors (real, or fake under
 ``FakeTensorMode``: shapes, no storage).  So:
 
@@ -11,10 +13,11 @@ program; every aten operator it runs passes the dispatcher instead, where a
   rank (DTensor's own calls are passed on: they lower to local ones), by
   name (``op_census``: the JAX module's census), its FLOPs by
   ``FlopCounterMode``'s formulas (``torch.utils.flop_counter``: matrix
-  products, convolutions, attention; elementwise work counts none), and
-  the bytes each
-  non-view operator reads and writes (each tensor argument read once, each
-  result written once): the counterpart of XLA's "bytes accessed", which
+  products, convolutions, attention; elementwise work counts none, and so
+  does a kernel operator, which has no formula: B1's cost model is
+  elementwise work), and the bytes each non-view operator reads and
+  writes (each tensor argument read once, each result written once): the
+  counterpart of XLA's "bytes accessed", which
   also counts what fusion would keep on chip, as an unfused eager step
   really moves it;
 * collectives are ``distributed.sharding.count_collectives``' (DTensor's

@@ -22,9 +22,10 @@ card, every rank running the same program (SPMD):
     evaluation splits.
 
 Tensors stay plain local tensors and the collectives are explicit
-(``all_gather`` over the mesh's axis groups; no DTensor: the kernels take
-raw pointers, and sharding propagation through the GA's sorts and gathers
-would add redistributions and put bit parity at risk).  A design's score
+(``all_gather`` over the mesh's axis groups; no DTensor: the kernels'
+operators have no sharding rules, and sharding propagation through the
+GA's sorts and gathers would add redistributions and put bit parity at
+risk).  A design's score
 does not depend on how many designs share its launch (the kernel's sum
 order does not depend on its lanes; the plain path reduces each design on
 its own), and each row draws only from its own streams, so every result

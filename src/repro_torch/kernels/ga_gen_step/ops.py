@@ -5,12 +5,19 @@ factorized tables with the indexed objective, for B searches at once.
 returns ``(new_pop, new_scores, children, child_scores)``:
 
 * on CPU tensors it runs the plain version (``ref.ga_gen_step_ref``);
-* on CUDA tensors it launches ``csrc/ga_gen_step.cu`` once (one block per
-  search) or raises.  There is no fallback.
+* on CUDA tensors it calls the operator ``repro_torch::ga_gen_step``
+  (``GA_GEN_STEP``), whose CUDA implementation
+  (``csrc/ga_gen_step_op.cpp``) checks that one block fits the card's
+  shared memory and launches ``csrc/ga_gen_step.cu`` once (one block per
+  search), or raises.  There is no fallback.  Its fake implementation
+  gives the four outputs' shapes under ``FakeTensorMode`` and raises the
+  wrapper's shape errors (``check``), which the CUDA implementation
+  raises word for word.
 
-``ga_gen_step.launches`` counts kernel launches.  The engine attaches this
-function as the ``gen_step`` of its table-backend callback, so on the
-card every generation of ``backend="table"`` runs through the kernel.
+``ga_gen_step.launches`` counts kernel launches (never a fake call).  The
+engine attaches this function as the ``gen_step`` of its table-backend
+callback, so on the card every generation of ``backend="table"`` runs
+through the kernel.
 """
 from __future__ import annotations
 
@@ -30,17 +37,15 @@ from repro_torch.kernels.ga_gen_step.ref import ga_gen_step_ref
 
 _NAME = "ga_gen_step"
 # (tech, sbx_prob, n_genes) -> constants; keyed by the whole TechParams value
-_CONSTS: Dict[tuple, ctypes.Array] = {}
+_CONSTS: Dict[tuple, Tuple[float, ...]] = {}
 _GRID_ARGS: Dict[tuple, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
-# (P, W, device index, grid dims) whose shared memory fits the card
-_SMEM_OK: set = set()
 _LIB = None
 
 
-def build_consts(tech: TechParams, sbx_prob: float, n_genes: int) -> ctypes.Array:
+def build_consts(tech: TechParams, sbx_prob: float, n_genes: int) -> Tuple[float, ...]:
     """float32 constants in the kernel's ``Const`` order, each the value
     PyTorch uses for the same Python scalar in the plain version."""
-    return _build.float_array([
+    return _launch.float32_values([
         sbx_prob, 1.0 / n_genes, GENE_MAX,
         float(tech.input_bits), float(tech.weight_bits),
         float(tech.input_bits) * tech.adc_share,
@@ -55,7 +60,7 @@ def build_consts(tech: TechParams, sbx_prob: float, n_genes: int) -> ctypes.Arra
     ])
 
 
-def consts(tech: TechParams, sbx_prob: float, n_genes: int) -> ctypes.Array:
+def consts(tech: TechParams, sbx_prob: float, n_genes: int) -> Tuple[float, ...]:
     """``build_consts(...)``, built once per distinct argument triple."""
     key = (tech, sbx_prob, n_genes)
     hit = _CONSTS.get(key)
@@ -69,13 +74,12 @@ def _tot(P: int, n: int) -> int:
     return block_layout(P, n).tot
 
 
-def _grid_args(tech: TechParams, index: int):
-    """(grids (9, Gmax) f32, sizes (9,) i32, V/f mask (V, Tc) u8) on CUDA
-    device ``index``."""
-    key = (tech, space.grid_token(), index)
+def _grid_args(tech: TechParams, dev: torch.device):
+    """(grids (9, Gmax) f32, sizes (9,) i32, V/f mask (V, Tc) u8) of the
+    active grid on CUDA device ``dev``."""
+    key = (tech, space.grid_token(), dev)
     hit = _GRID_ARGS.get(key)
     if hit is None:
-        dev = torch.device("cuda", index)
         grids, sizes = space.padded_grids(dev)
         hit = (grids.contiguous(), sizes.to(torch.int32).contiguous(),
                valid_vt_mask(tech).to(torch.uint8).to(dev).contiguous())
@@ -83,36 +87,63 @@ def _grid_args(tech: TechParams, index: int):
     return hit
 
 
+def check(pop: torch.Tensor, scores: torch.Tensor, u: torch.Tensor,
+          tables: WorkloadTables) -> None:
+    """The wrapper's shape and device errors (the operator's too)."""
+    if pop.dim() != 3 or pop.shape[2] != space.N_GENES:
+        raise ValueError(f"pop must be (B, P, {space.N_GENES}), got {tuple(pop.shape)}")
+    B, P, n = pop.shape
+    tot = _tot(int(P), int(n))
+    if tuple(scores.shape) != (B, P) or tuple(u.shape) != (B, tot):
+        raise ValueError(f"scores {tuple(scores.shape)} / u {tuple(u.shape)} do "
+                         f"not match (B, P) = {(B, P)}, tot = {tot}")
+    for name, t in (("scores", scores), ("u", u)):
+        if t.device != pop.device:
+            raise ValueError(f"{name} on {t.device}, pop on {pop.device}")
+    W = tables.demand.shape[1]
+    for name, leaf in zip(WorkloadTables._fields, tables):
+        if leaf.shape[:2] != (B, W) or leaf.device != pop.device:
+            raise ValueError(f"table {name}: {tuple(leaf.shape)} on {leaf.device}, "
+                             f"expected leading {(B, W)} on {pop.device}")
+
+
+def _active_grid(tables: WorkloadTables) -> None:
+    """Raise unless the tables were built on the active grid (the one whose
+    grids the wrapper passes)."""
+    gs = space.GRID_SIZES
+    dims = (*tables.demand.shape[2:], *tables.spill.shape[2:])
+    if dims != (int(gs[0]), int(gs[1]), int(gs[6]), int(gs[8])):
+        raise ValueError("tables were built for another grid than the active one")
+
+
+def _fake(pop, scores, u, demand, dac, spill, sum_m, sum_bytes, sum_mkng, sum_mng, kind,
+          area, grids, sizes, vt_mask, consts):
+    check(pop, scores, u, WorkloadTables(demand, dac, spill, sum_m, sum_bytes, sum_mkng,
+                                         sum_mng))
+    B, P, n = pop.shape
+    return (pop.new_empty((B, P, n), dtype=torch.float32),
+            pop.new_empty((B, P), dtype=torch.float32),
+            pop.new_empty((B, P, n), dtype=torch.float32),
+            pop.new_empty((B, P), dtype=torch.float32))
+
+
+GA_GEN_STEP = _launch.define(
+    "ga_gen_step(Tensor pop, Tensor scores, Tensor u, Tensor demand, Tensor dac, "
+    "Tensor spill, Tensor sum_m, Tensor sum_bytes, Tensor sum_mkng, Tensor sum_mng, "
+    "Tensor kind, Tensor area, Tensor grids, Tensor sizes, Tensor vt_mask, "
+    "float[] consts) -> (Tensor, Tensor, Tensor, Tensor)", _fake)
+
+
 def _lib():
+    """The kernel library (its queries); loading it registers the
+    operator's CUDA implementation."""
     global _LIB
     if _LIB is None:
         lib = _build.load(_NAME)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ga_gen_step_launch.argtypes = (
-            [p] * 19 + [i] * 10 + [ctypes.POINTER(ctypes.c_float), i, i, p])
-        lib.ga_gen_step_launch.restype = i
-        lib.ga_gen_step_smem_bytes.argtypes = [i] * 9
-        lib.ga_gen_step_smem_bytes.restype = ctypes.c_longlong
-        lib.ga_gen_step_max_smem_bytes.argtypes = [i]
-        lib.ga_gen_step_max_smem_bytes.restype = i
         lib.ga_gen_step_rank_max.argtypes = []
-        lib.ga_gen_step_rank_max.restype = i
+        lib.ga_gen_step_rank_max.restype = ctypes.c_int
         _LIB = lib
     return _LIB
-
-
-def _check_smem(P: int, W: int, index: int, dims: tuple) -> None:
-    """Raise if one block of (P, W) does not fit this card's shared memory."""
-    key = (P, W, index, dims)
-    if key in _SMEM_OK:
-        return
-    lib = _lib()
-    smem = lib.ga_gen_step_smem_bytes(P, W, *dims)
-    limit = lib.ga_gen_step_max_smem_bytes(index)
-    if smem > limit:
-        raise ValueError(f"ga_gen_step: P={P}, W={W} needs {smem} bytes of "
-                         f"shared memory per block; this card allows {limit}")
-    _SMEM_OK.add(key)
 
 
 def survival_path(P: int) -> str:
@@ -137,46 +168,16 @@ def ga_gen_step(pop: torch.Tensor, scores: torch.Tensor, u: torch.Tensor,
     if sbx_eta != 3.0 or mut_eta != 3.0:
         raise ValueError("the ga_gen_step kernel implements eta = 3 only "
                          f"(got sbx_eta={sbx_eta}, mut_eta={mut_eta})")
-    B, P, n = pop.shape
-    if n != space.N_GENES:
-        raise ValueError(f"pop must be (B, P, {space.N_GENES}), got {tuple(pop.shape)}")
-    tot = _tot(P, n)
-    if tuple(scores.shape) != (B, P) or tuple(u.shape) != (B, tot):
-        raise ValueError(f"scores {tuple(scores.shape)} / u {tuple(u.shape)} do "
-                         f"not match (B, P) = {(B, P)}, tot = {tot}")
-    W = tables.demand.shape[1]
-    R, C, Bc = (int(s) for s in tables.demand.shape[2:])
-    Gn = int(tables.spill.shape[-1])
-    gs = space.GRID_SIZES
-    if (R, C, Bc, Gn) != (int(gs[0]), int(gs[1]), int(gs[6]), int(gs[8])):
-        raise ValueError("tables were built for another grid than the active one")
-    for name, leaf in zip(WorkloadTables._fields, tables):
-        if leaf.shape[:2] != (B, W) or leaf.device != dev:
-            raise ValueError(f"table {name}: {tuple(leaf.shape)} on {leaf.device}, "
-                             f"expected leading {(B, W)} on {dev}")
-    index = _launch.cuda_index(dev)
-    grids, sizes, vt = _grid_args(tech, index)
-    dims = (grids.shape[1], R, C, Bc, Gn, vt.shape[0], vt.shape[1])
-    _check_smem(P, W, index, dims)
-    f32 = [_launch.contiguous(x, torch.float32) for x in (pop, scores, u)]
-    tabs = [_launch.contiguous(leaf, torch.float32) for leaf in tables]
-    kind64 = _launch.contiguous(kind.to(dev), torch.int64)
-    area32 = _launch.contiguous(area.to(dev), torch.float32)
-    # the four outputs in one buffer: new_pop, children, new_scores, child_scores
-    n_pop, n_sc = B * P * n, B * P
-    out = torch.empty(2 * (n_pop + n_sc), dtype=torch.float32, device=dev)
-    o = out.data_ptr()
-    c = consts(tech, sbx_prob, n)
-    # the launcher selects the device itself, in its own runtime
-    rc = _lib().ga_gen_step_launch(
-        *[t.data_ptr() for t in (*f32, *tabs, grids, sizes, vt, kind64, area32)],
-        o, o + 4 * 2 * n_pop, o + 4 * n_pop, o + 4 * (2 * n_pop + n_sc),
-        B, P, W, *dims, c, len(c), index, _launch.stream(index))
-    _build.check(_NAME, rc)
-    ga_gen_step.launches += 1
-    new_pop, children, new_scores, child_scores = out.split((n_pop, n_pop, n_sc, n_sc))
-    return (new_pop.view(B, P, n), new_scores.view(B, P),
-            children.view(B, P, n), child_scores.view(B, P))
+    if tables.demand.dim() == 5 and tables.spill.dim() == 3:  # else the operator says
+        _active_grid(tables)
+    real = _launch.is_real(pop)
+    if real:
+        _lib()
+    out = GA_GEN_STEP(pop, scores, u, *tables, kind, area, *_grid_args(tech, dev),
+                      consts(tech, sbx_prob, space.N_GENES))
+    if real:
+        ga_gen_step.launches += 1
+    return out
 
 
 ga_gen_step.launches = 0

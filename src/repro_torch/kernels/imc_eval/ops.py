@@ -4,10 +4,16 @@
 returns the three layer sums, ``(B, W, P)`` each:
 
 * on CPU tensors it runs the plain version (``ref.eval_workloads``);
-* on CUDA tensors it launches ``csrc/imc_eval.cu`` once for all W
-  workloads of all B searches, or raises.  There is no fallback.
+* on CUDA tensors it calls the operator ``repro_torch::imc_eval``
+  (``IMC_EVAL``), whose CUDA implementation (``csrc/imc_eval_op.cpp``)
+  launches ``csrc/imc_eval.cu`` once for all W workloads of all B
+  searches, or raises.  There is no fallback.  Its fake implementation
+  (``_fake``) gives the sums' shape under ``FakeTensorMode`` and raises
+  the wrapper's shape errors (``check``), which the CUDA implementation
+  raises word for word.
 
-``imc_eval_multi.launches`` counts kernel launches (never plain runs).
+``imc_eval_multi.launches`` counts kernel launches (never plain runs, and
+never a fake call).
 ``evaluate_designs_kernel_arrays`` is the drop-in for
 ``imc.cost.evaluate_designs_arrays`` behind ``backend="kernel"``: the
 design-global epilogue (leakage, area, fits, util, V/f validity) stays in
@@ -27,13 +33,13 @@ from repro_torch.kernels.imc_eval import ref
 
 _NAME = "imc_eval"
 # TechParams -> its constants; keyed by the whole value, every field
-_CONSTS: Dict[TechParams, ctypes.Array] = {}
+_CONSTS: Dict[TechParams, Tuple[float, ...]] = {}
 _LIB = None
 
 
-def build_consts(tech: TechParams) -> ctypes.Array:
-    """Technology constants in the kernel's ``Const`` order."""
-    return _build.float_array([
+def build_consts(tech: TechParams) -> Tuple[float, ...]:
+    """Technology constants in the kernel's ``Const`` order (float32)."""
+    return _launch.float32_values([
         tech.input_bits, tech.weight_bits, tech.adc_share,
         tech.router_flit_bytes, tech.dram_bw_bytes_per_ns, tech.g_avg_s,
         tech.adc_energy_pj, tech.dac_energy_pj, tech.router_energy_pj_per_byte,
@@ -42,7 +48,7 @@ def build_consts(tech: TechParams) -> ctypes.Array:
     ])
 
 
-def consts(tech: TechParams) -> ctypes.Array:
+def consts(tech: TechParams) -> Tuple[float, ...]:
     """``build_consts(tech)``, built once per distinct ``tech``."""
     hit = _CONSTS.get(tech)
     if hit is None:
@@ -50,14 +56,38 @@ def consts(tech: TechParams) -> ctypes.Array:
     return hit
 
 
+def check(designs: torch.Tensor, feats: torch.Tensor, mask: torch.Tensor) -> None:
+    """The wrapper's shape and device errors (the operator's too)."""
+    if designs.dim() != 3 or designs.shape[-1] != 9:
+        raise ValueError(f"designs must be (B, P, 9), got {tuple(designs.shape)}")
+    B = designs.shape[0]
+    if feats.dim() != 4 or feats.shape[0] != B or feats.shape[-1] != 6:
+        raise ValueError(f"feats must be (B, W, L, 6), got {tuple(feats.shape)}")
+    W, L = feats.shape[1], feats.shape[2]
+    if tuple(mask.shape) != (B, W, L):
+        raise ValueError(f"mask must be {(B, W, L)}, got {tuple(mask.shape)}")
+    for name, t in (("feats", feats), ("mask", mask)):
+        if t.device != designs.device:
+            raise ValueError(f"{name} on {t.device}, designs on {designs.device}")
+
+
+def _fake(designs, feats, mask, consts):
+    check(designs, feats, mask)
+    B, P, _ = designs.shape
+    return designs.new_empty((3, B, feats.shape[1], P), dtype=torch.float32)
+
+
+IMC_EVAL = _launch.define(
+    "imc_eval(Tensor designs, Tensor feats, Tensor mask, float[] consts) -> Tensor", _fake)
+
+
 def _lib():
+    """The kernel library (its queries); loading it registers the
+    operator's CUDA implementation."""
     global _LIB
     if _LIB is None:
         lib = _build.load(_NAME)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.imc_eval_launch.argtypes = [p, p, p, p, p, p, i, i, i, i,
-                                        ctypes.POINTER(ctypes.c_float), i, i, p]
-        lib.imc_eval_launch.restype = i
+        i = ctypes.c_int
         lib.imc_eval_lanes.argtypes = [i, i, i]
         lib.imc_eval_lanes.restype = i
         _LIB = lib
@@ -82,31 +112,12 @@ def imc_eval_multi(
         return ref.eval_workloads(designs, feats, mask, tech)
     if dev.type != "cuda":
         raise ValueError(f"imc_eval_multi: unsupported device {dev}")
-    if designs.dim() != 3 or designs.shape[-1] != 9:
-        raise ValueError(f"designs must be (B, P, 9), got {tuple(designs.shape)}")
-    B, P, _ = designs.shape
-    if feats.dim() != 4 or feats.shape[0] != B or feats.shape[-1] != 6:
-        raise ValueError(f"feats must be (B, W, L, 6), got {tuple(feats.shape)}")
-    W, L = feats.shape[1], feats.shape[2]
-    if tuple(mask.shape) != (B, W, L):
-        raise ValueError(f"mask must be {(B, W, L)}, got {tuple(mask.shape)}")
-    for name, t in (("feats", feats), ("mask", mask)):
-        if t.device != dev:
-            raise ValueError(f"{name} on {t.device}, designs on {dev}")
-    index = _launch.cuda_index(dev)
-    d = _launch.contiguous(designs, torch.float32)
-    f = _launch.contiguous(feats, torch.float32)
-    m = _launch.contiguous(mask, torch.bool)
-    out = torch.empty((3, B, W, P), dtype=torch.float32, device=dev)
-    c = consts(tech)
-    o = out.data_ptr()
-    n = B * W * P * 4  # bytes of one sum
-    # the launcher selects the device itself, in its own runtime
-    rc = _lib().imc_eval_launch(d.data_ptr(), f.data_ptr(), m.data_ptr(), o, o + n,
-                                o + 2 * n, B, P, W, L, c, len(c), index,
-                                _launch.stream(index))
-    _build.check(_NAME, rc)
-    imc_eval_multi.launches += 1
+    real = _launch.is_real(designs)
+    if real:
+        _lib()
+    out = IMC_EVAL(designs, feats, mask, consts(tech))
+    if real:
+        imc_eval_multi.launches += 1
     return out.unbind(0)
 
 

@@ -26,17 +26,24 @@ whole: XLA counts a ``while`` body once and the JAX launcher extrapolates
 from unrolled variants (``scan_corrected_costs``, ``utils/unroll.py``);
 here ``scan_corrected`` is always false and no correction exists.
 
-The kernels (``impl="kernel"``, ``--backend kernel``) are refused: they
-launch through ``ctypes`` on raw device pointers (``kernels/_build.py``),
-which fake tensors do not have.  The dry-run traces the plain attention
-and SSD, as the JAX launcher lowers ``attn_impl="jnp"``.
+The kernels are ``repro_torch::`` operators with fake implementations
+(``kernels/_launch.py``), so a trace with fake CUDA tensors goes through
+them as through any other operator: the fleet DSE evaluation on the
+``kernel`` backend (``--search-mesh SxP --backend kernel``) traces B1's
+operator, as the JAX launcher's ``backend="pallas"`` lowers its Pallas
+kernel.  The LM cells trace the plain attention and SSD (``impl="kernel"``
+is refused): the JAX launcher lowers ``attn_impl="jnp"`` only, and the
+training step has no backward kernel.  Fake CUDA tensors need no card,
+and no torch built with CUDA either (``fake_cuda_guard``).
 
 Usage:
     python -m repro_torch.launch.dryrun --arch yi-9b --shape train_4k
     python -m repro_torch.launch.dryrun --all [--mesh single|multi|both]
     python -m repro_torch.launch.dryrun --paper          # DSE generation dry-run
     python -m repro_torch.launch.dryrun --paper --search-mesh 64x8
-    (add --device cpu where torch has no CUDA: fake tensors need no card)
+    python -m repro_torch.launch.dryrun --search-mesh 2x1 --backend kernel --no-save
+    (fake tensors claim --device cuda by default and need no card; --device
+    cpu traces the CPU's paths, which the kernel backend does not have)
 """
 from __future__ import annotations
 
@@ -64,22 +71,71 @@ from repro_torch.models.common import tree_flatten
 
 RESULT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 
-NO_KERNEL_UNDER_FAKE = (
-    "the dry-run traces with fake tensors, and the kernels launch through ctypes on raw "
-    "device pointers (kernels/_build.py), which fake tensors do not have: it traces the "
-    "plain attention and SSD, as the JAX launcher lowers attn_impl='jnp'")
+NO_KERNEL_IN_CELLS = (
+    "the LM cells trace the plain attention and SSD: the JAX launcher lowers "
+    "attn_impl='jnp' only (its cells have no kernel switch), and the training step has no "
+    "backward kernel (train/step.py)")
 
 SINGLE, MULTI = "single-pod", "multi-pod"
 
 
-def _fake_mode():
+_GUARD_STANDIN = []
+_CUDA = 1  # c10::DeviceType::CUDA, the CUDA slot of c10's guard registry
+
+
+def fake_cuda_guard() -> None:
+    """Let fake CUDA tensors through a torch built without CUDA.
+
+    Python's indexing, ``.contiguous()`` and a few other bindings enter a
+    device guard for their tensor's device before they dispatch, so a fake
+    ``cuda`` tensor needs a CUDA guard even though nothing runs on a card.
+    A torch built with CUDA has one, and nothing is done there.  On a host
+    without cards ``FakeTensorMode`` swaps in c10's no-op
+    ``FakeGuardImpl<CUDA>`` itself (``torch._C._ensureCUDADeviceGuardSet``),
+    but that swap only replaces a registered guard that reports no devices,
+    and a torch built without CUDA registers none.  So this registers a
+    stand-in whose every virtual method returns 0 (so its device count is
+    0), lets the swap put c10's no-op guard in its place, and reads the
+    registry's CUDA slot back: if the stand-in is still there, it clears
+    the slot again and raises, so no guard call ever reaches the stand-in.
+    Idempotent."""
+    import ctypes
+    import os
+
+    if torch.cuda._is_compiled() or _GUARD_STANDIN:
+        return
+    c10 = ctypes.CDLL(os.path.join(os.path.dirname(torch.__file__), "lib", "libc10.so"))
+    register = c10._ZN3c104impl19registerDeviceGuardENS_10DeviceTypeEPKNS0_24DeviceGuardImplInterfaceE
+    register.argtypes, register.restype = [ctypes.c_int8, ctypes.c_void_p], None
+    registry = ctypes.addressof(
+        ctypes.c_void_p.in_dll(c10, "_ZN3c104impl26device_guard_impl_registryE"))
+    slot = ctypes.c_void_p.from_address(registry + _CUDA * ctypes.sizeof(ctypes.c_void_p))
+    zero = ctypes.CFUNCTYPE(ctypes.c_int64)(lambda: 0)
+    vtable = (ctypes.c_void_p * 64)(*[ctypes.cast(zero, ctypes.c_void_p).value] * 64)
+    standin = (ctypes.c_void_p * 1)(ctypes.addressof(vtable))
+    register(_CUDA, ctypes.addressof(standin))
+    torch._C._ensureCUDADeviceGuardSet()
+    if slot.value in (None, ctypes.addressof(standin)):
+        register(_CUDA, None)
+        raise RuntimeError(
+            f"torch {torch.__version__} did not replace the stand-in CUDA device guard "
+            "with its no-op one: fake CUDA tensors need a torch built with CUDA here "
+            "(or --device cpu)")
+    _GUARD_STANDIN.extend((zero, vtable, standin))  # kept alive, never called
+
+
+def fake_mode(device: str = "cuda"):
     """A ``FakeTensorMode`` whose fake tensors may stand for data-dependent
     values (DTensor reads a split's offsets with ``tolist`` when it
     gathers a strided shard: a ``ShapeEnv`` gives them symbols), and which
-    takes the few real tensors DTensor keeps (a mesh's coordinates)."""
+    takes the few real tensors DTensor keeps (a mesh's coordinates).  Fake
+    tensors on a CUDA ``device`` work on a torch built without CUDA
+    (``fake_cuda_guard``)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.fx.experimental.symbolic_shapes import ShapeEnv
 
+    if torch.device(device).type == "cuda":
+        fake_cuda_guard()
     return FakeTensorMode(allow_non_fake_inputs=True, shape_env=ShapeEnv())
 
 
@@ -145,7 +201,7 @@ def trace_step(bundle: StepBundle, device: str,
     mesh = bundle.mesh
     scope = dist_ctx.use_rules(mesh, rules or sharding.make_rules(mesh)) if mesh is not None \
         else contextlib.nullcontext()
-    with _propagation_apart(), _fake_mode():
+    with _propagation_apart(), fake_mode(device):
         args = _fake_args(bundle, device)
         arg_locals = [_local(x) for x in tree_flatten(args)[0]]
         tracker = MemTracker()
@@ -172,7 +228,7 @@ def trace_step(bundle: StepBundle, device: str,
 def _check_impl(build_kwargs: Optional[Dict[str, Any]]) -> Dict[str, Any]:
     kw = dict(build_kwargs or {})
     if kw.get("impl", "plain") != "plain":
-        raise ValueError(NO_KERNEL_UNDER_FAKE)
+        raise ValueError(NO_KERNEL_IN_CELLS)
     return kw
 
 
@@ -275,8 +331,9 @@ def _device_caches_kept():
     fake trace adds there (fake tensors) is dropped again on exit."""
     from repro_torch.core import engine, space
     from repro_torch.imc import cost
+    from repro_torch.kernels.ga_gen_step import ops as gops
 
-    caches = (space._DEVICE_GRIDS, cost._VT_CACHE, engine._VT_CDF)
+    caches = (space._DEVICE_GRIDS, cost._VT_CACHE, engine._VT_CDF, gops._GRID_ARGS)
     saved = [dict(c) for c in caches]
     try:
         yield
@@ -289,7 +346,7 @@ def _device_caches_kept():
 def _trace_fn(fn, device: str, *shapes) -> Dict[str, Any]:
     """``fn`` of fake float32 tensors of ``shapes`` on ``device``: (FLOPs,
     bytes, collective bytes) of the traced rank."""
-    with _device_caches_kept(), _propagation_apart(), _fake_mode():
+    with _device_caches_kept(), _propagation_apart(), fake_mode(device):
         args = [torch.empty(s, dtype=torch.float32, device=device) for s in shapes]
         census = Census()
         sharding.COMM.reset()
@@ -322,14 +379,19 @@ def dryrun_paper_search_batched(
     """Trace the fleet DSE evaluation: B independent searches' populations,
     this rank's rows of the batch (``search`` axis) and its share of each
     population (``data`` axis), through ``sharded_batched_eval_fn`` on the
-    ``dense`` cost model or the factorized ``table`` evaluator (B2 and the
-    ``kernel`` backend launch kernels: refused)."""
+    ``dense`` cost model, the factorized ``table`` evaluator, or the
+    ``kernel`` backend, whose layer sums are B1's operator
+    (``repro_torch::imc_eval``, on fake CUDA tensors: the JAX launcher's
+    ``backend="pallas"``)."""
     from repro_torch.core import space
     from repro_torch.core.distributed import place_batched, sharded_batched_eval_fn
     from repro_torch.launch.mesh import mesh_axis_sizes
 
-    if backend not in ("dense", "table"):
-        raise ValueError(f"backend {backend!r}: {NO_KERNEL_UNDER_FAKE}")
+    if backend not in ("dense", "table", "kernel"):
+        raise ValueError(f"backend must be dense, table or kernel, got {backend!r}")
+    if backend == "kernel" and torch.device(device).type != "cuda":
+        raise ValueError("backend='kernel' traces B1's operator, which runs on CUDA "
+                         f"tensors: device must be cuda, got {device!r}")
     ws = _paper_ws()
     B = searches or mesh_axis_sizes(mesh).get("search", 1)
     ev = sharded_batched_eval_fn(mesh, "ela", 150.0, backend=backend)
@@ -377,10 +439,11 @@ def main(argv=None) -> int:
     ap.add_argument("--all", action="store_true", help="run every cell")
     ap.add_argument("--paper", action="store_true", help="dry-run the DSE eval")
     ap.add_argument("--backend", default="dense", choices=["dense", "table", "kernel"],
-                    help="cost-model backend of the --search-mesh fleet dry-run")
+                    help="cost-model backend of the --search-mesh fleet dry-run (kernel: "
+                         "B1's operator, on --device cuda)")
     ap.add_argument("--device", default="cuda",
-                    help="device the fake tensors claim (no card is used; 'cpu' where "
-                         "torch has no CUDA)")
+                    help="device the fake tensors claim (no card is used, nor a torch "
+                         "built with CUDA); 'cpu' traces the CPU's paths")
     ap.add_argument("--out", default=str(RESULT_DIR), help="records directory")
     ap.add_argument("--no-save", action="store_true")
     args = ap.parse_args(argv)

@@ -23,8 +23,15 @@ the CPU, in fake worlds (``--device cpu``: fake tensors need no card).
   failing cell prints FAIL and makes it return 1; records written with
   ``--out`` feed ``launch.roofline``'s report.
 * ``launch.roofline.hillclimb`` traces each named variant.
-* ``fake_world`` refuses to nest and leaves no default group behind; the
-  kernels are refused under fake tensors, naming why.
+* ``fake_world`` refuses to nest and leaves no default group behind.
+* ``fake_cuda_guard`` raises, and leaves no stand-in registered, where
+  torch does not swap its no-op CUDA guard in.
+* The fleet DSE dry-run on the kernel backend traces B1's operator with
+  fake CUDA tensors (a torch built without CUDA included), moves fewer
+  bytes than the dense backend over the same collectives, and is ok over
+  the searches the JAX package's ``backend="pallas"`` record counts; the
+  LM cells still refuse ``impl="kernel"``, naming the JAX launcher's plain
+  lowering.
 """
 from __future__ import annotations
 
@@ -212,11 +219,106 @@ def test_fake_world_refuses_to_nest():
     assert not dist.is_initialized()
 
 
-def test_kernels_are_refused_under_fake_tensors():
-    with pytest.raises(ValueError, match="ctypes"):
+_GUARD_UNSWAPPED = """
+import torch
+from repro_torch.launch import dryrun
+
+torch._C._ensureCUDADeviceGuardSet = lambda: None  # a torch whose swap never happens
+try:
+    dryrun.fake_cuda_guard()
+except RuntimeError as e:
+    print("raised:", e)
+with dryrun.fake_mode("cpu"):
+    x = torch.empty(4, 3, device="cuda")
+    try:
+        x[torch.tensor([0, 1])]
+        print("indexed")
+    except RuntimeError as e:
+        print("index:", e)
+print("kept:", len(dryrun._GUARD_STANDIN))
+"""
+
+
+def test_fake_cuda_guard_never_leaves_its_stand_in_registered():
+    """Where torch does not swap its no-op CUDA guard in for the stand-in,
+    ``fake_cuda_guard`` clears the registry's CUDA slot again and raises,
+    so no guard call reaches the stand-in (a fresh process: the guard is
+    registered once per process)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (src, os.environ.get("PYTHONPATH")) if p))
+    out = subprocess.run([sys.executable, "-c", _GUARD_UNSWAPPED], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    if torch.cuda._is_compiled():  # a CUDA build has its own guard: nothing is done
+        assert "raised" not in out.stdout and "indexed" in out.stdout
+        return
+    assert "raised: torch" in out.stdout and "did not replace the stand-in" in out.stdout
+    assert "index: PyTorch is not linked with support for cuda devices" in out.stdout
+    assert "kept: 0" in out.stdout
+
+
+def test_kernel_backend_dry_runs_through_the_operator(capsys):
+    """(a) The fleet DSE dry-run on the kernel backend: B1's operator traced
+    with fake CUDA tensors on this CPU-only host, an OK line, no launch."""
+    from repro_torch.kernels.imc_eval.ops import imc_eval_multi
+
+    assert dryrun.main(["--search-mesh", "2x1", "--backend", "kernel", "--device", "cuda",
+                        "--no-save"]) == 0
+    out = capsys.readouterr().out
+    assert "[paper-dse-fleet search=2xdata=1] ok searches=2 backend=kernel" in out
+    assert imc_eval_multi.launches == 0
+    assert not dist.is_initialized()
+
+
+def _fleet(backend, searches, pop_size=64):
+    from repro_torch.launch.mesh import make_search_mesh
+
+    with fake_world(searches, "cuda"):
+        mesh = make_search_mesh(searches, 1, device_type="cuda")
+        return dryrun.dryrun_paper_search_batched(mesh, pop_size=pop_size, save=False,
+                                                  backend=backend, device="cuda")
+
+
+def test_kernel_record_against_dense_and_the_jax_pallas_record(monkeypatch):
+    """(b) At 2x1 and a population of 64 the kernel record moves fewer bytes
+    than the dense one over the same layout (equal collective bytes); it is
+    ok and counts the searches the JAX package's ``backend="pallas"`` record
+    counts at the same mesh and population (1x1 where JAX sees one device)."""
+    import os
+
+    import jax
+
+    # the JAX launcher sets XLA_FLAGS (512 host devices) when first imported:
+    # restored after the test, so no later subprocess of this worker sees it
+    monkeypatch.setenv("XLA_FLAGS", os.environ.get("XLA_FLAGS", ""))
+    from repro.launch.dryrun import dryrun_paper_search_batched as jax_dryrun
+    from repro.launch.mesh import make_search_mesh as jax_search_mesh
+
+    kernel, dense = _fleet("kernel", 2), _fleet("dense", 2)
+    assert kernel["ok"] and dense["ok"]
+    assert kernel["cell"] == "paper-dse-fleet/b2xpop64/kernel"
+    assert 0 < kernel["bytes_per_device"] < dense["bytes_per_device"] / 10
+    assert kernel["collective_bytes"] == dense["collective_bytes"]
+    s = 2 if jax.device_count() >= 2 else 1
+    ref = jax_dryrun(jax_search_mesh(s, 1), pop_size=64, save=False, backend="pallas")
+    mine = kernel if s == 2 else _fleet("kernel", 1)
+    assert (mine["ok"], mine["searches"]) == (ref["ok"], ref["searches"]) == (True, s)
+    assert not dist.is_initialized()
+
+
+def test_lm_cells_refuse_the_kernels():
+    """(c) An LM cell traces the plain attention and SSD: the JAX launcher
+    lowers attn_impl='jnp' only."""
+    with pytest.raises(ValueError, match="JAX launcher lowers attn_impl='jnp' only"):
         dryrun.dryrun_cell(cells.Cell(_cfg("llama3.2-1b"), ShapeSpec("t", S, B, "prefill")),
                            None, save=False, device="cpu", build_kwargs={"impl": "kernel"})
-    with pytest.raises(ValueError, match="ctypes"):
+    with pytest.raises(ValueError, match="device must be cuda"):
         dryrun.main(["--search-mesh", "2x1", "--backend", "kernel", "--device", "cpu",
                      "--no-save"])
     assert not dist.is_initialized()

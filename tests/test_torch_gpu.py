@@ -1,6 +1,9 @@
 """The port's CUDA kernels on the card: each against its plain version on
 the same CUDA tensors, and the main paths' launch counts (the DSE search
-and the LM serving engine).
+and the LM serving engine); and each kernel as its ``repro_torch::``
+operator: ``torch.library.opcheck`` at a main-path shape, its fake
+implementation against its CUDA one at ``tests/test_torch_ops.py``'s
+cases, and the CUDA implementation's errors word for word the wrapper's.
 
 Marked ``gpu``; run on a host with a CUDA card and nvcc:
 
@@ -16,6 +19,7 @@ from __future__ import annotations
 
 import numpy as np
 import pytest
+import test_torch_ops as op_cases
 import torch
 
 from repro_torch.configs.base import ShapeSpec, get_config
@@ -1046,3 +1050,72 @@ def test_search_mesh_over_two_cards_under_nccl(cuda, ws, tmp_path):
                     np.testing.assert_array_equal(s.view(np.uint32), r.top_scores.view(np.uint32))
                     np.testing.assert_array_equal(g, r.top_genomes)
                     np.testing.assert_array_equal(h.view(np.uint32), r.ga.scores.view(np.uint32))
+
+
+# ------------------------------------------------ the repro_torch operators
+def _opcheck_args(name, cuda, ws):
+    """One call per operator at a main-path shape: B1 and B2 at the joint
+    search's (B=8 searches over the paper's 4 CNNs, P=40), B3 at llama's
+    prefill (S=128, bf16), B4 at mamba2's (S=256, bf16)."""
+    if name == "imc_eval":
+        g = _gen(cuda, 0)
+        designs = torch.stack(list(space.decode(torch.rand((8, 40, space.N_GENES), generator=g,
+                                                           device=cuda))), dim=-1)
+        feats = ws.feats[None].expand(8, -1, -1, -1).to(cuda).contiguous()
+        mask = ws.mask[None].expand(8, -1, -1).to(cuda).contiguous()
+        return op_cases.op_args(name, (designs, feats, mask), {})
+    if name == "ga_gen_step":
+        ctx, pop, scores, u = _b2_case(cuda, ws, 40, [[0, 1, 2, 3]] * 8, 0)
+        return op_cases.op_args(name, (pop, scores, u[0], ctx), {})
+    if name == "flash_attention":
+        args, kw = op_cases.flash_attention(Sq=128, Skv=128, H=32, KV=8, D=64)
+    else:
+        args, kw = op_cases.ssd_scan(S=256, H=48, P=64, N=128, dtype=torch.bfloat16, chunk=128)
+    return op_cases.op_args(name, op_cases.to(args, cuda), kw)
+
+
+@pytest.mark.parametrize("name", ["imc_eval", "ga_gen_step", "flash_attention", "ssd_scan"])
+def test_operators_pass_opcheck(cuda, ws, name):
+    """``torch.library.opcheck``: the schema (nothing mutated, no output
+    aliasing an input), the autograd registration, the fake implementation
+    against the CUDA one (shapes, dtypes, strides, devices) and a trace
+    under AOT dispatch with dynamic shapes."""
+    args = _opcheck_args(name, cuda, ws)
+    torch.library.opcheck(op_cases.OPS[name],
+                          [list(a) if isinstance(a, tuple) else a for a in args])
+
+
+@pytest.mark.parametrize("case", sorted(op_cases.CASES))
+def test_fake_agrees_with_the_card(cuda, case):
+    """At every small case of ``tests/test_torch_ops.py`` (B3's D=36 pads
+    for TMA) the CUDA implementation's outputs have the shapes, dtypes and
+    strides its fake implementation gives, and the wrapper counts one
+    launch a call."""
+    from repro_torch.launch.dryrun import _device_caches_kept, fake_mode
+
+    name = op_cases.kernel(case)
+    args, kwargs = op_cases.CASES[case]()
+    real = op_cases.OPS[name](*op_cases.op_args(name, op_cases.to(args, cuda), kwargs))
+    with _device_caches_kept(), fake_mode():
+        fake = op_cases.OPS[name](*op_cases.op_args(name, op_cases.to(args, "cuda"), kwargs))
+    for r, f in zip(real if isinstance(real, tuple) else [real],
+                    fake if isinstance(fake, tuple) else [fake], strict=True):
+        assert (r.shape, r.dtype, r.stride(), r.device) == (f.shape, f.dtype, f.stride(),
+                                                             f.device)
+    wrapper = op_cases.WRAPPERS[name]
+    before = wrapper.launches
+    wrapper(*op_cases.to(args, cuda), **kwargs)
+    assert wrapper.launches == before + 1
+
+
+@pytest.mark.parametrize("case", sorted(op_cases.MALFORMED))
+def test_cuda_implementation_raises_the_wrappers_error(cuda, case):
+    """The C++ CUDA implementation refuses each malformed call with the
+    message of the wrapper (and of the fake implementation), word for
+    word, through the wrapper and called directly."""
+    name, args, kwargs, msg = op_cases.malformed(case)
+    args, kwargs = op_cases.to(args, cuda), op_cases.to(kwargs, cuda)
+    with pytest.raises(ValueError, match=msg):
+        op_cases.WRAPPERS[name](*args, **kwargs)
+    with pytest.raises(ValueError, match=msg):
+        op_cases.OPS[name](*op_cases.op_args(name, args, kwargs))

@@ -10,7 +10,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted(
     p for p in (ROOT / "src" / "repro_torch").rglob("*")
-    if p.is_file() and p.suffix in (".py", ".cu", ".cuh")
+    if p.is_file() and p.suffix in (".py", ".cu", ".cuh", ".cpp", ".h")
 ) + [ROOT / "chip_smoke.py"]
 
 _JAX = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.M)
