@@ -156,6 +156,26 @@ first fault exits non-zero and prints no result:
      rank as often as the meshless run, and no other; host clock, launches
      and collective calls and bytes per rank logged; gloo must all-gather
      the card's tensors;
+ 9e. the JAX package's public names the port took over last, every launch
+     count set to 0 just before each path: ``make_eval_fn`` at the
+     paper's shape (4 CNNs, P=40: 24 seeded designs and 16 uniform ones)
+     on ``kernel`` (one B1 launch) and ``table`` (none) within rtol 1e-5
+     of ``dense``, +inf at the same designs, each call timed (CUDA events;
+     its device time from the profiler);
+     ``evaluate_designs_kernel(d, ws)`` bit for bit the ``_arrays`` call
+     and within rtol 1e-5 of the plain path; ``run_search(...,
+     pipelined=True)`` (pop 40, 10 generations) on ``kernel`` (B1, 11
+     launches a run) and ``table`` (B2, 10), timed in turns unpinned,
+     pipelined, pipelined, unpinned on the shared engines: top genomes,
+     scores and convergence equal to the unpinned run's bit for bit,
+     ``ga is None``;
+     ``table_bytes`` / ``grid_table_shape`` of tables built on the card
+     against the CPU's at grid densities 1 and 2 (density 1 restored);
+     ``repro_torch.examples.serve_demo`` (reduced mixtral, 10 requests):
+     every request its ``max_new`` tokens, flash_attention launched once
+     per layer and prefill (20) and no other kernel, each of those calls'
+     inputs kept and its output held against ``attention_reference``
+     (max abs err 3e-2, as B3's bf16 cases); the phase's host clock;
  10. the LM serving path at full width, once per model, each freed before
      the next loads, random weights from seed 0, peak device memory under
      ``MEM_LIMIT`` (70 GB) and logged.  ``llama3.2-1b`` (16 layers),
@@ -268,7 +288,9 @@ first fault exits non-zero and prints no result:
      (``launches_by_path``: the search CLI, the service, phase 9b's
      paths and phase 9c's, ``search_threefry`` and ``serve_threefry``,
      and phase 9d's, ``search_mesh`` and ``serve_mesh``: the 1x1 runs and
-     every rank of the two-rank runs;
+     every rank of the two-rank runs; phase 9e's ``surface/eval_fn``,
+     ``surface/pipelined/kernel``, ``surface/pipelined/table`` and
+     ``serve_demo``;
      for flash_attention and ssd_scan each model of phase 10, and
      phase 10d's 1x1 mesh, ``serve_mesh``; the training path, ``train``,
      and training on a mesh, ``train_mesh``, 0 for each),
@@ -1993,6 +2015,223 @@ def phase_threefry(torch, dev, card, timings):
     return paths
 
 
+# phase 9e: the JAX package's public names that the port took over last
+SURFACE_SEED = 0
+SURFACE_DEMO_REQUESTS = 10
+
+
+def _scores_agree(torch, a, b, rtol: float) -> bool:
+    """Two score vectors: +inf at the same entries, the rest within rtol."""
+    fa, fb = torch.isfinite(a), torch.isfinite(b)
+    return bool(torch.equal(fa, fb)) and bool(torch.allclose(a[fa], b[fb], rtol=rtol, atol=0.0))
+
+
+def phase_surface(torch, dev, card, timings):
+    """What the port took over last from the JAX package's public surface,
+    on the card: ``make_eval_fn`` at the paper's shape (4 CNNs, P=40) on
+    ``kernel`` (B1) and ``table`` against ``dense``; ``evaluate_designs_kernel``
+    against the ``_arrays`` call and the plain path; ``run_search(...,
+    pipelined=True)`` on ``kernel`` (B1) and ``table`` (B2) against the
+    unpinned run; ``table_bytes`` / ``grid_table_shape`` of CUDA tables
+    against CPU tables at densities 1 and 2; and ``examples/serve_demo``
+    (reduced mixtral, B3).  Every launch count is set to 0 just before each
+    path.  Returns {path: {kernel: launches}}."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import space
+    from repro_torch.core.engine import make_eval_fn, seed_population
+    from repro_torch.core.search import run_search
+    from repro_torch.examples import serve_demo
+    from repro_torch.imc import cost
+    from repro_torch.imc.tables import build_tables_arrays, grid_table_shape, table_bytes
+    from repro_torch.kernels.flash_attention.ref import attention_reference
+    from repro_torch.kernels.imc_eval.ops import (evaluate_designs_kernel,
+                                                  evaluate_designs_kernel_arrays)
+    from repro_torch.models import transformer
+
+    t_phase = time.perf_counter()
+    ws = _paper_ws()
+    counters = _counters()
+    rec = timings["surface"] = {"card": card}
+    paths = {}
+
+    # make_eval_fn: 24 seeded designs (they fit the largest CNN) and 16
+    # uniform ones (mostly infeasible) under a generous area
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SURFACE_SEED)
+    genomes = torch.cat([seed_population(SURFACE_SEED, ws, 24, device=dev),
+                         torch.rand((16, space.N_GENES), generator=gen, device=dev)])
+    fns = {b: make_eval_fn(ws, "ela", 1e4, backend=b, device=dev)
+           for b in ("dense", "kernel", "table")}
+    dense = fns["dense"](genomes)
+    _reset(counters)
+    kern = fns["kernel"](genomes)
+    torch.cuda.synchronize()
+    paths["surface/eval_fn"] = got = _read(counters)
+    check({k: v for k, v in got.items() if v} == {"imc_eval": 1},
+          f"make_eval_fn('kernel'): launches {got}, want imc_eval 1")
+    check(_scores_agree(torch, kern, dense, 1e-5),
+          "make_eval_fn('kernel') differs from 'dense' beyond rtol 1e-5")
+    _reset(counters)
+    table = fns["table"](genomes)
+    got = _read(counters)
+    check(not any(got.values()), f"make_eval_fn('table'): launches {got}, want none")
+    check(_scores_agree(torch, table, dense, 1e-5),
+          "make_eval_fn('table') differs from 'dense' beyond rtol 1e-5")
+    n_finite = int(torch.isfinite(dense).sum())
+    check(n_finite >= 10, f"make_eval_fn: {n_finite} of 40 designs feasible")
+    ms = {b: cuda_ms(lambda f=f: f(genomes), 20) for b, f in fns.items()}
+    dms = {b: device_ms(torch, lambda f=f: f(genomes), 20) for b, f in fns.items()}
+    rec["eval_fn_ms"], rec["eval_fn_device_ms"] = ms, dms
+    log(f"make_eval_fn at P=40 over the 4 CNNs ({n_finite} feasible): 'kernel' (one B1 "
+        f"launch) and 'table' within rtol 1e-5 of 'dense'; a call "
+        + ", ".join(f"{b} {t:.4f} ms" for b, t in ms.items()) + " (CUDA events), device "
+        "time " + ", ".join(f"{b} {_ms(t)}" for b, t in dms.items()) + " (profiler)")
+
+    # evaluate_designs_kernel: the _arrays call's bits, the plain path's values
+    d = space.decode(genomes)
+    r = evaluate_designs_kernel(d, ws)
+    ra = evaluate_designs_kernel_arrays(d, ws.feats.to(dev), ws.mask.to(dev))
+    rp = cost.evaluate_designs(d, ws)
+    for f in r._fields:
+        check(torch.equal(getattr(r, f), getattr(ra, f)),
+              f"evaluate_designs_kernel: {f} differs from the _arrays call")
+    for f in ("energy_pj", "latency_ns", "area_mm2", "util"):
+        check(bool(torch.allclose(getattr(r, f), getattr(rp, f), rtol=1e-5, atol=0.0)),
+              f"evaluate_designs_kernel: {f} beyond rtol 1e-5 of the plain path")
+    for f in ("fits", "valid"):
+        check(torch.equal(getattr(r, f), getattr(rp, f)),
+              f"evaluate_designs_kernel: {f} differs from the plain path")
+    log("evaluate_designs_kernel(d, ws): the _arrays call's bits; energy, latency, area "
+        "and util within rtol 1e-5 of the plain path, fits and valid equal")
+
+    # run_search(pipelined=True) against the unpinned run, in turns
+    # unpinned, pipelined, pipelined, unpinned (each on its shared engine)
+    kw = dict(pop_size=SERVE_POP, generations=SERVE_GENS, device=dev)
+    for backend, kname, want in (("kernel", "imc_eval", SERVE_GENS + 1),
+                                 ("table", "ga_gen_step", SERVE_GENS)):
+        walls = {"unpinned": [], "pipelined": []}
+        runs = {}
+        for mode in ("unpinned", "pipelined", "pipelined", "unpinned"):
+            pin = dict(pipelined=True) if mode == "pipelined" else {}
+            _reset(counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run_search(SURFACE_SEED, ws, backend=backend, **pin, **kw)
+            torch.cuda.synchronize()
+            walls[mode].append(time.perf_counter() - t0)
+            got = _read(counters)
+            check({k: v for k, v in got.items() if v} == {kname: want},
+                  f"run_search({mode}, backend={backend!r}): launches {got}, "
+                  f"want {kname} {want}")
+            if mode == "pipelined":
+                paths[f"surface/pipelined/{backend}"] = got
+            runs.setdefault(mode, res)
+        res, plain = runs["pipelined"], runs["unpinned"]
+        check(res.ga is None and plain.ga is not None,
+              f"run_search(pipelined=True, backend={backend!r}): ga {type(res.ga)}")
+        check(np.array_equal(res.top_genomes, plain.top_genomes)
+              and np.array_equal(res.top_scores, plain.top_scores)
+              and np.array_equal(res.convergence, plain.convergence)
+              and res.top_designs == plain.top_designs,
+              f"run_search(pipelined=True, backend={backend!r}) differs from the unpinned run")
+        check(res.valid, f"run_search(pipelined=True, backend={backend!r}): no feasible design")
+        rec[f"pipelined/{backend}"] = dict(wall_s=walls["pipelined"],
+                                           unpinned_wall_s=walls["unpinned"],
+                                           launches=paths[f"surface/pipelined/{backend}"])
+        log(f"run_search(pipelined=True) --backend {backend}: {want} {kname} launches a "
+            f"run; host clock in turns unpinned {walls['unpinned'][0]:.4f}s, pipelined "
+            f"{walls['pipelined'][0]:.4f}s, pipelined {walls['pipelined'][1]:.4f}s, "
+            f"unpinned {walls['unpinned'][1]:.4f}s; top genomes, scores and convergence "
+            f"equal the unpinned run's bit for bit, ga is None")
+
+    # table_bytes / grid_table_shape: CUDA tables against CPU tables
+    shapes = {}
+    try:
+        for density in (1, 2):
+            space.configure_grid(density)
+            cpu = build_tables_arrays(ws.feats, ws.mask)
+            card_t = build_tables_arrays(ws.feats.to(dev), ws.mask.to(dev))
+            shape = grid_table_shape()
+            check(tuple(card_t.demand.shape[-3:]) == (shape["rows"], shape["cols"],
+                                                      shape["bits_cell"])
+                  and card_t.spill.shape[-1] == shape["glb_mb"],
+                  f"density {density}: tables {tuple(card_t.demand.shape)} against the "
+                  f"grid {shape}")
+            check(table_bytes(card_t) == table_bytes(cpu),
+                  f"density {density}: table_bytes {table_bytes(card_t)} on the card, "
+                  f"{table_bytes(cpu)} on the CPU")
+            for f in cpu._fields:
+                a, b = getattr(card_t, f).cpu(), getattr(cpu, f)
+                check(bool(torch.allclose(a, b, rtol=1e-5, atol=0.0)),
+                      f"density {density}: table {f} on the card beyond rtol 1e-5 of the CPU's")
+            shapes[density] = dict(shape, bytes=table_bytes(card_t))
+    finally:
+        space.configure_grid(1)
+    check(shapes[2]["bytes"] > shapes[1]["bytes"], f"table bytes by density: {shapes}")
+    rec["tables"] = shapes
+    log(f"table_bytes / grid_table_shape, CUDA tables against CPU tables (rtol 1e-5): "
+        f"{shapes}; density 1 restored")
+
+    # the serve demo: reduced mixtral, B3 once per layer and prefill; each
+    # B3 call's inputs and output are kept and held against the plain
+    # version after the run
+    cfg = get_config("mixtral-8x7b").reduced()
+    reqs = serve_demo.burst(cfg, SURFACE_DEMO_REQUESTS)
+    calls, real_attention = [], transformer._attention
+
+    def kept_attention(q, k, v, **kw):
+        o = real_attention(q, k, v, **kw)
+        calls.append((q.clone(), k.clone(), v.clone(), kw, o.clone()))
+        return o
+
+    _reset(counters)
+    transformer._attention = kept_attention
+    try:
+        t0 = time.perf_counter()
+        rc, text = _captured(serve_demo.main, ["--device", str(dev), "--requests",
+                                               str(SURFACE_DEMO_REQUESTS)])
+        wall = time.perf_counter() - t0
+    finally:
+        transformer._attention = real_attention
+    got = _read(counters)
+    paths["serve_demo"] = got
+    want = SURFACE_DEMO_REQUESTS * cfg.n_layers
+    check(rc == 0, f"serve_demo returned {rc}")
+    check({k: v for k, v in got.items() if v} == {"flash_attention": want},
+          f"serve_demo: launches {got}, want flash_attention {want}")
+    m = re.search(r"served (\d+) requests, (\d+) tokens in \S+s \((\S+) tok/s on (.+)\)$",
+                  text.splitlines()[0] if text else "")
+    check(m is not None and int(m.group(1)) == len(reqs)
+          and int(m.group(2)) == sum(r.max_new for r in reqs)
+          and m.group(4) == torch.cuda.get_device_name(dev),
+          f"serve_demo: every request its max_new on the card: {text[:300]!r}")
+    check(len(calls) == want, f"serve_demo: {len(calls)} B3 calls kept, want {want}")
+    demo_err, demo_shapes = 0.0, set()
+    for q, k, v, kw, o in calls:
+        check(kw["impl"] != "plain", f"serve_demo: attention on the plain path ({kw})")
+        kw = dict(causal=kw["causal"], window=kw["window"])
+        err = float((o.float() - attention_reference(q, k, v, **kw).float()).abs().max())
+        check(bool(torch.isfinite(o).all()) and err <= 3e-2,
+              f"serve_demo: B3 at q {tuple(q.shape)}, kv {tuple(k.shape)}, {kw}: max abs "
+              f"err {err} against the plain version (tol 3e-2)")
+        demo_err = max(demo_err, err)
+        demo_shapes.add((tuple(q.shape), tuple(k.shape), str(q.dtype)))
+    rec["serve_demo"] = dict(wall_s=wall, tokens_per_s=float(m.group(3)), launches=got,
+                             b3_max_abs_err=demo_err)
+    for ln in text.splitlines():
+        log(f"serve_demo: {ln}")
+    log(f"serve_demo: {got['flash_attention']} flash_attention launches "
+        f"({SURFACE_DEMO_REQUESTS} prefills x {cfg.n_layers} layers), {wall:.3f}s with "
+        f"set-up; each B3 call within max abs err {demo_err:.3g} of the plain version "
+        f"(tol 3e-2) over {len(demo_shapes)} shapes "
+        f"{sorted(q[1] for q, _, _ in demo_shapes)} (Sq = Skv, bf16)")
+    rec["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 9e: {rec['wall_s']:.3f}s host clock")
+    return paths
+
+
 # ------------------------------------------------------------ search mesh
 # phase 9d: the CLI runs held to the meshless bits (phase 7's search
 # commands and a 64-request table drain), the two-rank meshes that share
@@ -2290,6 +2529,10 @@ B3_CASES = [
     ("bf16_d256_keyless_rows", 1, 64, 128, 4, 2, 256, True, 32, 400, "bf16", False),
     ("d256_f32", 1, 256, 256, 4, 2, 256, True, 96, 0, "f32", False),
     ("bf16_d36_padded", 1, 96, 96, 2, 1, 36, True, 0, 0, "bf16", False),
+    # the serve demo's prefills (reduced mixtral, D=16, window 4096): KV
+    # tiles of fewer than 16 rows; phase 9e holds every one of its calls
+    ("demo_d16_s4", 1, 4, 4, 4, 2, 16, True, 4096, 0, "bf16", False),
+    ("demo_d16_s21", 1, 21, 21, 4, 2, 16, True, 4096, 0, "bf16", False),
     # causal calls of more query tiles than SMs pair tiles in a block: an
     # odd tile count (the middle tile alone) with a q_offset, a real window
     ("paired_s990_q_offset128", 1, 990, 1118, 32, 8, 64, True, 0, 128, "bf16", False),
@@ -4273,8 +4516,11 @@ def run() -> dict:
     fam = phase_families(torch, dev, card, timings)
     threefry = phase_threefry(torch, dev, card, timings)
     mesh = phase_mesh(torch, dev, card, timings)
+    surface = phase_surface(torch, dev, card, timings)
     fam_b1 = {k: v["imc_eval"] for k, v in fam.items() if v["imc_eval"]}
     fam_b2 = {k: v["ga_gen_step"] for k, v in fam.items() if v["ga_gen_step"]}
+    surf = {kname: {k: v[kname] for k, v in surface.items() if v[kname]}
+            for kname in ("imc_eval", "ga_gen_step", "flash_attention", "ssd_scan")}
     lm, train, train_mesh, serve_mesh = lm_phases(torch, dev, card, timings)
     lm_b3 = {k: v["flash_attention"] for k, v in lm.items() if "flash_attention" in v}
     lm_b4 = {k: v["ssd_scan"] for k, v in lm.items() if "ssd_scan" in v}
@@ -4298,11 +4544,12 @@ def run() -> dict:
          "replaces": "src/repro/kernels/imc_eval/kernel.py:47",
          "launches": b1_launches + serve_launches["imc_eval"] + sum(fam_b1.values())
          + sum(v["imc_eval"] for v in threefry.values())
-         + sum(v["imc_eval"] for v in mesh.values()),
+         + sum(v["imc_eval"] for v in mesh.values()) + sum(surf["imc_eval"].values()),
          "launches_by_path": {"search": b1_launches,
                               "serve": serve_launches["imc_eval"], **fam_b1,
                               **{k: v["imc_eval"] for k, v in threefry.items()},
                               **{k: v["imc_eval"] for k, v in mesh.items()},
+                              **surf["imc_eval"],
                               "train": train["imc_eval"], "train_mesh": train_mesh["imc_eval"]},
          "max_abs_err": b1_err[0],
          "max_rel_err": b1_err[1],
@@ -4317,11 +4564,12 @@ def run() -> dict:
          "replaces": "src/repro/kernels/ga_gen_step/kernel.py:115",
          "launches": b2_launches + serve_launches["ga_gen_step"] + sum(fam_b2.values())
          + sum(v["ga_gen_step"] for v in threefry.values())
-         + sum(v["ga_gen_step"] for v in mesh.values()),
+         + sum(v["ga_gen_step"] for v in mesh.values()) + sum(surf["ga_gen_step"].values()),
          "launches_by_path": {"search": b2_launches,
                               "serve": serve_launches["ga_gen_step"], **fam_b2,
                               **{k: v["ga_gen_step"] for k, v in threefry.items()},
                               **{k: v["ga_gen_step"] for k, v in mesh.items()},
+                              **surf["ga_gen_step"],
                               "train": train["ga_gen_step"],
                               "train_mesh": train_mesh["ga_gen_step"]},
          "max_abs_err": 0.0,
@@ -4334,8 +4582,10 @@ def run() -> dict:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:33",
-         "launches": sum(lm_b3.values()) + serve_mesh["flash_attention"],
-         "launches_by_path": {**lm_b3, "train": train["flash_attention"],
+         "launches": sum(lm_b3.values()) + serve_mesh["flash_attention"]
+         + sum(surf["flash_attention"].values()),
+         "launches_by_path": {**lm_b3, **surf["flash_attention"],
+                              "train": train["flash_attention"],
                               "train_mesh": train_mesh["flash_attention"],
                               "serve_mesh": serve_mesh["flash_attention"]},
          "max_abs_err": b3_err["s1024"],
@@ -4350,8 +4600,9 @@ def run() -> dict:
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/kernel.py:33",
-         "launches": sum(lm_b4.values()) + serve_mesh["ssd_scan"],
-         "launches_by_path": {**lm_b4, "train": train["ssd_scan"],
+         "launches": sum(lm_b4.values()) + serve_mesh["ssd_scan"]
+         + sum(surf["ssd_scan"].values()),
+         "launches_by_path": {**lm_b4, **surf["ssd_scan"], "train": train["ssd_scan"],
                               "train_mesh": train_mesh["ssd_scan"],
                               "serve_mesh": serve_mesh["ssd_scan"]},
          "max_abs_err": b4_err["bf16_s1024"][0],

@@ -51,6 +51,14 @@ class Roofline:
     mem_per_device_gb: float = 0.0
     collectives: Optional[Dict[str, int]] = None
 
+    def table_row(self) -> str:
+        return (
+            f"| {self.cell} | {self.mesh} | {self.t_compute*1e3:.2f} | "
+            f"{self.t_memory*1e3:.2f} | {self.t_collective*1e3:.2f} | "
+            f"{self.bottleneck} | {self.useful_ratio:.2f} | "
+            f"{self.peak_fraction:.2%} |"
+        )
+
 
 def roofline_terms(
     *,

@@ -235,6 +235,35 @@ def _ctx_eval(tech: TechParams, backend: str, tail: str = INDEXED,
     return eval_fn
 
 
+def make_eval_fn(
+    ws: WorkloadSet,
+    objective: str,
+    area_constr: float,
+    tech: TechParams = TECH,
+    *,
+    backend: str = "dense",
+    device="cuda",
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``eval_fn(genomes (P, n)) -> scores (P,)`` of one scalar objective
+    kind on ``device``: ``"dense"`` (``imc.cost``), ``"kernel"`` (the
+    imc_eval kernel on CUDA) or ``"table"`` (the set's grid tables: O(W)
+    lookups per design, no layer axis).  The workload tensors move to the
+    device once, here."""
+    if objective not in OBJECTIVE_INDEX:
+        raise ValueError(f"objective must be one of {tuple(OBJECTIVE_INDEX)}, got {objective!r}")
+    dev = resolve_device(device)
+    fn = _ctx_eval(tech, backend, objective, float(area_constr))
+    if backend == "table":
+        ctx = (WorkloadTables(*(t.to(dev) for t in ws.tables(tech))),)
+    else:
+        ctx = (ws.feats.to(dev), ws.mask.to(dev))
+
+    def eval_fn(genomes) -> torch.Tensor:
+        return fn(torch.as_tensor(genomes, dtype=torch.float32, device=dev), ctx)
+
+    return eval_fn
+
+
 def _workload_weights(feats: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Crossbar-demand proxy per workload (total weight count K * N * groups);
     the single definition of "largest" shared by every seeding path."""
@@ -1674,14 +1703,16 @@ class SearchEngine:
             for i, r in enumerate(reqs)])
 
 
-_ENGINES: Dict[Tuple[str, str], SearchEngine] = {}
+_ENGINES: Dict[Tuple[str, str, bool], SearchEngine] = {}
 
 
-def default_engine(device="cuda", prng: str = "torch") -> SearchEngine:
-    """Shared engine per device and stream behind the ``core.search``
-    drivers."""
+def default_engine(device="cuda", prng: str = "torch",
+                   pipelined: bool = False) -> SearchEngine:
+    """Shared engine per device, stream and engine mode behind the
+    ``core.search`` drivers (its caches stay warm from call to call)."""
     dev = resolve_device(device)
-    eng = _ENGINES.get((str(dev), prng))
+    k = (str(dev), prng, bool(pipelined))
+    eng = _ENGINES.get(k)
     if eng is None:
-        eng = _ENGINES[(str(dev), prng)] = SearchEngine(device=dev, prng=prng)
+        eng = _ENGINES[k] = SearchEngine(device=dev, prng=prng, pipelined=bool(pipelined))
     return eng

@@ -24,6 +24,9 @@ import torch
 
 from repro_torch.imc.cost import EvalResult
 
+# the score of an infeasible design
+INF = math.inf
+
 OBJECTIVES = ("ela", "edp", "e", "l")
 
 # kind -> selector index for make_indexed_objective
@@ -63,7 +66,7 @@ def make_objective(kind: str, area_constr_mm2: float = 150.0
         s = {"ela": lambda: e * l * a, "edp": lambda: e * l,
              "e": lambda: e, "l": lambda: l}[kind]()
         feasible = r.fits.all(dim=-1) & r.valid & (a <= area_constr_mm2)
-        return torch.where(feasible, s, math.inf)
+        return torch.where(feasible, s, INF)
 
     score.kind = kind
     score.area_constr = area_constr_mm2
@@ -88,7 +91,7 @@ def make_indexed_objective() -> Callable:
                         torch.where(k == 1, e * l, torch.where(k == 2, e, l)))
         feasible = (r.fits.all(dim=-1) & r.valid
                     & (a <= area_constr[..., None]))
-        return torch.where(feasible, s, math.inf)
+        return torch.where(feasible, s, INF)
 
     return score
 
@@ -111,7 +114,7 @@ def make_pareto_objective() -> Callable:
         a = r.area_mm2
         feasible = _feasible(r, a, area_constr[..., None])
         objs = torch.stack([e, l, a], dim=-1)  # (..., P, N_PARETO)
-        return torch.where(feasible[..., None], objs, math.inf)
+        return torch.where(feasible[..., None], objs, INF)
 
     return score
 
@@ -144,7 +147,7 @@ def make_weighted_objective(area_constr_mm2: float = 150.0) -> Callable:
         a = r.area_mm2
         w = weights.to(e.dtype)[..., None, :]  # (..., 1, 3) against (..., P)
         s = _pow(e, w[..., 0]) * _pow(l, w[..., 1]) * _pow(a, w[..., 2])
-        return torch.where(_feasible(r, a, area_constr_mm2), s, math.inf)
+        return torch.where(_feasible(r, a, area_constr_mm2), s, INF)
 
     score.area_constr = area_constr_mm2
     return score

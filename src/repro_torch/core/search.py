@@ -42,13 +42,17 @@ from repro_torch.core import prng as tf
 from repro_torch.core import space
 from repro_torch.core.engine import (  # noqa: F401 (re-exported API)
     BACKENDS,
+    EngineFault,
+    NonFiniteScoreError,
     SearchEngine,
     SearchRequest,
     SearchResult,
     _top_unique,
     _workload_weights,
     default_engine,
+    empty_partial_result,
     largest_workload_index,
+    make_eval_fn,
     seed_population,
     seed_population_batched,
 )
@@ -59,11 +63,15 @@ from repro_torch.imc.tech import TECH, TechParams
 from repro_torch.workloads.pack import WorkloadSet
 
 
-def _engine(engine: Optional[SearchEngine], device, prng: str) -> SearchEngine:
-    """``engine`` when given (its stream must be ``prng``), else the shared
-    engine of the device and stream."""
+def _engine(engine: Optional[SearchEngine], device, prng: str,
+            pipelined: Optional[bool] = None) -> SearchEngine:
+    """The engine a driver call runs on: ``engine`` when given (its stream
+    must be ``prng``; its own ``pipelined`` governs), else the shared
+    engine of the device, stream and ``pipelined`` (the JAX package's
+    ``_resolve_engine``; ``fused`` has no effect on an engine, so the
+    drivers take it and pick no engine by it)."""
     if engine is None:
-        return default_engine(device, prng)
+        return default_engine(device, prng, pipelined=bool(pipelined))
     if engine.prng != prng:
         raise ValueError(f"engine draws prng={engine.prng!r}, the call asks for {prng!r}")
     return engine
@@ -93,6 +101,8 @@ def run_search(
     backend: str = "dense",
     device="cuda",
     engine: Optional[SearchEngine] = None,
+    fused: Optional[bool] = None,
+    pipelined: Optional[bool] = None,
     prng: str = "torch",
     key=None,
     mesh=None,
@@ -100,7 +110,10 @@ def run_search(
     """One joint search = a single-request engine run.  ``prng="threefry"``
     replays the JAX package's ``run_search(PRNGKey(seed))``, or its
     ``run_search(key)`` given ``key``.  On a ``mesh`` its one row runs on
-    every rank with the population split along ``data``."""
+    every rank with the population split along ``data``.  ``pipelined``
+    pins the engine's thin path: the same result fields, except that
+    ``result.ga`` is ``None``; ``fused`` is accepted and has no effect
+    (``SearchEngine``)."""
     req = SearchRequest(
         ws=ws, objective=objective, area_constr=float(area_constr),
         seed=int(seed), backend=backend, pop_size=int(pop_size),
@@ -109,7 +122,7 @@ def run_search(
         tech=tech, init_genomes=init_genomes, u_blocks=u_blocks,
         key=None if key is None else tf.key_data(tf.as_key(key)),
     )
-    return _engine(engine, device, prng).run([req], mesh=mesh)[0]
+    return _engine(engine, device, prng, pipelined).run([req], mesh=mesh)[0]
 
 
 def joint_search(seed: int, ws: WorkloadSet, **kw) -> SearchResult:
@@ -135,6 +148,8 @@ def batched_search(
     backend: str = "dense",
     device="cuda",
     engine: Optional[SearchEngine] = None,
+    fused: Optional[bool] = None,
+    pipelined: Optional[bool] = None,
     prng: str = "torch",
     keys=None,
     mesh=None,
@@ -147,7 +162,7 @@ def batched_search(
     threefry keys (``prng="threefry"``) replace the seeds' ``PRNGKey``s, as
     the JAX package's ``batched_search(keys, ...)`` takes them.  ``mesh``
     splits the B searches along ``search`` and each population along
-    ``data``."""
+    ``data``.  ``fused`` and ``pipelined`` as in ``run_search``."""
     feats = torch.as_tensor(np.asarray(feats, np.float32))
     mask = torch.as_tensor(np.asarray(mask, bool))
     B = len(seeds)
@@ -183,7 +198,7 @@ def batched_search(
         )
         for b in range(B)
     ]
-    return _engine(engine, device, prng).run(reqs, mesh=mesh)
+    return _engine(engine, device, prng, pipelined).run(reqs, mesh=mesh)
 
 
 def joint_search_batched(seeds: Sequence[int], ws: WorkloadSet, **kw) -> List[SearchResult]:

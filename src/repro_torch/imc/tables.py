@@ -104,6 +104,20 @@ def build_tables_batched(
     return build_tables_arrays(feats, mask, tech)
 
 
+def table_bytes(tables: WorkloadTables) -> int:
+    """Total table footprint in bytes (all leaves, any batch shape).  Every
+    leaf scales with the grid's density (``demand`` is (W, R, C, Bc), so
+    ``space.configure_grid(d)`` multiplies it by ~d^3): the memory to weigh
+    against the per-generation lookups when picking a density."""
+    return int(sum(leaf.numel() * leaf.element_size() for leaf in tables))
+
+
+def grid_table_shape() -> dict:
+    """Per-axis sizes of the active grid that the table leaves index over
+    (R, C, Bc, Gn)."""
+    return {f: len(space.SPACE[f]) for f in ("rows", "cols", "bits_cell", "glb_mb")}
+
+
 def lookup_tables(idx: torch.Tensor, tables: WorkloadTables):
     """Gather ``(demand, dac, spill)`` at designs' grid indices.
     idx (..., P, 9) against tables (..., W, ...) -> three (..., P, W)."""

@@ -17,7 +17,9 @@ never a fake call).
 ``evaluate_designs_kernel_arrays`` is the drop-in for
 ``imc.cost.evaluate_designs_arrays`` behind ``backend="kernel"``: the
 design-global epilogue (leakage, area, fits, util, V/f validity) stays in
-PyTorch, as in the JAX package's ``kernels/imc_eval/ops.py``.
+PyTorch, as in the JAX package's ``kernels/imc_eval/ops.py``;
+``evaluate_designs_kernel`` is its ``WorkloadSet`` form, the drop-in for
+``imc.cost.evaluate_designs``.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from repro_torch.imc.cost import DesignArrays, EvalResult, area_mm2, design_vali
 from repro_torch.imc.tech import TECH, TechParams
 from repro_torch.kernels import _build, _launch
 from repro_torch.kernels.imc_eval import ref
+from repro_torch.workloads.pack import WorkloadSet
 
 _NAME = "imc_eval"
 # TechParams -> its constants; keyed by the whole value, every field
@@ -157,3 +160,11 @@ def evaluate_designs_kernel_arrays(
         valid=design_valid(d, tech),
         util=util,
     )
+
+
+def evaluate_designs_kernel(d: DesignArrays, ws: WorkloadSet, tech: TechParams = TECH
+                            ) -> EvalResult:
+    """``evaluate_designs_kernel_arrays`` over a workload set, on the
+    designs' device."""
+    dev = d.rows.device
+    return evaluate_designs_kernel_arrays(d, ws.feats.to(dev), ws.mask.to(dev), tech)

@@ -33,7 +33,7 @@ from repro_torch.configs.base import ModelConfig, ShapeSpec, get_config, list_co
 from repro_torch.distributed import ctx as dist_ctx
 from repro_torch.distributed import sharding
 from repro_torch.models import transformer
-from repro_torch.models.common import param_structs, tree_leaves, tree_map
+from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.optim import AdamWState
 from repro_torch.serve.steps import make_decode_step, make_prefill_step
 from repro_torch.train.step import make_train_step
@@ -128,7 +128,7 @@ def _meta(shape, dtype) -> torch.Tensor:
 
 
 def abstract_params(cfg: ModelConfig, dtype=torch.float32) -> PyTree:
-    return param_structs(transformer.param_template(cfg), dtype)
+    return transformer.template_structs(cfg, dtype)
 
 
 def abstract_opt_state(cfg: ModelConfig) -> AdamWState:

@@ -24,7 +24,9 @@ and turns them into roofline terms with the H100's constants
 An eager trace runs every layer and every microbatch, so the counts are
 whole: XLA counts a ``while`` body once and the JAX launcher extrapolates
 from unrolled variants (``scan_corrected_costs``, ``utils/unroll.py``);
-here ``scan_corrected`` is always false and no correction exists.
+here ``scan_corrected`` is always false and no correction exists, so
+``--no-correction`` (``dryrun_cell(correct=False)``), the JAX launcher's
+switch for its multi-pod pass, is accepted and changes nothing.
 
 The kernels are ``repro_torch::`` operators with fake implementations
 (``kernels/_launch.py``), so a trace with fake CUDA tensors goes through
@@ -68,6 +70,8 @@ from repro_torch.launch.cells import Cell, StepBundle, all_cells, build_step, ma
 from repro_torch.launch.mesh import describe, fake_world, make_production_mesh, \
     make_search_mesh
 from repro_torch.models.common import tree_flatten
+
+DOC = __doc__
 
 RESULT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 
@@ -248,11 +252,14 @@ def dryrun_cell(
     build_kwargs: Optional[Dict[str, Any]] = None,
     device: str = "cuda",
     out_dir: Path = RESULT_DIR,
+    correct: bool = True,
 ) -> Dict[str, Any]:
     """Trace one cell on one mesh (inside its fake world; ``None``:
     meshless, one card) and return the record dict (the JAX record's keys,
     ``compile_s`` -> ``trace_s``).  ``keep_census`` keeps the whole op
-    census (the JAX launcher's ``keep_hlo``)."""
+    census (the JAX launcher's ``keep_hlo``).  ``correct`` has no effect:
+    the trace counts every layer, so there is nothing to extrapolate, and
+    the record's ``scan_corrected`` is false either way."""
     kw = _check_impl(build_kwargs)
     cfg, shape = cell.cfg, cell.shape
     mesh_name = describe(mesh) if mesh is not None else "meshless"
@@ -429,7 +436,8 @@ def _meshes(which: str):
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap = argparse.ArgumentParser(description=DOC,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", default=None, help="one arch id (default: all)")
     ap.add_argument("--shape", default=None, help="one shape name (default: all)")
     ap.add_argument("--mesh", default="both", choices=["single", "multi", "both"])
@@ -446,6 +454,9 @@ def main(argv=None) -> int:
                          "built with CUDA); 'cpu' traces the CPU's paths")
     ap.add_argument("--out", default=str(RESULT_DIR), help="records directory")
     ap.add_argument("--no-save", action="store_true")
+    ap.add_argument("--no-correction", action="store_true",
+                    help="the JAX launcher's switch to skip its unrolled cost extrapolation; "
+                         "no effect here (an eager trace counts every layer)")
     args = ap.parse_args(argv)
     save, out_dir, dev = not args.no_save, Path(args.out), args.device
 
@@ -482,7 +493,8 @@ def main(argv=None) -> int:
             for cell in cells:
                 tag = f"[{cell.name} @ {label}]"
                 try:
-                    rec = dryrun_cell(cell, mesh, save=save, device=dev, out_dir=out_dir)
+                    rec = dryrun_cell(cell, mesh, save=save, device=dev, out_dir=out_dir,
+                                      correct=not args.no_correction)
                     r = rec["roofline"]
                     print(f"{tag} OK mem/dev={rec['memory']['per_device_gb']:.2f}GB "
                           f"flops/dev={rec['cost']['flops_per_device']:.3e} "

@@ -10,7 +10,9 @@ Reads ``experiments/dryrun_torch/<mesh>/<cell>.json`` (written by
 roofline table, with the JAX report's columns plus each cell's FLOPs and
 collective bytes per device and its trace seconds; the hillclimb mode
 traces a cell on the fake single-pod mesh under named variants of its
-``build_step`` and prints each one's terms.
+``build_step`` and prints each one's terms.  ``--no-correction``, the JAX
+tool's switch to skip its unrolled cost extrapolation, is accepted and
+changes nothing: an eager trace counts every layer.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ from pathlib import Path
 from typing import Any, Dict, List
 
 from repro_torch.launch.dryrun import RESULT_DIR
+
+DOC = __doc__
 
 SINGLE_POD = "data=16xmodel=16"
 
@@ -75,9 +79,12 @@ VARIANTS: Dict[str, Dict[str, Any]] = {
 }
 
 
-def hillclimb(cell_name: str, variants: List[str], device: str = "cuda"):
+def hillclimb(cell_name: str, variants: List[str], device: str = "cuda", *,
+              correct: bool = True):
     """Trace ``cell_name`` ("arch/shape") on the fake single-pod mesh once
-    per variant; prints and returns [(variant, record)]."""
+    per variant; prints and returns [(variant, record)].  ``correct``
+    (keyword-only, so ``device`` keeps its place) goes to ``dryrun_cell``,
+    where it has no effect."""
     from repro_torch.configs.base import SHAPES_BY_NAME, get_config
     from repro_torch.launch.cells import Cell
     from repro_torch.launch.dryrun import dryrun_cell
@@ -91,7 +98,7 @@ def hillclimb(cell_name: str, variants: List[str], device: str = "cuda"):
         for v in variants:
             try:
                 rec = dryrun_cell(cell, mesh, save=False, build_kwargs=VARIANTS[v],
-                                  device=device)
+                                  device=device, correct=correct)
             except Exception as e:  # noqa: BLE001 - report the variant, try the next
                 print(f"[{cell_name} :: {v}] FAIL {e!r}", flush=True)
                 continue
@@ -105,7 +112,8 @@ def hillclimb(cell_name: str, variants: List[str], device: str = "cuda"):
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap = argparse.ArgumentParser(description=DOC,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--report", action="store_true")
     ap.add_argument("--mesh", default=SINGLE_POD)
     ap.add_argument("--dir", default=str(RESULT_DIR), help="records directory")
@@ -113,13 +121,17 @@ def main(argv=None) -> int:
     ap.add_argument("--variants", default="baseline")
     ap.add_argument("--device", default="cuda",
                     help="device the hillclimb's fake tensors claim ('cpu' without CUDA)")
+    ap.add_argument("--no-correction", action="store_true",
+                    help="the JAX tool's switch to skip its unrolled cost extrapolation; "
+                         "no effect here")
     args = ap.parse_args(argv)
 
     if args.report:
         print(report(args.mesh, Path(args.dir)))
         return 0
     if args.hillclimb:
-        hillclimb(args.hillclimb, args.variants.split(","), args.device)
+        hillclimb(args.hillclimb, args.variants.split(","), correct=not args.no_correction,
+                  device=args.device)
         return 0
     ap.print_help()
     return 2

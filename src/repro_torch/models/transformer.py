@@ -54,6 +54,7 @@ from repro_torch.models.common import (
     apply_rope,
     glu_act,
     init_params,
+    param_structs,
     rms_norm,
     sinusoid_positions,
     sinusoid_rows,
@@ -184,6 +185,11 @@ def init(cfg: ModelConfig, generator: torch.Generator, dtype=torch.float32,
     """Random parameters from ``generator`` (on ``device``, default the
     generator's), float32 masters as in the JAX package."""
     return init_params(param_template(cfg), generator, dtype, device)
+
+
+def template_structs(cfg: ModelConfig, dtype=torch.float32) -> PyTree:
+    """The parameters' shapes and dtype as meta-device tensors (no storage)."""
+    return param_structs(param_template(cfg), dtype)
 
 
 # weights the model casts to the activation dtype wherever it uses them (the

@@ -367,3 +367,77 @@ def test_hillclimb_traces_each_variant(monkeypatch, capsys):
     assert all(rec["ok"] and rec["mesh"] == "data=16xmodel=16" for _, rec in out)
     assert capsys.readouterr().out.count("[llama3.2-1b/decode_32k :: ") == 2
     assert not dist.is_initialized()
+
+
+def _same_record(a, b):
+    """Two records of one cell, all but the host's trace seconds."""
+    assert {k: v for k, v in a.items() if k != "trace_s"} == \
+        {k: v for k, v in b.items() if k != "trace_s"}
+
+
+def test_no_correction_is_a_documented_no_op(records, monkeypatch, capsys):
+    """``dryrun_cell(correct=False)`` and ``main([..., "--no-correction"])``
+    (the JAX launcher's multi-pod switch) give the record the trace gives
+    anyway, ``scan_corrected`` false, in a fake world of 4 ranks."""
+    cell = cells.Cell(_cfg("llama3.2-1b"), ShapeSpec("t", S, B, "decode"))
+    with fake_world(4, "cpu"):
+        mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
+        rec = dryrun.dryrun_cell(cell, mesh, save=False, device="cpu", correct=False)
+    assert rec["scan_corrected"] is False
+    _same_record(rec, records[((2, 2), "llama3.2-1b", "decode")])
+
+    seen = []
+    real = dryrun.dryrun_cell
+
+    def spy(*a, **kw):
+        seen.append(kw["correct"])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(dryrun, "dryrun_cell", spy)
+    monkeypatch.setattr(dryrun, "all_cells", lambda arch, shape: [cell])
+    monkeypatch.setattr(dryrun, "_meshes", lambda which: [(dryrun.SINGLE, False, 4)])
+    monkeypatch.setattr(dryrun, "make_production_mesh", lambda multi_pod, device_type: make_mesh(
+        (2, 2), ("data", "model"), device_type=device_type))
+    for flags in ([], ["--no-correction"]):
+        assert dryrun.main(["--arch", "llama3.2-1b", "--mesh", "single", "--device", "cpu",
+                            "--no-save", *flags]) == 0
+    assert seen == [True, False]
+    assert capsys.readouterr().out.count("] OK mem/dev=") == 2
+    assert dryrun.main(["--search-mesh", "2x1", "--backend", "table", "--device", "cpu",
+                        "--no-save", "--no-correction"]) == 0
+    assert not dist.is_initialized()
+
+
+def test_roofline_takes_no_correction(monkeypatch, capsys, tmp_path):
+    """``launch.roofline``'s ``--no-correction`` reaches ``hillclimb`` and
+    ``dryrun_cell`` as ``correct=False``; the report takes it too."""
+    import repro_torch.configs.base as base
+
+    real_cfg, real_cell = base.get_config, dryrun.dryrun_cell
+    seen = []
+
+    def spy(*a, **kw):
+        seen.append(kw["correct"])
+        return real_cell(*a, **kw)
+
+    monkeypatch.setattr(base, "get_config", lambda name: real_cfg(name).reduced())
+    monkeypatch.setattr(dryrun, "dryrun_cell", spy)
+    assert roofline.main(["--hillclimb", "llama3.2-1b/decode_32k", "--variants", "baseline",
+                          "--device", "cpu", "--no-correction"]) == 0
+    assert seen == [False]
+    assert "[llama3.2-1b/decode_32k :: baseline] comp=" in capsys.readouterr().out
+    out = roofline.hillclimb("llama3.2-1b/decode_32k", ["baseline"], "cpu",
+                             correct=False)
+    assert seen == [False, False] and out[0][1]["scan_corrected"] is False
+    assert roofline.main(["--report", "--no-correction", "--dir", str(tmp_path)]) == 0
+    assert roofline.HEADER.splitlines()[0] in capsys.readouterr().out
+    assert not dist.is_initialized()
+
+
+def test_launchers_describe_themselves_with_doc(capsys):
+    for mod in (dryrun, roofline):
+        assert mod.DOC == mod.__doc__
+        with pytest.raises(SystemExit):
+            mod.main(["--help"])
+        out = capsys.readouterr().out
+        assert "--no-correction" in out and mod.DOC.strip().splitlines()[0] in out

@@ -148,3 +148,37 @@ def test_convert_rejects_wrong_leaf_count():
         convert.tables_from_arrays([np.zeros(3)] * 2, device="cpu")
     with pytest.raises(ValueError):
         convert.ga_state_from_arrays(np.zeros((2, 4, 9)), np.zeros((2, 5)), device="cpu")
+
+
+@pytest.mark.parametrize("density", [1, 2])
+def test_table_bytes_and_grid_shape_match_reference(pair, density):
+    """``table_bytes`` and ``grid_table_shape`` equal the JAX functions on
+    the active grid, and the bytes grow with density (as
+    ``tests/test_fused_gen.py`` holds for the reference)."""
+    ws_r, ws = pair
+    base = tables.table_bytes(ws.tables())
+    try:
+        space.configure_grid(density)
+        rspace.configure_grid(density)
+        assert tables.grid_table_shape() == rtables.grid_table_shape()
+        t = ws.tables()
+        assert tables.table_bytes(t) == rtables.table_bytes(ws_r.tables())
+        assert tuple(t.demand.shape[-3:]) == tuple(
+            tables.grid_table_shape()[f] for f in ("rows", "cols", "bits_cell"))
+        assert tuple(t.spill.shape[-1:]) == (tables.grid_table_shape()["glb_mb"],)
+        if density > 1:
+            assert tables.table_bytes(t) > base
+        else:
+            assert tables.table_bytes(t) == base
+    finally:
+        space.configure_grid(1)
+        rspace.configure_grid(1)
+    assert tables.table_bytes(ws.tables()) == base
+
+
+def test_table_bytes_counts_batched_leaves(pair):
+    _, ws = pair
+    t = ws.tables()
+    tb = tables.build_tables_batched(ws.feats[None].expand(3, -1, -1, -1),
+                                     ws.mask[None].expand(3, -1, -1))
+    assert tables.table_bytes(tb) == 3 * tables.table_bytes(t)
