@@ -80,6 +80,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.checkpoint import store
 from repro_torch.core import distributed as mdist
 from repro_torch.core import prng as tf
@@ -323,21 +324,23 @@ def _seed_rounds(source, feats: torch.Tensor, mask: torch.Tensor, pop_size: int,
         flag = torch.empty((), dtype=torch.bool, pin_memory=True)
         round_done = torch.cuda.Event()
     for _ in range(int(max_rounds)):
-        cand = draw(count < pop_size)
-        r = evaluate_designs_arrays(space.decode(cand), feats[:, None],
-                                    mask[:, None], tech)
-        ok = r.fits[..., 0] & r.valid  # (B, n_cand)
-        pos = count[:, None] + torch.cumsum(ok.to(torch.int64), dim=1) - 1
-        idx = torch.where(ok & (pos < pop_size), pos, pop_size)
-        pool[bidx, idx] = cand
-        count = torch.clamp_max(count + ok.sum(dim=1), pop_size)
-        full = (count >= pop_size).all()
-        if stream is not None:
-            flag.copy_(full, non_blocking=True)
-            round_done.record(stream)
-            round_done.synchronize()
-            full = flag
-        if bool(full):
+        with spans.span("engine.seed_round"):
+            cand = draw(count < pop_size)
+            r = evaluate_designs_arrays(space.decode(cand), feats[:, None],
+                                        mask[:, None], tech)
+            ok = r.fits[..., 0] & r.valid  # (B, n_cand)
+            pos = count[:, None] + torch.cumsum(ok.to(torch.int64), dim=1) - 1
+            idx = torch.where(ok & (pos < pop_size), pos, pop_size)
+            pool[bidx, idx] = cand
+            count = torch.clamp_max(count + ok.sum(dim=1), pop_size)
+            full = (count >= pop_size).all()
+            if stream is not None:
+                flag.copy_(full, non_blocking=True)
+                round_done.record(stream)
+                round_done.synchronize()
+                full = flag
+            full = bool(full)
+        if full:
             break
     return pool[:, :pop_size], count
 
@@ -401,8 +404,9 @@ def _vt_cdf(tech: TechParams, device) -> Tuple[torch.Tensor, int]:
     key = (tech, space.grid_token(), str(device))
     hit = _VT_CDF.get(key)
     if hit is None:
-        cdf = torch.cumsum(valid_vt_mask(tech).reshape(-1).to(torch.int64), 0)
-        hit = _VT_CDF[key] = (cdf.to(device), int(cdf[-1]))
+        with spans.span("tables.build", key="vt_cdf"):
+            cdf = torch.cumsum(valid_vt_mask(tech).reshape(-1).to(torch.int64), 0)
+            hit = _VT_CDF[key] = (cdf.to(device), int(cdf[-1]))
     return hit
 
 
@@ -567,6 +571,7 @@ def _top_unique(
     return genomes[keep], scores[keep]
 
 
+@spans.span("engine.finalize")
 def _finalize_batch(
     ga_np: GAResult, requests: Sequence["SearchRequest"],
 ) -> List[SearchResult]:
@@ -606,6 +611,7 @@ def _finalize_batch(
     return out
 
 
+@spans.span("engine.finalize")
 def _finalize_batch_thin(
     thin_np: GAThin, requests: Sequence["SearchRequest"], *, partial: bool = False,
 ) -> List[SearchResult]:
@@ -634,6 +640,7 @@ def _finalize_batch_thin(
     return out
 
 
+@spans.span("engine.finalize")
 def _finalize_batch_pareto(
     thin_np: ParetoThin, requests: Sequence["SearchRequest"],
     *, history: Optional[tuple] = None,
@@ -933,6 +940,7 @@ def get_policy(policy) -> SchedulingPolicy:
     return cls()
 
 
+@spans.span("engine.plan")
 def plan_batch(
     requests: Sequence[SearchRequest],
     *,
@@ -1042,6 +1050,7 @@ class PendingLaunch:
     history: Optional[Tuple[_Staged, _Staged]] = None
     mesh: Optional[object] = None  # the mesh it ran on: only its lead caches
     seq: int = 0  # a service's launch number on a mesh (serve.dse)
+    launch: int = 0  # the engine's launch number (``SearchEngine.launches``)
 
 
 class SearchEngine:
@@ -1188,7 +1197,9 @@ class SearchEngine:
         if self.pipelined:
             # seeding syncs (see the class docstring): seed every plan while
             # the stream is empty, then queue the launches back to back
-            preps = [None if self._segmented(p) else self._prepare(p, mesh=mesh) for p in plans]
+            preps = [None if self._segmented(p)
+                     else self._prepare(p, mesh=mesh, launch=self.launches + 1 + i)
+                     for i, p in enumerate(plans)]
             pending = [self.dispatch(p, mesh=mesh, prep=prep)
                        for p, prep in zip(plans, preps)]
             for plan, pend in zip(plans, pending):
@@ -1226,6 +1237,7 @@ class SearchEngine:
         event.record(torch.cuda.current_stream(self.device))
         return _Staged(host=host, event=event, cls=cls)
 
+    @spans.span("engine.sync")
     def _sync(self, x):
         """The engine's one device-to-host sync point: waits for a staged
         copy (or stages and waits for ``x``) and counts its bytes into
@@ -1245,12 +1257,13 @@ class SearchEngine:
         key = (req.ws.fingerprint(), req.tech, pad_w, space.grid_token())
         hit = self._padded_tables.get(key)
         if hit is None:
-            leaves = [leaf.numpy() for leaf in req.ws.tables(req.tech)]
-            extra = pad_w - leaves[0].shape[0]
-            if extra:
-                leaves = [np.pad(leaf, [(0, extra)] + [(0, 0)] * (leaf.ndim - 1))
-                          for leaf in leaves]
-            hit = self._padded_tables[key] = tuple(leaves)
+            with spans.span("tables.build", key="padded"):
+                leaves = [leaf.numpy() for leaf in req.ws.tables(req.tech)]
+                extra = pad_w - leaves[0].shape[0]
+                if extra:
+                    leaves = [np.pad(leaf, [(0, extra)] + [(0, 0)] * (leaf.ndim - 1))
+                              for leaf in leaves]
+                hit = self._padded_tables[key] = tuple(leaves)
         return hit
 
     def _tables(self, reqs: Sequence[SearchRequest], W: int, tech: TechParams):
@@ -1258,10 +1271,11 @@ class SearchEngine:
         key = (tuple(r.ws.fingerprint() for r in reqs), W, tech, space.grid_token())
         hit = self._stacked_tables.get(key)
         if hit is None:
-            per = [self._padded_request_tables(r, W) for r in reqs]
-            hit = WorkloadTables(*(self._to_device(np.stack([t[f] for t in per]))
-                                   for f in range(len(per[0]))))
-            self._stacked_tables[key] = hit
+            with spans.span("tables.build", key="stacked"):
+                per = [self._padded_request_tables(r, W) for r in reqs]
+                hit = WorkloadTables(*(self._to_device(np.stack([t[f] for t in per]))
+                                       for f in range(len(per[0]))))
+                self._stacked_tables[key] = hit
         return hit
 
     def _packed(self, reqs: Sequence[SearchRequest], W: int, L: int):
@@ -1273,19 +1287,20 @@ class SearchEngine:
         key = (tuple(r.ws.fingerprint() for r in reqs), W, L)
         hit = self._packed_workloads.get(key)
         if hit is None:
-            host = _pack_host(reqs, W, L)
-            if self._seed_stream is None:
-                hit = tuple(self._to_device(a) for a in host)
-            else:
-                main = torch.cuda.current_stream(self.device)
-                with torch.cuda.stream(self._seed_stream):
+            with spans.span("tables.build", key="packed"):
+                host = _pack_host(reqs, W, L)
+                if self._seed_stream is None:
                     hit = tuple(self._to_device(a) for a in host)
-                    uploaded = torch.cuda.Event()
-                    uploaded.record(self._seed_stream)
-                main.wait_event(uploaded)
-                for t in hit:
-                    t.record_stream(main)
-            self._packed_workloads[key] = hit
+                else:
+                    main = torch.cuda.current_stream(self.device)
+                    with torch.cuda.stream(self._seed_stream):
+                        hit = tuple(self._to_device(a) for a in host)
+                        uploaded = torch.cuda.Event()
+                        uploaded.record(self._seed_stream)
+                    main.wait_event(uploaded)
+                    for t in hit:
+                        t.record_stream(main)
+                self._packed_workloads[key] = hit
         return hit
 
     def execute(self, plan: BatchPlan, *, mesh=None,
@@ -1315,61 +1330,70 @@ class SearchEngine:
         rank stages the whole plan's."""
         mesh = self._mesh(mesh)
         r0 = plan.requests[0]
-        if self._segmented(plan):
-            return self._dispatch_segmented(plan, mesh, self.segment_gens,
-                                            on_progress=on_progress)
-        if prep is None:
-            prep = self._prepare(plan, mesh=mesh)
-        self.launches += 1
-        S = len(plan.requests)
+        n = self.launches + 1
+        with spans.span("engine.dispatch", key=n):
+            if self._segmented(plan):
+                pend = self._dispatch_segmented(plan, mesh, self.segment_gens,
+                                                on_progress=on_progress)
+                pend.launch = n
+                return pend
+            if prep is None:
+                prep = self._prepare(plan, mesh=mesh)
+            self.launches += 1
+            S = len(plan.requests)
 
-        def whole(x):
-            """The plan's every row of a local output (a tensor or a
-            NamedTuple of them)."""
-            if not prep.split:
-                return x
-            if isinstance(x, tuple):
-                return type(x)(*(mdist.gather_rows(mesh, f, S) for f in x))
-            return mdist.gather_rows(mesh, x, S)
+            def whole(x):
+                """The plan's every row of a local output (a tensor or a
+                NamedTuple of them)."""
+                if not prep.split:
+                    return x
+                if isinstance(x, tuple):
+                    return type(x)(*(mdist.gather_rows(mesh, f, S) for f in x))
+                return mdist.gather_rows(mesh, x, S)
 
-        kw = dict(pop_size=int(r0.pop_size), generations=int(r0.generations),
-                  init_genomes=prep.init, ctx=prep.ctx, u_blocks=prep.u)
-        out = dict(plan=plan, seed_check=prep.seed_check, mesh=mesh)
-        if r0.objective == PARETO:
-            # both engine modes run the same front epilogue, so their fronts
-            # are the same bits; the sequential one also keeps the history
-            kw["top_k"] = max(int(r.pareto_k) for r in plan.requests)
+            kw = dict(pop_size=int(r0.pop_size), generations=int(r0.generations),
+                      init_genomes=prep.init, ctx=prep.ctx, u_blocks=prep.u)
+            out = dict(plan=plan, seed_check=prep.seed_check, mesh=mesh, launch=n)
+            if r0.objective == PARETO:
+                # both engine modes run the same front epilogue, so their
+                # fronts are the same bits; the sequential one also keeps the
+                # history
+                kw["top_k"] = max(int(r.pareto_k) for r in plan.requests)
+                if self.pipelined:
+                    thin = run_pareto_batched(prep.eval_fn, **kw)
+                    return PendingLaunch(pareto=self._stage(whole(thin)), **out)
+                gh, oh, thin = run_pareto_batched(prep.eval_fn, history=True, **kw)
+                return PendingLaunch(pareto=self._stage(whole(thin)),
+                                     history=(self._stage(whole(gh)),
+                                              self._stage(whole(oh))),
+                                     **out)
             if self.pipelined:
-                thin = run_pareto_batched(prep.eval_fn, **kw)
-                return PendingLaunch(pareto=self._stage(whole(thin)), **out)
-            gh, oh, thin = run_pareto_batched(prep.eval_fn, history=True, **kw)
-            return PendingLaunch(pareto=self._stage(whole(thin)),
-                                 history=(self._stage(whole(gh)), self._stage(whole(oh))),
-                                 **out)
-        if self.pipelined:
-            thin = run_ga_batched_thin(prep.eval_fn,
-                                       top_k=max(int(r.top_k) for r in plan.requests), **kw)
-            return PendingLaunch(thin=self._stage(whole(thin)), **out)
-        ga = run_ga_batched(prep.eval_fn, **kw)
-        return PendingLaunch(ga=self._stage(whole(ga)), **out)
+                thin = run_ga_batched_thin(prep.eval_fn,
+                                           top_k=max(int(r.top_k) for r in plan.requests),
+                                           **kw)
+                return PendingLaunch(thin=self._stage(whole(thin)), **out)
+            ga = run_ga_batched(prep.eval_fn, **kw)
+            return PendingLaunch(ga=self._stage(whole(ga)), **out)
 
     def harvest(self, pending: PendingLaunch) -> List[SearchResult]:
         """Wait for a dispatched plan's outputs, finalize them, and put the
         finished results into the cache: the host half of ``execute``."""
-        if pending.seed_check is not None:
-            pending.seed_check()
-        if pending.results is not None:
-            results = pending.results
-        elif pending.pareto is not None:
-            history = (None if pending.history is None
-                       else tuple(self._sync(h) for h in pending.history))
-            results = _finalize_batch_pareto(self._sync(pending.pareto),
-                                             pending.plan.requests, history=history)
-        elif pending.thin is not None:
-            results = _finalize_batch_thin(self._sync(pending.thin), pending.plan.requests)
-        else:
-            results = _finalize_batch(self._sync(pending.ga), pending.plan.requests)
-        self._cache_completed(pending.plan, results, pending.mesh)
+        with spans.span("engine.harvest", key=pending.launch):
+            if pending.seed_check is not None:
+                pending.seed_check()
+            if pending.results is not None:
+                results = pending.results
+            elif pending.pareto is not None:
+                history = (None if pending.history is None
+                           else tuple(self._sync(h) for h in pending.history))
+                results = _finalize_batch_pareto(self._sync(pending.pareto),
+                                                 pending.plan.requests, history=history)
+            elif pending.thin is not None:
+                results = _finalize_batch_thin(self._sync(pending.thin),
+                                               pending.plan.requests)
+            else:
+                results = _finalize_batch(self._sync(pending.ga), pending.plan.requests)
+            self._cache_completed(pending.plan, results, pending.mesh)
         return results
 
     def _cache_completed(self, plan: BatchPlan, results: Sequence[SearchResult],
@@ -1378,57 +1402,60 @@ class SearchEngine:
             for r, res in zip(plan.requests, results):
                 self.result_cache.put(r, res)
 
-    def _prepare(self, plan: BatchPlan, *, mesh=None, fresh: bool = True) -> _LaunchPrep:
+    def _prepare(self, plan: BatchPlan, *, mesh=None, fresh: bool = True,
+                 launch: Optional[int] = None) -> _LaunchPrep:
         """A plan's device inputs up to the GA launch: the eval ctx and,
         when ``fresh`` (not resuming a checkpoint), the initial populations
         and the uniform stream.  Only the seeder's rounds wait for the
         device, one sync each.  On a mesh, only this rank's rows: their
         workloads, objectives and streams, a rank drawing for its own rows
         alone (one batched threefry pass over their keys), and an eval
-        that splits each population along ``data``."""
-        rows, split = _rows(mesh, len(plan.requests))
-        reqs = plan.requests[rows]
-        r0 = reqs[0]
-        backend, tech = r0.backend, r0.tech
-        W, L = plan.pad_w, plan.pad_l
-        if backend == "table":
-            ctx: tuple = (self._tables(reqs, W, tech),)
-        else:
-            ctx = self._packed(reqs, W, L)
-        areas = np.array([r.area_constr for r in reqs], np.float32)
-        if r0.objective == PARETO:
-            ctx = ctx + (self._to_device(areas),)
-            eval_fn = _ctx_eval(tech, backend, PARETO)
-        elif r0.obj_weights is not None:
-            weights = np.array([r.obj_weights for r in reqs], np.float32)
-            ctx = ctx + (self._to_device(weights),)
-            eval_fn = _ctx_eval(tech, backend, WEIGHTED, float(r0.area_constr))
-        else:
-            kinds = np.array([OBJECTIVE_INDEX[r.objective] for r in reqs], np.int64)
-            ctx = ctx + (self._to_device(kinds), self._to_device(areas))
-            eval_fn = _ctx_eval(tech, backend)
-        if mesh is not None:
-            eval_fn = mdist.split_eval(eval_fn, mesh)
-        for r in reqs:
-            self.check_request(r)
-        init = u = seed_check = None
-        if fresh:
-            P, G = int(r0.pop_size), int(r0.generations)
-            tot = block_layout(P, space.N_GENES).tot
-            if self.prng == "threefry":
-                init, counts, need, u = self._threefry_streams(reqs, W, L, G, tot)
+        that splits each population along ``data``.  ``launch`` keys its
+        spans when it runs before its launch's ``dispatch``."""
+        with spans.span("engine.prepare", key=launch):
+            rows, split = _rows(mesh, len(plan.requests))
+            reqs = plan.requests[rows]
+            r0 = reqs[0]
+            backend, tech = r0.backend, r0.tech
+            W, L = plan.pad_w, plan.pad_l
+            if backend == "table":
+                ctx: tuple = (self._tables(reqs, W, tech),)
             else:
-                gens = [_slot_generators(r.seed, self.device) for r in reqs]
-                init, counts, need = self._init_populations(reqs, [g for g, _ in gens], W, L)
-                u = torch.stack([
-                    torch.rand((G, tot), generator=g_ga, device=self.device)
-                    if r.u_blocks is None else self._to_device(_f32(r.u_blocks))
-                    for r, (_, g_ga) in zip(reqs, gens)
-                ], dim=1)  # (G, S, tot)
-            seed_check = self._seed_check(plan, reqs, counts, need, P,
-                                          mesh if split else None)
-        return _LaunchPrep(ctx=ctx, eval_fn=eval_fn, init=init, u=u,
-                           seed_check=seed_check, rows=rows, split=split)
+                ctx = self._packed(reqs, W, L)
+            areas = np.array([r.area_constr for r in reqs], np.float32)
+            if r0.objective == PARETO:
+                ctx = ctx + (self._to_device(areas),)
+                eval_fn = _ctx_eval(tech, backend, PARETO)
+            elif r0.obj_weights is not None:
+                weights = np.array([r.obj_weights for r in reqs], np.float32)
+                ctx = ctx + (self._to_device(weights),)
+                eval_fn = _ctx_eval(tech, backend, WEIGHTED, float(r0.area_constr))
+            else:
+                kinds = np.array([OBJECTIVE_INDEX[r.objective] for r in reqs], np.int64)
+                ctx = ctx + (self._to_device(kinds), self._to_device(areas))
+                eval_fn = _ctx_eval(tech, backend)
+            if mesh is not None:
+                eval_fn = mdist.split_eval(eval_fn, mesh)
+            for r in reqs:
+                self.check_request(r)
+            init = u = seed_check = None
+            if fresh:
+                P, G = int(r0.pop_size), int(r0.generations)
+                tot = block_layout(P, space.N_GENES).tot
+                if self.prng == "threefry":
+                    init, counts, need, u = self._threefry_streams(reqs, W, L, G, tot)
+                else:
+                    gens = [_slot_generators(r.seed, self.device) for r in reqs]
+                    init, counts, need = self._init_populations(reqs, [g for g, _ in gens], W, L)
+                    u = torch.stack([
+                        torch.rand((G, tot), generator=g_ga, device=self.device)
+                        if r.u_blocks is None else self._to_device(_f32(r.u_blocks))
+                        for r, (_, g_ga) in zip(reqs, gens)
+                    ], dim=1)  # (G, S, tot)
+                seed_check = self._seed_check(plan, reqs, counts, need, P,
+                                              mesh if split else None)
+            return _LaunchPrep(ctx=ctx, eval_fn=eval_fn, init=init, u=u,
+                               seed_check=seed_check, rows=rows, split=split)
 
     def _seed_check(self, plan: BatchPlan, reqs, counts, need, P: int, mesh):
         """The check ``harvest`` runs on the seeded pools' counts (``None``
@@ -1490,22 +1517,24 @@ class SearchEngine:
             threefry = isinstance(seed_src, torch.Tensor)
             src = seed_src[need] if threefry else [seed_src[i] for i in need]
             tech = reqs[0].tech
-            if self.direct_seed and reqs[0].backend == "table":
-                if threefry:
-                    u = tf.uniform(self._to_device(src), (P, space.N_GENES + 2))
+            with spans.span("engine.seed"):
+                if self.direct_seed and reqs[0].backend == "table":
+                    if threefry:
+                        u = tf.uniform(self._to_device(src), (P, space.N_GENES + 2))
+                    else:
+                        u = torch.stack([
+                            torch.rand((P, space.N_GENES + 2), generator=g,
+                                       device=self.device)
+                            for g in src])
+                    seeded, counts = _seed_direct(u, self._stacked_seed_cdf(sub, tech),
+                                                  tech, jit_division=threefry)
                 else:
-                    u = torch.stack([
-                        torch.rand((P, space.N_GENES + 2), generator=g, device=self.device)
-                        for g in src])
-                seeded, counts = _seed_direct(u, self._stacked_seed_cdf(sub, tech), tech,
-                                              jit_division=threefry)
-            else:
-                feats, mask = self._packed(sub, W, L)
-                if threefry:  # uploaded on the stream the rounds run on
-                    with self._on_seed_stream():
-                        src = self._to_device(src)
-                seeded, counts = _seed_pools(src, feats, mask, P, tech=tech,
-                                             stream=self._seed_stream)
+                    feats, mask = self._packed(sub, W, L)
+                    if threefry:  # uploaded on the stream the rounds run on
+                        with self._on_seed_stream():
+                            src = self._to_device(src)
+                    seeded, counts = _seed_pools(src, feats, mask, P, tech=tech,
+                                                 stream=self._seed_stream)
             for j, i in enumerate(need):
                 pools[i] = seeded[j]
         for i, r in enumerate(reqs):
@@ -1524,11 +1553,12 @@ class SearchEngine:
         key = (req.ws.fingerprint(), req.tech, space.grid_token())
         hit = self._seed_cdfs.get(key)
         if hit is None:
-            feats = req.ws.feats.cpu().numpy().astype(np.float32)
-            mask = req.ws.mask.cpu().numpy().astype(bool)
-            w = (feats[..., 1] * feats[..., 2] * feats[..., 5] * mask).sum(-1)
-            demand = req.ws.tables(req.tech).demand.cpu().numpy()
-            hit = self._seed_cdfs[key] = _seed_cells_cdf(demand[int(np.argmax(w))])
+            with spans.span("tables.build", key="seed_cdf"):
+                feats = req.ws.feats.cpu().numpy().astype(np.float32)
+                mask = req.ws.mask.cpu().numpy().astype(bool)
+                w = (feats[..., 1] * feats[..., 2] * feats[..., 5] * mask).sum(-1)
+                demand = req.ws.tables(req.tech).demand.cpu().numpy()
+                hit = self._seed_cdfs[key] = _seed_cells_cdf(demand[int(np.argmax(w))])
         return hit
 
     def _stacked_seed_cdf(self, reqs: Sequence[SearchRequest], tech: TechParams):
@@ -1537,8 +1567,9 @@ class SearchEngine:
         key = (tuple(r.ws.fingerprint() for r in reqs), tech, space.grid_token())
         hit = self._stacked_seed_cdfs.get(key)
         if hit is None:
-            hit = self._stacked_seed_cdfs[key] = self._to_device(
-                np.stack([self._request_seed_cdf(r) for r in reqs]))
+            with spans.span("tables.build", key="stacked_seed_cdf"):
+                hit = self._stacked_seed_cdfs[key] = self._to_device(
+                    np.stack([self._request_seed_cdf(r) for r in reqs]))
         return hit
 
     # ------------------------------------------------- segmented execution

@@ -56,6 +56,7 @@ from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core import space
 from repro_torch.core.objectives import pareto_scalar
 
@@ -418,7 +419,8 @@ def run_ga_batched_segment(
     pop, scores = state.genomes, state.scores
     hist_g, hist_s = [], []
     for g in range(g0, g0 + k):
-        pop, scores, children, child_scores = gen(pop, scores, state.u[g])
+        with spans.span("ga.generation"):
+            pop, scores, children, child_scores = gen(pop, scores, state.u[g])
         hist_g.append(children)
         hist_s.append(child_scores)
     new = GAState(genomes=pop, scores=scores, u=state.u, gen=g0 + k)
@@ -555,8 +557,9 @@ def _pareto_core(eval_fn: Callable, init_genomes: torch.Tensor, u: torch.Tensor,
     sel = _crowded_positions(objs)
     hg, ho = [pop], [objs]
     for g in range(u.shape[0]):
-        pop, objs, sel, children, child_objs = pareto_gen_step(
-            pop, objs, sel, u[g], eval_fn, ctx, **kw)
+        with spans.span("ga.generation"):
+            pop, objs, sel, children, child_objs = pareto_gen_step(
+                pop, objs, sel, u[g], eval_fn, ctx, **kw)
         hg.append(children)
         ho.append(child_objs)
     return torch.stack(hg, dim=1), torch.stack(ho, dim=1)

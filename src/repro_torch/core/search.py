@@ -38,6 +38,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core import prng as tf
 from repro_torch.core import space
 from repro_torch.core.engine import (  # noqa: F401 (re-exported API)
@@ -201,6 +202,7 @@ def batched_search(
     return _engine(engine, device, prng, pipelined).run(reqs, mesh=mesh)
 
 
+@spans.span("search.joint")
 def joint_search_batched(seeds: Sequence[int], ws: WorkloadSet, **kw) -> List[SearchResult]:
     """Multi-seed joint search: one GA per seed, all in one batched GA."""
     B = len(seeds)
@@ -209,6 +211,7 @@ def joint_search_batched(seeds: Sequence[int], ws: WorkloadSet, **kw) -> List[Se
     return batched_search(seeds, feats, mask, names=ws.names, **kw)
 
 
+@spans.span("search.separate")
 def separate_search(
     seed: int,
     ws: WorkloadSet,
@@ -264,6 +267,7 @@ def separate_search(
     return out
 
 
+@spans.span("search.rescore")
 def rescore_designs(
     genomes,
     ws: WorkloadSet,

@@ -72,10 +72,16 @@ is bit for bit the meshless run's:
 
 The process groups run NCCL on the card (one card per rank) and gloo on
 the CPU.
+
+``--profile PATH`` runs the searches (or the ``--serve`` drain) under
+``torch.profiler`` (CPU and CUDA, every thread where this torch allows
+it), writes its Chrome trace to PATH and prints the program's spans
+(``repro_torch.spans``): for each, its count and total and self ms.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -84,6 +90,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.configs.base import get_config
 from repro_torch.core.engine import SearchEngine
 from repro_torch.core.search import (
@@ -117,6 +124,43 @@ def _fmt(v, spec: str = ".2f") -> str:
 
 def _quiet(*args, **kw) -> None:
     """``print`` on a rank other than the first."""
+
+
+def span_table(snap) -> str:
+    """``spans.snapshot()`` as a table, the longest total first."""
+    rows = [f"{'span':<32}{'count':>8}{'total ms':>12}{'self ms':>12}"]
+    for name, v in sorted(snap.items(), key=lambda kv: -kv[1]["total_s"]):
+        rows.append(f"{spans.PREFIX + name:<32}{v['count']:>8}"
+                    f"{v['total_s'] * 1e3:>12.3f}{v['self_s'] * 1e3:>12.3f}")
+    return "\n".join(rows)
+
+
+@contextlib.contextmanager
+def profiled(path: str, dev, log=print):
+    """``--profile PATH``: the body under ``torch.profiler`` (CPU, and
+    CUDA on a card; host events on every thread where this torch has the
+    option), its Chrome trace written to PATH and the span table printed.
+    Without PATH the body runs as it is."""
+    if not path:
+        yield
+        return
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        every_thread = _ExperimentalConfig(profile_all_threads=True)
+    except TypeError:
+        every_thread = None
+    cuda = dev.type == "cuda"
+    spans.reset()
+    with profile(activities=[ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else []),
+                 experimental_config=every_thread) as prof:
+        yield
+        if cuda:
+            torch.cuda.synchronize(dev)
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(path)
+    log(f"[profile] wrote {path}\n{span_table(spans.snapshot())}")
 
 
 def build_engine(args, dev, result_cache=None, mesh=None):
@@ -223,8 +267,8 @@ def serve(args, ws: WorkloadSet, dev, mesh=None, log=print) -> int:
           f"retries, {stats.partials} partials, {stats.abandoned} abandoned")
     log(f"[serve] overlap: pipelined={'on' if args.pipelined else 'off'}, "
           f"dispatch->harvest gap p50 "
-          f"{_fmt(stats.dispatch_gap_p(50), '.4f')}s, device idle "
-          f"{stats.device_idle_s:.3f}s, "
+          f"{_fmt(stats.dispatch_gap_p(50), '.4f')}s, no launch in flight "
+          f"(host estimate) {stats.device_idle_s:.3f}s, "
           f"{getattr(eng, 'transfer_bytes', 0)} bytes harvested over "
           f"{getattr(eng, 'launches', 0)} engine launches")
     if cache is not None:
@@ -341,6 +385,11 @@ def main(argv=None) -> int:
              "searches over S ranks and each population over P (one process "
              "per rank, torchrun; sizes clamp to the world)")
     ap.add_argument("--out", default="")
+    ap.add_argument(
+        "--profile", default="", metavar="PATH",
+        help="run under torch.profiler (on a mesh, the first rank): write its "
+             "Chrome trace to PATH and print each span's count and total and "
+             "self ms")
     args = ap.parse_args(argv)
 
     if args.seeds < 1:
@@ -368,8 +417,10 @@ def main(argv=None) -> int:
     ws = build_workloads(args)
     log(f"[search] workloads: {ws.names} (L_max={ws.feats.shape[1]}) "
           f"on {dev} ({name})")
+    profile = args.profile if log is not _quiet else ""  # the first rank's
     if args.serve:
-        return serve(args, ws, dev, mesh, log)
+        with profiled(profile, dev, log):
+            return serve(args, ws, dev, mesh, log)
 
     kw = dict(objective=args.objective, area_constr=args.area,
               pop_size=args.pop, generations=args.gens, pareto_k=args.pareto_k,
@@ -378,59 +429,60 @@ def main(argv=None) -> int:
     # separate winners are re-scored on the whole set under a scalar
     # objective: the Pareto family's is its E*L*A proxy, the ela objective
     rescore_obj = "ela" if args.objective == PARETO else args.objective
-    t0 = time.perf_counter()
-    ress = joint_search_batched(list(range(args.seeds)), ws, **kw)
-    dt_all = time.perf_counter() - t0
-    n_evald = args.seeds * args.pop * (args.gens + 1)
-    log(f"[search] {args.seeds} seed(s) in {dt_all:.3f}s "
-          f"({n_evald / dt_all:.0f} designs/s on {name}, host clock, "
-          f"first call included)")
+    with profiled(profile, dev, log):
+        t0 = time.perf_counter()
+        ress = joint_search_batched(list(range(args.seeds)), ws, **kw)
+        dt_all = time.perf_counter() - t0
+        n_evald = args.seeds * args.pop * (args.gens + 1)
+        log(f"[search] {args.seeds} seed(s) in {dt_all:.3f}s "
+              f"({n_evald / dt_all:.0f} designs/s on {name}, host clock, "
+              f"first call included)")
 
-    results = []
-    for seed, res in enumerate(ress):
-        best = f"{res.top_scores[0]:.4g}" if len(res.top_scores) else "infeasible"
-        log(f"[search] seed {seed}: best={best}")
-        if res.top_designs:
-            log(f"         best design: {res.top_designs[0]}")
-        entry = {
-            "seed": seed,
-            "joint_best": float(res.top_scores[0]) if len(res.top_scores) else None,
-            "joint_top10": [float(s) for s in res.top_scores],
-            "best_design": res.top_designs[0] if res.top_designs else None,
-            "convergence": [float(c) for c in res.convergence],
-            "wall_s": dt_all / args.seeds,
-        }
-        if res.objective_vectors is not None:
-            entry["pareto_front"] = [
-                {"E_pj": float(v[0]), "L_ns": float(v[1]), "A_mm2": float(v[2]),
-                 "design": d}
-                for v, d in zip(res.objective_vectors, res.top_designs)]
-            for j, v in enumerate(res.objective_vectors):
-                log(f"         front[{j}]: E={v[0]:.4g}pJ L={v[1]:.4g}ns "
-                      f"A={v[2]:.4g}mm2")
-        if args.separate:
-            sep = separate_search(seed + 1000, ws, **kw)
-            cross = {}
-            for wname, r in sep.items():
-                best_on_all = None
-                if len(r.top_genomes):
-                    s_all, _ = rescore_designs(
-                        r.top_genomes, ws, objective=rescore_obj,
-                        area_constr=args.area, device=dev)
-                    failed = float(np.mean(~np.isfinite(s_all)))
-                    fin = s_all[np.isfinite(s_all)]
-                    best_on_all = float(fin.min()) if len(fin) else None
-                else:
-                    failed = 1.0
-                cross[wname] = {
-                    "own_best": float(r.top_scores[0]) if len(r.top_scores) else None,
-                    "best_design": r.top_designs[0] if r.top_designs else None,
-                    "failed_frac_on_all": failed,
-                    "best_on_all": best_on_all,
-                }
-            entry["separate"] = cross
-            log(f"         separate: {json.dumps(cross)}")
-        results.append(entry)
+        results = []
+        for seed, res in enumerate(ress):
+            best = f"{res.top_scores[0]:.4g}" if len(res.top_scores) else "infeasible"
+            log(f"[search] seed {seed}: best={best}")
+            if res.top_designs:
+                log(f"         best design: {res.top_designs[0]}")
+            entry = {
+                "seed": seed,
+                "joint_best": float(res.top_scores[0]) if len(res.top_scores) else None,
+                "joint_top10": [float(s) for s in res.top_scores],
+                "best_design": res.top_designs[0] if res.top_designs else None,
+                "convergence": [float(c) for c in res.convergence],
+                "wall_s": dt_all / args.seeds,
+            }
+            if res.objective_vectors is not None:
+                entry["pareto_front"] = [
+                    {"E_pj": float(v[0]), "L_ns": float(v[1]), "A_mm2": float(v[2]),
+                     "design": d}
+                    for v, d in zip(res.objective_vectors, res.top_designs)]
+                for j, v in enumerate(res.objective_vectors):
+                    log(f"         front[{j}]: E={v[0]:.4g}pJ L={v[1]:.4g}ns "
+                          f"A={v[2]:.4g}mm2")
+            if args.separate:
+                sep = separate_search(seed + 1000, ws, **kw)
+                cross = {}
+                for wname, r in sep.items():
+                    best_on_all = None
+                    if len(r.top_genomes):
+                        s_all, _ = rescore_designs(
+                            r.top_genomes, ws, objective=rescore_obj,
+                            area_constr=args.area, device=dev)
+                        failed = float(np.mean(~np.isfinite(s_all)))
+                        fin = s_all[np.isfinite(s_all)]
+                        best_on_all = float(fin.min()) if len(fin) else None
+                    else:
+                        failed = 1.0
+                    cross[wname] = {
+                        "own_best": float(r.top_scores[0]) if len(r.top_scores) else None,
+                        "best_design": r.top_designs[0] if r.top_designs else None,
+                        "failed_frac_on_all": failed,
+                        "best_on_all": best_on_all,
+                    }
+                entry["separate"] = cross
+                log(f"         separate: {json.dumps(cross)}")
+            results.append(entry)
 
     if args.out and log is not _quiet:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

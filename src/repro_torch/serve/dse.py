@@ -65,6 +65,7 @@ import numpy as np
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core import distributed as mdist
 from repro_torch.core.engine import (
     BatchPlan,
@@ -136,7 +137,11 @@ class ServiceStats:
     inline), and ``device_idle_s`` accumulates an ESTIMATE of wall time
     with nothing in flight between one harvest finishing and the next
     dispatch starting — the overlap win shows up as near-zero idle while
-    the gap stays small.
+    the gap stays small.  It is a host estimate of the time with no
+    launch in flight, not the device's idle time: the card idles also
+    while a launch is in flight and the host enqueues its work, so the
+    ``--serve`` summary prints it as "no launch in flight (host
+    estimate)", and only a device trace measures the card's idle share.
 
     Percentiles over empty sample windows are ``None`` (a fresh service
     has no telemetry) — never NaN, which is invalid JSON and poisons
@@ -409,43 +414,44 @@ class DSEService:
         engine with ``segment_gens``; single-shot engines have no
         mid-search boundaries and never call it).  Callbacks run on the
         draining thread, between segment launches."""
-        req.signature()
-        check = getattr(self.engine, "check_request", None)
-        if check is not None:
-            check(req)
-        if self._follower:  # the lead queues it; this rank numbers it alike
-            rid = self._next_rid
-            self._next_rid += 1
-            return rid
-        if self.result_cache is not None:
-            hit = self.result_cache.get(req)
-            if hit is not None:
+        with spans.span("serve.submit", key=self._next_rid):
+            req.signature()
+            check = getattr(self.engine, "check_request", None)
+            if check is not None:
+                check(req)
+            if self._follower:  # the lead queues it; this rank numbers it alike
                 rid = self._next_rid
                 self._next_rid += 1
-                self.results[rid] = hit
-                self._forward(rid, hit)
-                self.stats.submitted += 1
-                self.stats.completed += 1
-                self.stats.cache_hits += 1
-                self.stats.wait_samples.append(0.0)
-                self.stats.latency_samples.append(0.0)
                 return rid
-            self.stats.cache_misses += 1
-        if req.backend == "table":
-            req.ws.tables(req.tech)  # fingerprint-memoized ingest prefill
-        now = self.clock()
-        rid = self._next_rid
-        self._next_rid += 1
-        self.queue.append((rid, req))
-        self._submit_s[rid] = now
-        self._deadline_s[rid] = (
-            None if req.deadline_s is None else now + float(req.deadline_s)
-        )
-        if on_progress is not None:
-            self._progress_cbs[rid] = on_progress
-        self.stats.submitted += 1
-        self._plans_cache = None  # next step re-packs the grown queue
-        return rid
+            if self.result_cache is not None:
+                hit = self.result_cache.get(req)
+                if hit is not None:
+                    rid = self._next_rid
+                    self._next_rid += 1
+                    self.results[rid] = hit
+                    self._forward(rid, hit)
+                    self.stats.submitted += 1
+                    self.stats.completed += 1
+                    self.stats.cache_hits += 1
+                    self.stats.wait_samples.append(0.0)
+                    self.stats.latency_samples.append(0.0)
+                    return rid
+                self.stats.cache_misses += 1
+            if req.backend == "table":
+                req.ws.tables(req.tech)  # fingerprint-memoized ingest prefill
+            now = self.clock()
+            rid = self._next_rid
+            self._next_rid += 1
+            self.queue.append((rid, req))
+            self._submit_s[rid] = now
+            self._deadline_s[rid] = (
+                None if req.deadline_s is None else now + float(req.deadline_s)
+            )
+            if on_progress is not None:
+                self._progress_cbs[rid] = on_progress
+            self.stats.submitted += 1
+            self._plans_cache = None  # next step re-packs the grown queue
+            return rid
 
     def submit_all(self, reqs: Sequence[SearchRequest]) -> List[int]:
         return [self.submit(r) for r in reqs]
@@ -577,6 +583,7 @@ class DSEService:
                 self._slot_hints[p.signature] = p.slots
         return self._plans_cache
 
+    @spans.span("serve.schedule")
     def _dispatch(self) -> Optional[Tuple[BatchPlan, List[int], float]]:
         """Pick the policy's next plan and remove its requests from the
         queue — the admission point: everything still queued after this
@@ -825,11 +832,12 @@ class DSEService:
             # the kill half of the kill/resume contract
             self._rollback(plan, rids)
             raise
-        te = self.clock()
-        # sequential execute harvests inline: the gap is 0 by definition
-        self.stats.dispatch_gap_samples.append(0.0)
-        self._last_harvest_end = te
-        return swept + self._complete(rids, results, te - t0, plan.requests)
+        with spans.span("serve.complete"):
+            te = self.clock()
+            # sequential execute harvests inline: the gap is 0 by definition
+            self.stats.dispatch_gap_samples.append(0.0)
+            self._last_harvest_end = te
+            return swept + self._complete(rids, results, te - t0, plan.requests)
 
     def _wait_for_retries(self) -> None:
         """Nothing dispatchable but retries are backed off: sleep the
@@ -866,13 +874,14 @@ class DSEService:
             self._inflight -= 1
             self._rollback(plan, rids)
             raise
-        te = self.clock()
-        self.stats.dispatch_gap_samples.append(max(0.0, th - td))
-        self._inflight -= 1
-        if self._inflight == 0:
-            self._last_harvest_end = te
-        return self._complete(rids, results, (td - t0) + (te - th),
-                              plan.requests)
+        with spans.span("serve.complete"):
+            te = self.clock()
+            self.stats.dispatch_gap_samples.append(max(0.0, th - td))
+            self._inflight -= 1
+            if self._inflight == 0:
+                self._last_harvest_end = te
+            return self._complete(rids, results, (td - t0) + (te - th),
+                                  plan.requests)
 
     def _stream_pipelined(self) -> Iterator[Tuple[int, SearchResult]]:
         """Double-buffered drain: dispatch plan i+1, THEN harvest plan i,
@@ -1168,14 +1177,15 @@ class AsyncDSEService:
                     if f is not None:
                         f.set_exception(e)
                 continue
-            with self._lock:
-                done = svc._complete(rids, results, svc.clock() - t0,
-                                     plan.requests)
-                futs = [(self._futures.pop(rid, None), res) for rid, res in done]
-            # resolve OUTSIDE the lock: done-callbacks may submit
-            for f, res in futs:
-                if f is not None:
-                    f.set_result(res)
+            with spans.span("serve.complete"):
+                with self._lock:
+                    done = svc._complete(rids, results, svc.clock() - t0,
+                                         plan.requests)
+                    futs = [(self._futures.pop(rid, None), res) for rid, res in done]
+                # resolve OUTSIDE the lock: done-callbacks may submit
+                for f, res in futs:
+                    if f is not None:
+                        f.set_result(res)
 
     def _loop_pipelined(self):
         """The double-buffered worker: dispatch plan i+1 (lock-free — the
@@ -1218,18 +1228,19 @@ class AsyncDSEService:
                     if f is not None:
                         f.set_exception(e)
                 return
-            te = svc.clock()
-            with self._lock:
-                svc.stats.dispatch_gap_samples.append(max(0.0, th - td))
-                svc._inflight -= 1
-                if svc._inflight == 0:
-                    svc._last_harvest_end = te
-                done = svc._complete(rids, results, (td - t0) + (te - th),
-                                     plan.requests)
-                futs = [(self._futures.pop(rid, None), r) for rid, r in done]
-            for f, r in futs:
-                if f is not None:
-                    f.set_result(r)
+            with spans.span("serve.complete"):
+                te = svc.clock()
+                with self._lock:
+                    svc.stats.dispatch_gap_samples.append(max(0.0, th - td))
+                    svc._inflight -= 1
+                    if svc._inflight == 0:
+                        svc._last_harvest_end = te
+                    done = svc._complete(rids, results, (td - t0) + (te - th),
+                                         plan.requests)
+                    futs = [(self._futures.pop(rid, None), r) for rid, r in done]
+                for f, r in futs:
+                    if f is not None:
+                        f.set_result(r)
 
         prev = None  # (plan, rids, t0, pending, td) still in flight
         while True:

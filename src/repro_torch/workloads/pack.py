@@ -21,6 +21,8 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import spans
+
 # (fingerprint, tech, grid token) -> WorkloadTables on the CPU.  Keyed by
 # content, not by object, and capped: a service's request stream can carry
 # any number of distinct sets, so the memo is an LRU (a re-access
@@ -89,8 +91,9 @@ class WorkloadSet:
         key = (self.fingerprint(), tech, space.grid_token())
         hit = _TABLES_MEMO.get(key)
         if hit is None:
-            hit = _TABLES_MEMO[key] = build_tables_arrays(
-                self.feats.cpu(), self.mask.cpu(), tech)
+            with spans.span("tables.build", key="workload_set"):
+                hit = _TABLES_MEMO[key] = build_tables_arrays(
+                    self.feats.cpu(), self.mask.cpu(), tech)
         _TABLES_MEMO.move_to_end(key)
         cap = _tables_memo_cap()
         while len(_TABLES_MEMO) > cap:
