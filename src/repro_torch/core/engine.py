@@ -86,6 +86,7 @@ from repro_torch.core import distributed as mdist
 from repro_torch.core import prng as tf
 from repro_torch.core import space
 from repro_torch.core.ga import (
+    CapturePlan,
     GAResult,
     GAState,
     GAThin,
@@ -112,7 +113,12 @@ from repro_torch.imc.cost import _true_div, evaluate_designs_arrays, valid_vt_ma
 from repro_torch.imc.tables import WorkloadTables, evaluate_genomes_tables
 from repro_torch.imc.tech import TECH, TechParams
 from repro_torch.kernels.ga_gen_step.ops import ga_gen_step
-from repro_torch.kernels.imc_eval.ops import evaluate_designs_kernel_arrays
+from repro_torch.kernels.imc_eval.ops import (
+    design_stack,
+    evaluate_designs_kernel_arrays,
+    kernel_epilogue,
+    layer_sums,
+)
 from repro_torch.workloads.pack import WorkloadSet
 
 BACKENDS = ("dense", "kernel", "table")
@@ -187,7 +193,11 @@ def _ctx_eval(tech: TechParams, backend: str, tail: str = INDEXED,
     (scored under ``area_constr``).  The table callback of the indexed tail carries
     ``gen_step``, the ``ga_gen_step`` kernel wrapper, which the GA runs in
     place of its plain generation step; the kernel scores only that
-    tail, so the weighted and Pareto tails run the plain step."""
+    tail, so the weighted and Pareto tails run the plain step.  The dense
+    and kernel callbacks of every tail but Pareto carry a
+    ``capture_plan`` (``core.ga.CapturePlan``), so the GA replays their
+    plain generations on CUDA as graphs: one for the dense backend, and
+    for the kernel backend two around the ``imc_eval`` operator call."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     if tail == INDEXED:
@@ -221,6 +231,16 @@ def _ctx_eval(tech: TechParams, backend: str, tail: str = INDEXED,
         def ev(genomes, ctx):
             return evaluate_designs_kernel_arrays(
                 space.decode(genomes), ctx[0], ctx[1], tech)
+
+        def head(children, ctx):
+            d = space.decode(children)
+            return d, design_stack(d)
+
+        def call(mid, ctx):
+            return layer_sums(mid[1], ctx[0], ctx[1], tech)
+
+        def tail_scores(children, mid, sums, ctx):
+            return obj(kernel_epilogue(mid[0], sums, tech), ctx)
     else:
         def ev(genomes, ctx):
             return evaluate_designs_arrays(space.decode(genomes), ctx[0], ctx[1], tech)
@@ -233,6 +253,10 @@ def _ctx_eval(tech: TechParams, backend: str, tail: str = INDEXED,
             return ga_gen_step(pop, scores, u, ctx, tech=tech, **kw)
 
         eval_fn.gen_step = gen_step
+    elif backend == "kernel" and tail != PARETO:
+        eval_fn.capture_plan = CapturePlan(head=head, call=call, tail=tail_scores)
+    elif backend == "dense" and tail != PARETO:
+        eval_fn.capture_plan = CapturePlan()
     return eval_fn
 
 

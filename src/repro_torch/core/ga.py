@@ -28,6 +28,17 @@ whole-generation step for its ctx (the engine attaches the
 ``ga_gen_step`` kernel wrapper to its table-backend callback), which then
 replaces the plain step below.
 
+Captured generations: a callback may declare a ``capture_plan``
+(``CapturePlan``; the engine's dense and kernel callbacks do).  On CUDA
+populations ``run_ga_batched_segment`` then replays its plain generation
+from cached CUDA graphs over static buffers, in place of the step's ~190
+small operator calls: one graph, or two around the plan's eager ``call``
+(the ``imc_eval`` operator, which a device trace and the launch counter
+see as themselves).  A shape is captured on its second sighting, the first
+run eager (its warm-up); ``GRAPH_CACHE_KEYS`` shapes are kept, least
+recently used first.  A replay runs the same kernels on the same inputs as
+the eager step, so its bits are the eager step's.
+
 Segments: ``GAState`` is the loop's carry as a value (population, scores,
 the run's whole uniform stream and the generations applied), and
 ``run_ga_batched_segment`` advances it k generations.  The stream is drawn
@@ -51,7 +62,9 @@ peel syncs the host once every ``PEEL_BLOCK`` fronts, not once a front.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
+import threading
+from collections import OrderedDict
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -392,6 +405,194 @@ def init_ga_state_batched(eval_fn: Callable, init_genomes: torch.Tensor,
                    u=u_blocks.to(device=pop.device, dtype=torch.float32), gen=0)
 
 
+# ------------------------------------------------- captured generations
+GRAPH_CACHE_KEYS = 8  # shapes remembered, least recently used first
+
+
+class CapturePlan(NamedTuple):
+    """A callback's declaration that its plain generation may replay as
+    CUDA graphs.  Without ``call`` the whole generation is one graph.  With
+    it the generation splits around ``call``: graph A runs the variation
+    and ``head(children, ctx) -> mid`` (a tuple of tensors), the host makes
+    ``call(mid, ctx) -> out`` (one tensor) as an eager operator call, and
+    graph B runs ``tail(children, mid, out, ctx) -> child scores`` and the
+    survival.  The three composed must be the callback's scores, bit for
+    bit, and nothing in ``head`` or ``tail`` may read the host."""
+
+    head: Optional[Callable] = None
+    call: Optional[Callable] = None
+    tail: Optional[Callable] = None
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a ctx tree (tensors and tuples), in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, tuple):
+        return [t for sub in tree for t in _leaves(sub)]
+    raise TypeError(f"ctx leaves must be tensors or tuples, got {type(tree)}")
+
+
+def captures(eval_fn: Callable, pop: torch.Tensor) -> bool:
+    """Whether ``run_ga_batched_segment`` may replay this callback's
+    generations as CUDA graphs: it declares a ``capture_plan``, has no
+    ``gen_step`` of its own, and the populations are on a CUDA device
+    (and real: a fake trace captures nothing)."""
+    return (getattr(eval_fn, "capture_plan", None) is not None
+            and getattr(eval_fn, "gen_step", None) is None
+            and pop.device.type == "cuda" and type(pop) is torch.Tensor)
+
+
+def graph_key(eval_fn: Callable, pop: torch.Tensor, ctx, *, sbx_prob: float,
+              sbx_eta: float, mut_eta: float) -> tuple:
+    """What a captured generation depends on beyond the values in its
+    static buffers: the callback (its tech, backend and tail), the
+    populations' shape and device, every ctx tensor's shape and dtype, the
+    grid and the variation's parameters."""
+    return (eval_fn, tuple(pop.shape), str(pop.device),
+            tuple((tuple(t.shape), t.dtype) for t in _leaves(ctx)),
+            space.grid_token(), float(sbx_prob), float(sbx_eta), float(mut_eta))
+
+
+class _Graphs:
+    """One key's static buffers and its graphs, captured by the first
+    generation that runs from them.  A segment holds ``lock`` while it
+    uses them."""
+
+    def __init__(self, eval_fn: Callable, pop, scores, u, ctx, kw: dict):
+        self.eval_fn, self.plan, self.kw = eval_fn, eval_fn.capture_plan, kw
+        self.lock = threading.Lock()
+        self.device = pop.device
+        self.shape = tuple(pop.shape)
+        self.pop, self.scores = torch.empty_like(pop), torch.empty_like(scores)
+        self.u = torch.empty_like(u)
+        self.ctx = _map(torch.empty_like, ctx)
+        self.stream = None  # the stream of the last segment
+        self.ready = False  # graphs captured (a failed capture runs again)
+        self.graph_a = self.graph_b = None
+        self.mid = self.out = self.children = self.child_scores = None
+
+    def load(self, pop, scores, ctx) -> None:
+        """A segment's start: its state and ctx into the static buffers,
+        after the last segment's work if that ran on another stream."""
+        cur = torch.cuda.current_stream()
+        if self.stream is not None and self.stream != cur:
+            cur.wait_stream(self.stream)
+        self.stream = cur
+        self.pop.copy_(pop)
+        self.scores.copy_(scores)
+        for dst, src in zip(_leaves(self.ctx), _leaves(ctx)):
+            dst.copy_(src)
+
+    def _survive(self, children, child_scores) -> None:
+        new_pop, new_scores = survive(self.pop, self.scores, children, child_scores)
+        self.pop.copy_(new_pop)
+        self.scores.copy_(new_scores)
+        self.children, self.child_scores = children, child_scores
+
+    def _capture(self) -> None:
+        """Capture this key's graphs within its first generation: graph A
+        alone, or graph A, its replay and the eager call (whose output
+        becomes graph B's static input), then graph B.  Capture records on
+        a side stream and runs nothing, so unlike ``torch.cuda.graph`` it
+        neither waits for the card nor empties the allocators' caches."""
+        plan, ctx = self.plan, self.ctx
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream())
+
+        def record(body):
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(stream):
+                g.capture_begin(capture_error_mode="thread_local")
+                try:
+                    body()
+                finally:
+                    g.capture_end()
+            return g
+
+        def graph_a():
+            children = variation(self.pop, self.scores, self.u, **self.kw)
+            if plan.call is None:
+                self._survive(children, self.eval_fn(children, ctx))
+            else:
+                self.children, self.mid = children, plan.head(children, ctx)
+
+        self.graph_a = record(graph_a)
+        if plan.call is not None:
+            self.graph_a.replay()
+            self.out = plan.call(self.mid, ctx)
+            self.graph_b = record(lambda: self._survive(
+                self.children, plan.tail(self.children, self.mid, self.out, ctx)))
+        self.ready = True
+
+    def step(self, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One generation from the static state, which it advances; returns
+        fresh ``(children, child_scores)``."""
+        self.u.copy_(u)
+        if not self.ready:
+            with spans.span("ga.graph_capture", key=self.shape):
+                self._capture()
+        elif self.graph_b is not None:
+            self.graph_a.replay()
+            self.out.copy_(self.plan.call(self.mid, self.ctx))
+        (self.graph_b or self.graph_a).replay()
+        return self.children.clone(), self.child_scores.clone()
+
+
+class _GraphCache:
+    """Captured generations by ``graph_key``, at most ``cap`` keys, least
+    recently used first.  A key seen once holds a slot with no buffers: its
+    run was eager, and warmed up every lazy cache its capture needs."""
+
+    def __init__(self, cap: int):
+        self.cap = int(cap)
+        self._entries: "OrderedDict[tuple, Optional[_Graphs]]" = OrderedDict()
+        self._lock = threading.Lock()
+
+    def sight(self, key, make: Callable[[], "_Graphs"]) -> Optional["_Graphs"]:
+        """``key``'s entry, made by ``make`` on its second sighting; ``None``
+        on its first."""
+        with self._lock:
+            if key not in self._entries:
+                self._entries[key] = None
+                if len(self._entries) > self.cap:
+                    self._entries.popitem(last=False)
+                return None
+            self._entries.move_to_end(key)
+            entry = self._entries[key]
+            if entry is None:
+                entry = self._entries[key] = make()
+            return entry
+
+    def keys(self) -> list:
+        with self._lock:
+            return list(self._entries)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+
+
+GRAPHS = _GraphCache(GRAPH_CACHE_KEYS)
+
+
+def _captured_segment(graphs: _Graphs, state: GAState, ctx, gens: range):
+    """``gens`` generations replayed from ``graphs``: the segment's new
+    (population, scores) and its children and scores, one per generation."""
+    hist_g, hist_s = [], []
+    try:
+        with torch.cuda.device(graphs.device):
+            graphs.load(state.genomes, state.scores, ctx)
+            for g in gens:
+                with spans.span("ga.generation"), spans.span("ga.graph_replay"):
+                    children, child_scores = graphs.step(state.u[g])
+                hist_g.append(children)
+                hist_s.append(child_scores)
+            return (graphs.pop.clone(), graphs.scores.clone()), hist_g, hist_s
+    finally:
+        graphs.lock.release()
+
+
 def run_ga_batched_segment(
     state: GAState,
     eval_fn: Callable,
@@ -407,22 +608,36 @@ def run_ga_batched_segment(
     ``(new_state, (children (B, k, P, n), child_scores (B, k, P)))``.
     Generation g reads ``state.u[g]``, so chained segments covering the
     budget repeat ``run_ga_batched`` of ``total_generations`` bit for bit.
-    ``state`` is not modified; a failed segment can run again from it."""
+    ``state`` is not modified; a failed segment can run again from it.
+    Where ``captures(eval_fn, ...)``, the plain generations replay CUDA
+    graphs of their shape from the second sighting of it on (the same
+    bits); a segment that finds its shape's graphs in use by another
+    thread runs eagerly."""
     k, G, g0 = int(generations), int(total_generations), int(state.gen)
     if state.u.shape[0] != G:
         raise ValueError(f"state carries {state.u.shape[0]} generations' blocks, "
                          f"total_generations={G}")
     if k < 1 or g0 + k > G:
         raise ValueError(f"segment of {k} from generation {g0} exceeds {G}")
-    gen = make_gen_step(eval_fn, ctx, sbx_prob=sbx_prob, sbx_eta=sbx_eta,
-                        mut_eta=mut_eta)
+    kw = dict(sbx_prob=sbx_prob, sbx_eta=sbx_eta, mut_eta=mut_eta)
     pop, scores = state.genomes, state.scores
-    hist_g, hist_s = [], []
-    for g in range(g0, g0 + k):
-        with spans.span("ga.generation"):
-            pop, scores, children, child_scores = gen(pop, scores, state.u[g])
-        hist_g.append(children)
-        hist_s.append(child_scores)
+    graphs = None
+    if captures(eval_fn, pop):
+        graphs = GRAPHS.sight(graph_key(eval_fn, pop, ctx, **kw),
+                              lambda: _Graphs(eval_fn, pop, scores, state.u[g0], ctx, kw))
+        if graphs is not None and not graphs.lock.acquire(blocking=False):
+            graphs = None
+    if graphs is not None:
+        (pop, scores), hist_g, hist_s = _captured_segment(
+            graphs, state, ctx, range(g0, g0 + k))
+    else:
+        gen = make_gen_step(eval_fn, ctx, **kw)
+        hist_g, hist_s = [], []
+        for g in range(g0, g0 + k):
+            with spans.span("ga.generation"):
+                pop, scores, children, child_scores = gen(pop, scores, state.u[g])
+            hist_g.append(children)
+            hist_s.append(child_scores)
     new = GAState(genomes=pop, scores=scores, u=state.u, gen=g0 + k)
     return new, (torch.stack(hist_g, dim=1), torch.stack(hist_s, dim=1))
 
@@ -624,13 +839,19 @@ def run_pareto_batched(
     return (gh, oh, thin) if history else thin
 
 
-def _add_batch(tree):
+def _map(fn: Callable, tree):
+    """``fn`` over the tensors of a ctx tree (tensors and tuples, named
+    tuples kept)."""
     if isinstance(tree, torch.Tensor):
-        return tree.unsqueeze(0)
+        return fn(tree)
     if isinstance(tree, tuple):
-        items = [_add_batch(t) for t in tree]
+        items = [_map(fn, t) for t in tree]
         return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
     raise TypeError(f"ctx leaves must be tensors or tuples, got {type(tree)}")
+
+
+def _add_batch(tree):
+    return _map(lambda t: t.unsqueeze(0), tree)
 
 
 def run_ga(

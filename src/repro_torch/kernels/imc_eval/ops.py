@@ -12,14 +12,19 @@ returns the three layer sums, ``(B, W, P)`` each:
   the wrapper's shape errors (``check``), which the CUDA implementation
   raises word for word.
 
-``imc_eval_multi.launches`` counts kernel launches (never plain runs, and
-never a fake call).
+``imc_eval_sums`` is the same call with the three sums stacked
+``(3, B, W, P)``, the operator's own output.  ``imc_eval_multi.launches``
+counts kernel launches of both (never plain runs, and never a fake call).
 ``evaluate_designs_kernel_arrays`` is the drop-in for
 ``imc.cost.evaluate_designs_arrays`` behind ``backend="kernel"``: the
-design-global epilogue (leakage, area, fits, util, V/f validity) stays in
-PyTorch, as in the JAX package's ``kernels/imc_eval/ops.py``;
-``evaluate_designs_kernel`` is its ``WorkloadSet`` form, the drop-in for
-``imc.cost.evaluate_designs``.
+design stack (``design_stack``), one launch over the flattened batch
+(``layer_sums``), and the design-global epilogue (``kernel_epilogue``:
+leakage, area, fits, util, V/f validity) in PyTorch, as in the JAX
+package's ``kernels/imc_eval/ops.py``.  The three pieces are public so
+that a captured GA generation (``core.ga.CapturePlan``) can replay the
+first and the last as CUDA graphs and make the launch between them as
+an eager operator call.  ``evaluate_designs_kernel`` is the
+``WorkloadSet`` form, the drop-in for ``imc.cost.evaluate_designs``.
 """
 from __future__ import annotations
 
@@ -102,17 +107,17 @@ def lanes_per_design(B: int, P: int, W: int) -> int:
     return _lib().imc_eval_lanes(B, P, W)
 
 
-def imc_eval_multi(
+def imc_eval_sums(
     designs: torch.Tensor,  # (B, P, 9) float32
     feats: torch.Tensor,  # (B, W, L, 6) float32
     mask: torch.Tensor,  # (B, W, L) bool
     *,
     tech: TechParams = TECH,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Layer sums (energy, latency, demand), each (B, W, P)."""
+) -> torch.Tensor:
+    """Layer sums (energy, latency, demand) stacked, (3, B, W, P)."""
     dev = designs.device
     if dev.type == "cpu":
-        return ref.eval_workloads(designs, feats, mask, tech)
+        return torch.stack(ref.eval_workloads(designs, feats, mask, tech))
     if dev.type != "cuda":
         raise ValueError(f"imc_eval_multi: unsupported device {dev}")
     real = _launch.is_real(designs)
@@ -121,26 +126,45 @@ def imc_eval_multi(
     out = IMC_EVAL(designs, feats, mask, consts(tech))
     if real:
         imc_eval_multi.launches += 1
-    return out.unbind(0)
+    return out
+
+
+def imc_eval_multi(
+    designs: torch.Tensor,  # (B, P, 9) float32
+    feats: torch.Tensor,  # (B, W, L, 6) float32
+    mask: torch.Tensor,  # (B, W, L) bool
+    *,
+    tech: TechParams = TECH,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Layer sums (energy, latency, demand), each (B, W, P)."""
+    if designs.device.type == "cpu":
+        return ref.eval_workloads(designs, feats, mask, tech)
+    return imc_eval_sums(designs, feats, mask, tech=tech).unbind(0)
 
 
 imc_eval_multi.launches = 0
 
 
-def evaluate_designs_kernel_arrays(
-    d: DesignArrays,
-    feats: torch.Tensor,  # (..., W, L, 6)
-    mask: torch.Tensor,  # (..., W, L)
-    tech: TechParams = TECH,
-) -> EvalResult:
-    """EvalResult (..., P, W) with the layer sums from ``imc_eval_multi``
-    (one launch for every workload of every search on CUDA)."""
-    designs = torch.stack(list(d), dim=-1).to(torch.float32)  # (..., P, 9)
-    batch = designs.shape[:-2]
+def design_stack(d: DesignArrays) -> torch.Tensor:
+    """Decoded designs (..., P) per field -> the kernel's (..., P, 9) rows."""
+    return torch.stack(list(d), dim=-1).to(torch.float32)
+
+
+def layer_sums(designs: torch.Tensor, feats: torch.Tensor, mask: torch.Tensor,
+               tech: TechParams = TECH) -> torch.Tensor:
+    """``imc_eval_sums`` over any leading batch: designs (..., P, 9), feats
+    (..., W, L, 6), mask (..., W, L) -> (3, prod(...), W, P)."""
     W, L = feats.shape[-3], feats.shape[-2]
-    e, l, x = imc_eval_multi(designs.reshape(-1, *designs.shape[-2:]),
-                             feats.reshape(-1, W, L, 6),
-                             mask.reshape(-1, W, L), tech=tech)
+    return imc_eval_sums(designs.reshape(-1, *designs.shape[-2:]),
+                         feats.reshape(-1, W, L, 6), mask.reshape(-1, W, L), tech=tech)
+
+
+def kernel_epilogue(d: DesignArrays, sums: torch.Tensor,
+                    tech: TechParams = TECH) -> EvalResult:
+    """EvalResult (..., P, W) from the designs and their ``layer_sums``."""
+    batch = d.rows.shape[:-1]
+    W = sums.shape[-2]
+    e, l, x = sums.unbind(0)
     energy = e.transpose(-1, -2).reshape(*batch, -1, W)  # (..., P, W)
     latency = l.transpose(-1, -2).reshape(*batch, -1, W)
     demand = x.transpose(-1, -2).reshape(*batch, -1, W)
@@ -160,6 +184,17 @@ def evaluate_designs_kernel_arrays(
         valid=design_valid(d, tech),
         util=util,
     )
+
+
+def evaluate_designs_kernel_arrays(
+    d: DesignArrays,
+    feats: torch.Tensor,  # (..., W, L, 6)
+    mask: torch.Tensor,  # (..., W, L)
+    tech: TechParams = TECH,
+) -> EvalResult:
+    """EvalResult (..., P, W) with the layer sums from one kernel launch
+    for every workload of every search on CUDA."""
+    return kernel_epilogue(d, layer_sums(design_stack(d), feats, mask, tech), tech)
 
 
 def evaluate_designs_kernel(d: DesignArrays, ws: WorkloadSet, tech: TechParams = TECH

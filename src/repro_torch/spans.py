@@ -43,6 +43,10 @@ The names (``repro_torch.`` + name in a trace):
                      memo)
 ``engine.dispatch``  one launch (key: ``SearchEngine.launches`` after it)
 ``ga.generation``    the host's enqueue of one GA generation
+``ga.graph_replay``  in ``ga.generation``: a generation replayed from CUDA
+                     graphs (``core.ga.CapturePlan``)
+``ga.graph_capture`` in ``ga.graph_replay``: the capture of a shape's
+                     graphs (key: the populations' shape)
 ``engine.harvest``   the host half of a launch
 ``engine.sync``      the host blocked on a staged device-to-host copy
 ``engine.finalize``  host finalize of a launch's results
