@@ -37,6 +37,8 @@ from bench.harness.record import Run, delta
 
 
 class Driver:
+    slice_edge = None  # the traced slice's ``edge`` (``trace.traced``): none on one card
+
     def __init__(self, cfg: dict, traffic: dict, seed: int, device):
         from repro_torch.core.engine import SearchEngine
         from repro_torch.serve.dse import AsyncDSEService
@@ -193,7 +195,7 @@ def window(driver, traffic: dict, seconds: float, trace: bool, clock, slices: li
     c1 = driver.counters()
     wait = driver.wait_p95_s()
     if trace:
-        with tracing.traced(slices):
+        with tracing.traced(slices, edge=driver.slice_edge):
             driver.pump(clock() + float(traffic["trace_s"]))
     driver.stop()
     done = driver.completed_between(t0, t0 + seconds)

@@ -5,10 +5,15 @@ The traffic's kind names the driver (``bench/drivers/<kind>.py``) that
 makes the load and times the window: a sweep's rate is over whole calls, a
 service's over ``[t0, t0 + seconds]``.
 
-``setup_s`` is the time from the process's start to the window's start.
+``setup_s`` is the time from the process's start to the window's start
+(on several cards, the lead's: waiting for its followers and making the
+process group included); ``memory_peak_bytes`` is the fullest card's, and
+``busy_s`` / ``window_s`` the mean over the cards traced.
 The traced slice comes after the window, so nothing in the window is
 traced; the per-layer metrics that read host clocks and counters are taken
-from the window itself.
+from the window itself.  ``device_ms_per_search``, an end-to-end metric,
+reads the card's busy time over a slice that an untraced run's driver
+traces after its window (the sweep's ``device_calls``).
 """
 from __future__ import annotations
 
@@ -35,12 +40,21 @@ def measure(driver, traffic: dict, seconds: float, trace: bool,
     return run, t0
 
 
+def device_ms_per_search(run) -> float:
+    """The card's busy time (``trace.summarize``'s ``busy_s``) over the
+    slice that an untraced run's driver traced, per search made in it."""
+    return sum(t.busy_s for t in run.traces) * 1e3 / run.device_searches
+
+
 def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, *, t_start: float,
              device="cuda", chips: int = 1, control: bool = False,
-             spec: Optional[Spec] = None) -> dict:
+             spec: Optional[Spec] = None, world=None) -> dict:
     """One run of ``cell_name``; returns the result's line as a dict.
     ``control=True`` also judges the bfloat16 control on the same answers,
-    under ``out["control"]`` (``check.compare``)."""
+    under ``out["control"]`` (``check.compare``).  ``world`` is the lead's
+    ``ranks.Lead`` in a cell on several cards: this process is rank 0, and
+    the followers' peaks and traced slices join its own once its side is
+    closed."""
     spec = spec or Spec()
     cell = spec.cell(cell_name)
     cfg = spec.config(cell["config"])
@@ -63,6 +77,9 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, *, t_start:
           f"{t_warm - t_start:.3f}, window opens {setup_s:.3f}", file=sys.stderr)
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
     driver.close()
+    if world is not None:
+        peaks, run.follower_traces = world.collect()
+        peak = max([peak, *peaks])
     answers = driver.collected()
     del driver
     gc.collect()
@@ -78,8 +95,11 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, *, t_start:
     metrics = {}
     if not trace:
         values = {"searches_per_s": run.searches / run.window_s, "setup_s": setup_s}
+        if run.device_searches and run.traces:  # none where no card was traced
+            values["device_ms_per_search"] = device_ms_per_search(run)
         for m in spec.end_to_end(cell_name):
-            metrics[m["name"]] = {"value": values[m["name"]], "unit": m["unit"]}
+            if m["name"] in values:
+                metrics[m["name"]] = {"value": values[m["name"]], "unit": m["unit"]}
     else:
         for m in spec.per_layer(cell_name):
             v = spec.reader(m["name"])(run)
@@ -94,9 +114,10 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, *, t_start:
                    "kind": torch.cuda.get_device_name(dev) if cuda else dev.type,
                    "count": chips, "memory_peak_bytes": int(peak)},
     }
+    cards = run.traces + [t for t in run.follower_traces if t is not None]
     if trace and run.traces:
-        out["device"]["busy_s"] = float(np.mean([t.busy_s for t in run.traces]))
-        out["device"]["window_s"] = float(np.mean([t.window_s for t in run.traces]))
+        out["device"]["busy_s"] = float(np.mean([t.busy_s for t in cards]))
+        out["device"]["window_s"] = float(np.mean([t.window_s for t in cards]))
         t = run.traces[0]
         out["breakdown"] = {"device_ops": [list(x) for x in t.device_ops],
                             "idle_gaps": [list(x) for x in t.idle_gaps]}

@@ -16,7 +16,15 @@ Each is a context manager that patches the program while it is open:
   and its requests get answers of the first half;
 * ``altered_answer``: the first answer of each launch has its best score
   altered by one part in a thousand where it is produced (and so its
-  best-so-far's end).
+  best-so-far's end);
+* ``exchange_dropped``: on a mesh, every all-gather between the ranks
+  (``core.distributed.all_gather_cat``: the searches' results and seed
+  pools on the ``search`` axis) keeps only its first member's part, the
+  lead's rows, in every member's place: the exchange between cards left
+  out.  The collective still runs, so no rank waits on another.
+
+In a cell on several cards the harness plants the fault on every rank
+alike (``bench/harness/ranks.py``).
 """
 from __future__ import annotations
 
@@ -144,6 +152,20 @@ def altered_answer():
     return _finalizers(edit)
 
 
+def exchange_dropped():
+    from repro_torch.core import distributed as mdist
+
+    gather = mdist.all_gather_cat
+
+    def all_gather_cat(x, group, dim):
+        out = gather(x, group, dim)
+        n = out.shape[dim] // x.shape[dim]
+        return torch.cat([out.narrow(dim, 0, x.shape[dim])] * n, dim=dim)
+
+    return _patched(mdist, "all_gather_cat", all_gather_cat)
+
+
 FAULTS = {"frozen_step": frozen_step, "half_frozen": half_frozen,
           "half_joint_frozen": half_joint_frozen, "half_joint_copied": half_joint_copied,
-          "half_batch": half_batch, "altered_answer": altered_answer}
+          "half_batch": half_batch, "altered_answer": altered_answer,
+          "exchange_dropped": exchange_dropped}

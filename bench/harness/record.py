@@ -17,7 +17,11 @@ class Run:
     wait_p95_s: Optional[float] = None
     call_s: List[float] = dataclasses.field(default_factory=list)
     traces: List[tracing.Trace] = dataclasses.field(default_factory=list)
+    # ranks 1 .. chips - 1's slices in a cell on several cards (None: untraced)
+    follower_traces: List[Optional[tracing.Trace]] = dataclasses.field(default_factory=list)
     b1_layers: Dict[tuple, int] = dataclasses.field(default_factory=dict)
+    # searches in the slice traced for device_ms_per_search (0: none traced)
+    device_searches: int = 0
 
 
 def delta(c0: dict, c1: dict) -> dict:

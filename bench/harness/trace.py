@@ -6,9 +6,14 @@ the window's own numbers carry no tracing cost.  The raw kineto events are
 read directly (no FunctionEvent tree: a slice holds some 10^5 events):
 
 * busy time: the union of the device's activity intervals (kernels,
-  copies, sets) inside the slice, whatever stream they ran on;
-* idle gaps: the complement of that union inside the slice, each named by
-  the innermost host operation under way at its middle;
+  copies, sets) inside the slice, whatever stream they ran on, collectives
+  left out: a collective's kernel (a name starting ``nccl``) runs on while
+  it waits for its peers;
+* collective time: what the collectives' kernels add to that union, the
+  time in which a card ran only them;
+* the top device work: each kernel name's time, collectives included;
+* idle gaps: the complement of the busy union inside the slice, each named
+  by the innermost host operation under way at its middle;
 * kernel launches: each ``repro_torch::<kernel>`` operator with its input
   shapes, joined to the device activities it launched by the profiler's
   correlation ids.
@@ -23,7 +28,7 @@ import contextlib
 import dataclasses
 import heapq
 import re
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -42,31 +47,41 @@ class Launch:
 @dataclasses.dataclass
 class Trace:
     window_s: float
-    busy_s: float
+    busy_s: float  # collectives left out
     device_ops: List[Tuple[str, float]]  # top device activities by time
     idle_gaps: List[Tuple[str, float]]  # longest idle time by host op
     launches: List[Launch]
+    collective_s: float = 0.0  # a collective's kernel and nothing else on the card
 
 
 @contextlib.contextmanager
-def traced(out: list):
+def traced(out: list, edge: Optional[Callable[[str], None]] = None):
     """Trace the body on CPU and CUDA; appends the ``Trace`` (or ``None``
-    when the profiler cannot trace the card) to ``out``."""
+    when the profiler cannot trace the card) to ``out``.  ``edge``, where
+    the slice is shared with other processes' profilers, is called with
+    ``"open"`` once this profiler runs, ``"stop"`` when the body is done and
+    ``"stopped"`` once this profiler has stopped; the profiler then runs
+    outside the slice while the others start and stop theirs, so the top
+    device work is cut at the slice's edges too."""
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.cuda.is_available()
     prof = profile(activities=[ProfilerActivity.CPU]
                    + ([ProfilerActivity.CUDA] if cuda else []), record_shapes=True,
                    experimental_config=_all_threads())
+    mark = edge or (lambda _: None)
     prof.start()
+    mark("open")
     try:
         with torch.profiler.record_function(WINDOW_SPAN):
             yield
             if cuda:
                 torch.cuda.synchronize()
     finally:
+        mark("stop")
         prof.stop()
-    out.append(summarize(prof.profiler.kineto_results.events()))
+        mark("stopped")
+    out.append(summarize(prof.profiler.kineto_results.events(), clip=edge is not None))
 
 
 def _all_threads():
@@ -97,7 +112,18 @@ def short_name(name: str) -> str:
     return m.group(1) if m else name[:80]
 
 
-def summarize(events) -> Optional[Trace]:
+def is_collective(name: str) -> bool:
+    """A collective's kernel (NCCL's)."""
+    return name.lower().startswith("nccl")
+
+
+def _length(union: List[Tuple[int, int]]) -> int:
+    return sum(b - a for a, b in union)
+
+
+def summarize(events, clip: bool = False) -> Optional[Trace]:
+    """The slice's ``Trace``; ``clip`` cuts the top device work at the
+    slice's edges (``traced``'s ``edge``)."""
     cpu, dev = [], []
     for e in events:
         rec = (e.name(), e.start_ns(), e.start_ns() + e.duration_ns(),
@@ -110,11 +136,13 @@ def summarize(events) -> Optional[Trace]:
     if not dev or not win:
         return None
     w0, w1 = win[0][1], win[0][2]
-    union = _union([(max(a, w0), min(b, w1)) for _, a, b, *_ in dev if b > w0 and a < w1])
-    busy = sum(b - a for a, b in union)
+    inside = [(name, max(a, w0), min(b, w1)) for name, a, b, *_ in dev if b > w0 and a < w1]
+    union = _union([(a, b) for name, a, b in inside if not is_collective(name)])
+    busy = _length(union)
+    collective = _length(_union([(a, b) for _, a, b in inside])) - busy
 
     by_name: Dict[str, float] = {}
-    for name, a, b, *_ in dev:
+    for name, a, b in (inside if clip else [r[:3] for r in dev]):
         key = short_name(name)
         by_name[key] = by_name.get(key, 0.0) + (b - a) / 1e9
     device_ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
@@ -146,4 +174,4 @@ def summarize(events) -> Optional[Trace]:
     launches = [Launch(op=r[0], shapes=[list(s) for s in r[5].shapes()],
                        device_s=dev_s[c]) for c, r in ops.items() if c in dev_s]
     return Trace(window_s=(w1 - w0) / 1e9, busy_s=busy / 1e9, device_ops=device_ops,
-                 idle_gaps=idle_gaps, launches=launches)
+                 idle_gaps=idle_gaps, launches=launches, collective_s=collective / 1e9)

@@ -1,5 +1,6 @@
-"""Share (%) of the traced slice in which the card ran nothing: 1 minus the
-union of its activity over the slice's length; the mean over the cards."""
+"""Share (%) of the traced slice in which the card ran nothing but
+collectives: 1 minus the union of its other activity over the slice's
+length (``trace.summarize``'s ``busy_s``); the mean over the cards."""
 import numpy as np
 
 

@@ -1,0 +1,5 @@
+"""``launches_per_search`` in ``cnn4-sweep-kernel``, whose end-to-end metric besides
+``setup_s`` is ``device_ms_per_search``: the same reader."""
+from bench.harness.spec import Spec
+
+read = Spec().reader("launches_per_search")

@@ -70,7 +70,7 @@ def test_reader_reads_none_on_a_program_without_captured_generations(monkeypatch
 def test_the_metric_is_a_ga_span_metric_of_the_kernel_sweep():
     spec = Spec()
     [m] = [m for m in spec.data["per_layer"] if m["name"] == METRIC]
-    assert m["workloads"] == ["cnn4-sweep-kernel"] and m["moves"] == "searches_per_s"
+    assert m["workloads"] == ["cnn4-sweep-kernel"] and m["moves"] == "device_ms_per_search"
     assert m["layer"] == next(x["layer"] for x in spec.data["per_layer"]
                               if x["name"] == "gen_ms.ga")
     assert callable(spec.reader(METRIC))

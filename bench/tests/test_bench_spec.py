@@ -28,8 +28,10 @@ def test_every_name_resolves():
         assert all(callable(model.objective(o).score) for o in objectives)
         for m in spec.per_layer(w["name"]):
             assert callable(spec.reader(m["name"]))
-        assert {m["name"] for m in spec.end_to_end(w["name"])} >= {"setup_s", "searches_per_s"}
+        e2e = {m["name"] for m in spec.end_to_end(w["name"])}
+        assert "setup_s" in e2e and len(e2e) >= 2
         assert spec.per_layer(w["name"])
+        assert {m["moves"] for m in spec.per_layer(w["name"])} <= e2e
 
 
 def test_contract_shape():
@@ -99,7 +101,8 @@ def test_a_new_cell_is_new_files_and_entries(tmp_path):
 
 def _add_cell(tmp_path, mix_name, mix, cell, like, per_layer_like):
     """Copy the benchmark, add a traffic file, a limits file and a cell
-    entry (listed by the per-layer metrics of ``per_layer_like``)."""
+    entry (listed by the per-layer metrics of ``per_layer_like`` and by
+    ``searches_per_s``)."""
     shutil.copytree(ROOT / "bench", tmp_path / "bench")
     data = json.loads((ROOT / "BENCHMARK.json").read_text())
     (tmp_path / "bench/traffic" / f"{mix_name}.json").write_text(json.dumps(mix))
@@ -109,6 +112,9 @@ def _add_cell(tmp_path, mix_name, mix, cell, like, per_layer_like):
                               "chips": 1, "why": "x"})
     for m in data["per_layer"]:
         if per_layer_like in m["workloads"]:
+            m["workloads"].append(cell)
+    for m in data["end_to_end"]:
+        if m["name"] == "searches_per_s":
             m["workloads"].append(cell)
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(data))
     return Spec(tmp_path)
@@ -154,3 +160,28 @@ def test_an_open_loop_with_repeats_is_files_only(tmp_path):
     assert out["checks"]["unanswered"]["value"] == 0
     assert out["checks"]["score_gap"]["value"] < 1e-4
     assert 0 < out["metrics"]["searches_per_s"]["value"] < 80
+
+
+def test_the_kernel_sweeps_twins_read_as_their_originals():
+    """In ``cnn4-sweep-kernel`` each per-layer metric that moves
+    ``searches_per_s`` elsewhere is a twin named ``<metric>.sweep_kernel``
+    that moves ``device_ms_per_search``, with the original's reader."""
+    from bench.harness.record import Run
+
+    spec = Spec()
+    by_name = {m["name"]: m for m in spec.data["per_layer"]}
+    twins = [m for m in spec.data["per_layer"] if m["name"].endswith(".sweep_kernel")]
+    assert len(twins) == 11
+    run = Run(searches=400, window_s=2.0, counters={"launches": 90, "transfer_bytes": 4000},
+              call_s=[0.1, 0.3, 0.2])
+    for m in twins:
+        assert m["workloads"] == ["cnn4-sweep-kernel"] and m["moves"] == "device_ms_per_search"
+        base = by_name.get(m["name"][:-len(".sweep_kernel")])
+        if base is None:
+            assert m["name"] == "searches_per_s.sweep_kernel"
+            assert spec.reader(m["name"])(run) == 200.0
+            continue
+        assert "cnn4-sweep-kernel" not in base["workloads"]
+        assert {k: v for k, v in m.items() if k not in ("name", "moves", "workloads")} == \
+            {k: v for k, v in base.items() if k not in ("name", "moves", "workloads")}
+        assert spec.reader(m["name"])(run) == spec.reader(base["name"])(run)

@@ -78,3 +78,30 @@ def test_readers_on_the_slice():
     assert spec.reader("launches_per_search")(run) == 0.02
     assert spec.reader("host_bytes_per_search")(run) == 460.0
     assert spec.reader("latency_p95_ms.serve")(run) is None
+
+
+def test_collectives_are_left_out_of_busy_time():
+    """A collective's kernel waits for its peers: it counts as collective
+    time, not busy, where no other kernel runs beside it."""
+    evs = events() + [
+        Event("ncclDevKernel_AllGather_RING_LL(ncclDevKernelArgsStorage<4096ul>)", 550, 900,
+              dev=CUDA),
+        Event("ncclDevKernel_Broadcast_RING_LL(x)", 950, 1200, dev=CUDA),  # past the slice
+    ]
+    t = trace.summarize(evs)
+    assert t.busy_s == 300e-9  # as without the collectives
+    assert abs(t.collective_s - 350e-9) < 1e-18  # [600, 900] and [950, 1000]
+    assert dict(t.idle_gaps) == {"repro_torch::ga_gen_step": 300e-9,
+                                 "host: Python between operations": 400e-9}
+    assert dict(t.device_ops)["ncclDevKernel_Broadcast_RING_LL(x)"] == 250e-9
+    clipped = trace.summarize(evs, clip=True)
+    assert dict(clipped.device_ops)["ncclDevKernel_Broadcast_RING_LL(x)"] == 50e-9
+    assert (clipped.busy_s, clipped.collective_s) == (t.busy_s, t.collective_s)
+
+    from bench.harness.record import Run
+
+    run = Run(searches=1, window_s=1.0, counters={}, traces=[t], follower_traces=[t, None])
+    spec = Spec()
+    assert abs(spec.reader("device_idle_share")(run) - 70.0) < 1e-9
+    assert abs(spec.reader("follower_idle_share.mesh")(run) - 70.0) < 1e-9
+    assert abs(spec.reader("collective_wait_share.mesh")(run) - 35.0) < 1e-9

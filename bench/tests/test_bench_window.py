@@ -20,8 +20,9 @@ class FakeSweep:
         self.launches = 0
 
     def call(self, k):
-        self.clock.t += self.dts[k]
-        self.call_s.append(self.dts[k])
+        self.clock.t += self.dts[k] if k >= 0 else 0.05
+        self.call_s.append(self.dts[k] if k >= 0 else 0.05)
+        self.made = getattr(self, "made", []) + [k]
         self.launches += 9
         return 40
 
@@ -78,3 +79,36 @@ def test_service_rate_is_over_the_window():
     assert t0 == 0.5 and run.window_s == 2.0 and run.searches == 20
     assert run.searches / run.window_s == 10.0
     assert run.latencies_s == [pytest.approx(0.25)] * 20 and run.wait_p95_s == 0.1
+
+
+def test_the_device_slice_traces_fixed_calls_after_the_window(monkeypatch):
+    """A mix's ``device_calls`` trace calls -2, -3, ... after the window of
+    an untraced run (the same work whatever the window's length), and
+    ``device_ms_per_search`` is the slice's busy time over its searches."""
+    import contextlib
+
+    from bench.harness import cell
+    from bench.harness.spec import Spec
+    from bench.harness.trace import Trace
+
+    sweep = Spec().driver("sweep")
+
+    @contextlib.contextmanager
+    def traced(out, edge=None):
+        yield
+        out.append(Trace(window_s=1.0, busy_s=0.06, device_ops=[], idle_gaps=[], launches=[]))
+
+    monkeypatch.setattr(sweep.tracing, "traced", traced)
+    for dts in ([0.3] * 5, [0.6] * 5):
+        clock = Clock()
+        d = FakeSweep(clock, dts)
+        run, _ = measure(d, {"kind": "sweep", "device_calls": 3}, 1.0, False, clock=clock,
+                         window=sweep.window)
+        assert d.made[-3:] == [-2, -3, -4] and run.device_searches == 120
+        assert run.searches == 40 * (len(d.made) - 3) and run.call_s == dts[:len(d.made) - 3]
+        assert cell.device_ms_per_search(run) == pytest.approx(0.5)
+    clock = Clock()
+    d = FakeSweep(clock, [0.3] * 5)
+    run, _ = measure(d, {"kind": "sweep", "device_calls": 3, "trace_calls": 1}, 1.0, True,
+                     clock=clock, window=sweep.window)
+    assert d.made == [0, 1, 2, 3, 4] and run.device_searches == 0
